@@ -6,6 +6,12 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skipped without one"
+    )
+
+
 # ---------------------------------------------------------------------------
 # Optional-dependency shim: the CI image may lack `hypothesis`, which the
 # property tests import at module scope (collection would abort for the whole
