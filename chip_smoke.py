@@ -1,22 +1,34 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA H100: builds the kernels from this checkout's sources, holds each
-kernel against its plain PyTorch version at the main path's shapes, drives
-the Algorithm 1 path end to end through ``repro_torch.launch.train_mctm``
-(two-pass, then one-pass), and checks that every kernel of the path ran.
+kernel against its plain PyTorch version at its path's shapes, drives the
+Algorithm 1 path end to end through ``repro_torch.launch.train_mctm``
+(two-pass, then one-pass) and the LM serving path through ``ServeEngine`` at
+full width (tinyllama-1.1b, then mamba2-370m), and checks that every kernel
+of each path ran.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
   1. environment: card, power limit, torch/CUDA/nvcc versions, Triton, build time;
-  2. each kernel vs its plain version on the card, with times from CUDA events;
+  2. each kernel vs its plain version on the card, with times from CUDA events
+     (the four MCTM kernels, flash_attention and ssd);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, adam 250 steps at lr 0.05 for the coreset
      and the full-data fits), both strategies; every ratio must lie in its
      band; plus the path's scores and fit held against the plain (CPU) path
      on a small input;
-  4. launch census of the path's kernels.
+  4. the serve path: the reduced LMs on the card against the CPU at f32
+     (same greedy tokens, logits within 1e-4), then each full-width model
+     from a seeded generator on the card serving 8 greedy requests (prompts
+     256–1024 tokens, 32 new tokens each) through 4 slots of 2,048
+     positions; every logit finite, and the engine's logits held against a
+     single-request teacher-forced run of the same model; then, with
+     ``torch.profiler``, the device's busy time and idle share over one
+     1,024-token prefill and over 8 batched decode ticks;
+  5. launch census: each kernel counted over its own path's run.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-card's name and power limit; before that the ``kernels`` JSON line.
+card's name and power limit; before that the ``kernels`` JSON line. The
+numbers are also written to ``results/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12     # bf16 dense tensor cores, H100 SXM data sheet
 MAIN_N = 250_001
 CHUNK = 16_384
 SKETCH = 784                 # 4·(J·d)² at J = 2, d = 7
@@ -97,9 +110,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = H100_F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, lib_ms, nbytes, flops,
+               peak=H100_F32_FLOPS) -> dict:
+    """One row of the ``kernels`` line; launches are filled in from the path's run."""
+    b, by = bound_ms(nbytes, flops, peak)
+    log(f"kernel {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {b:.4f} ms ({by}; "
+        f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP at {peak / 1e12:g} TFLOP/s)")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+    }
 
 
 def max_err(a, b) -> float:
@@ -147,15 +174,8 @@ def phase_kernels(dev):
     rows_all = []
     errs = []
 
-    def row(name, source, replaces, err, ms, plain_ms, lib_ms, nbytes, flops):
-        b, by = bound_ms(nbytes, flops)
-        rows_all.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-        })
-        log(f"kernel {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {b:.4f} ms ({by})")
+    def row(*args, **kw):
+        rows_all.append(kernel_row(*args, **kw))
 
     # ---- bernstein: all n = 250,001 points at once (the dense featurize)
     A, Ap = bernstein_featurize(Y, bounds, cfg.degree)
@@ -348,6 +368,327 @@ def phase_small_agreement(dev):
     log(f"small input fit: final NLL {a:.6f} (card) vs {b:.6f} (CPU)")
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+SERVE_MODELS = ("tinyllama_1b", "mamba2_370m")
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 2048
+SERVE_PROMPTS = (256, 512, 768, 1024) * 2   # multiples of mamba2's chunk 256
+SERVE_NEW = 32
+# the engine's logits (4-slot batched decode) against a single-request run of
+# the same model fed the same tokens: bf16 rounds in other places when the
+# batch differs (other GEMM tilings), through 22 or 48 layers, so agreement
+# is held to 5e-2 of max|logits| (≈ 6 bf16 ulps at the largest logit)
+TEACHER_FORCED_REL = 5e-2
+
+
+def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
+    """The largest |got − o| / bound over the elements (≤ 1 passes), with o
+    and the bound from ``flash_attention.ref.bf16_error_bound``, and the
+    query position where it is reached."""
+    from repro_torch.kernels.flash_attention.ref import bf16_error_bound
+
+    o, bound = bf16_error_bound(q, k, v, causal=causal)
+    use = (got.float() - o).abs() / bound
+    at = int(use.argmax())
+    return float(use.flatten()[at]), at // (q.shape[2] * q.shape[3]) % q.shape[1]
+
+
+def phase_lm_kernels(dev):
+    """flash_attention and ssd against their plain versions at the serve
+    path's prefill shapes (and ragged, f32 and state-in/out variants)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_path
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd.ops import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    gen = torch.Generator().manual_seed(11)
+    rows, errs = [], []
+
+    # ---- flash_attention: tinyllama prefill, (1, 1024, 32, 64) q, 4 KV heads
+    B, S, H, KV, d = 1, 1024, 32, 4, 64
+
+    def qkv(S_, dtype):
+        t = torch.randn(B, S_, H + 2 * KV, d, generator=gen).to(dev, dtype)
+        return (t[:, :, :H].contiguous(), t[:, :, H:H + KV].contiguous(),
+                t[:, :, H + KV:].contiguous())
+
+    fa_err = 0.0
+    for S_, dtype, causal, tol in ((S, torch.bfloat16, True, 3e-2), (777, torch.bfloat16, True, 3e-2),
+                                   (S, torch.bfloat16, False, 3e-2), (S, torch.float32, True, 2e-5),
+                                   (777, torch.float32, False, 2e-5)):
+        q, k, v = qkv(S_, dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = max_err(got, ref)
+        fa_err = max(fa_err, e)
+        tag = f"S={S_} {str(dtype).split('.')[-1]} causal={causal} path={kernel_path(q)}"
+        ok = e <= tol and bool(torch.isfinite(got).all())
+        msg = f"  flash_attention {tag}: max abs err {e:.3e} (tol {tol:g})"
+        if dtype == torch.bfloat16:
+            use, row = fa_bound_use(got, q, k, v, causal)
+            ok = ok and use <= 1.0
+            msg += f", per-element bound use {use:.3f} (≤ 1) at query {row}"
+        log(msg)
+        if not ok:
+            errs.append(f"flash_attention {tag} disagrees: {e}")
+    q, k, v = qkv(S, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = H * B * S * (S + 1) / 2                   # (query, key) pairs the causal mask keeps
+    rows.append(kernel_row(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:62", fa_err,
+        cuda_ms(lambda: flash_attention(q, k, v)), cuda_ms(lambda: flash_attention_ref(q, k, v)),
+        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        nbytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * d * pairs,
+        peak=H100_BF16_FLOPS))
+
+    # ---- ssd: mamba2 prefill, (1, 1024, 32, 64) x, N = 128, chunk 256
+    T, H, P, N, Q = 1024, 32, 64, 128, 256
+
+    def ssd_inputs(T_, dtype):
+        xbc = torch.randn(B, T_, H * P + 2 * N, generator=gen).to(dev, dtype)
+        x = xbc[..., :H * P].reshape(B, T_, H, P)
+        Bm = xbc[..., H * P:H * P + N].reshape(B, T_, 1, N)
+        Cm = xbc[..., H * P + N:].reshape(B, T_, 1, N)
+        dt = (torch.rand(B, T_, H, generator=gen) * 0.1 + 0.005).to(dev)
+        A = -torch.linspace(1.0, 16.0, H).to(dev)  # -exp(A_log) of the model's init
+        s0 = torch.randn(B, H, P, N, generator=gen).to(dev)
+        return x, dt, A, Bm, Cm, s0
+
+    ssd_err = 0.0
+    for T_, dtype in ((T, torch.bfloat16), (1000, torch.bfloat16), (T, torch.float32),
+                      (1000, torch.float32)):
+        args = ssd_inputs(T_, dtype)
+        y, st = ssd_chunked(*args, chunk=Q)
+        yr, sr = ssd_chunked_ref(*args, chunk=Q)
+        torch.cuda.synchronize()
+        ytol = (1e-2 if dtype == torch.bfloat16 else 1e-4) * float(yr.float().abs().max())
+        stol = 1e-4 * float(sr.abs().max())
+        ey, es = max_err(y, yr), max_err(st, sr)
+        ssd_err = max(ssd_err, ey, es)
+        tag = f"T={T_} {str(dtype).split('.')[-1]} state0 nonzero"
+        log(f"  ssd {tag}: y max abs err {ey:.3e} (tol {ytol:.3e}), state {es:.3e} "
+            f"(tol {stol:.3e})")
+        if not (ey <= ytol and es <= stol and torch.isfinite(y).all()):
+            errs.append(f"ssd {tag} disagrees: y {ey}, state {es}")
+    args = ssd_inputs(T, torch.bfloat16)
+    tri = Q * (Q + 1) / 2
+    nc = T // Q
+    ssd_flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    ssd_bytes = 2 * 2 * B * T * H * P + 4 * B * T * H + 4 * H + 2 * 2 * B * T * N \
+        + 2 * 4 * B * H * P * N
+    rows.append(kernel_row(
+        "ssd", "src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:63", ssd_err,
+        cuda_ms(lambda: ssd_chunked(*args, chunk=Q)),
+        cuda_ms(lambda: ssd_chunked_ref(*args, chunk=Q)), None,
+        nbytes=ssd_bytes, flops=ssd_flops))
+    if errs:
+        fail("; ".join(errs))
+    return rows
+
+
+def phase_lm_small_agreement(dev):
+    """The reduced LMs served on the card and on the CPU from the same f32
+    weights: the same greedy tokens, logits within 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import GenerationConfig, Request, ServeEngine
+
+    for name in SERVE_MODELS:
+        cfg = get_reduced_config(name).replace(dtype="float32")
+        runs = {}
+        for where in ("cpu", str(dev)):
+            model = build_model(cfg, device="cpu", seed=5).to(where)
+            eng = ServeEngine(model, n_slots=2, max_len=80, device=where, keep_logits=True)
+            eng.cache["pos"] = torch.zeros(2, dtype=torch.int32, device=where)
+            rng = np.random.default_rng(6)
+            # the last request decodes long enough for the other, finished
+            # slot's pos to run past the cache's 80 positions
+            for i, (n, new) in enumerate(((16, 8), (48, 8), (7, 8), (32, 8), (4, 60))):
+                eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                                   gen=GenerationConfig(max_new_tokens=new)))
+            runs[where] = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+            if int(eng.cache["pos"].max()) <= 80:
+                fail(f"reduced {name}: no finished slot ran past the cache end")
+        e = max(float(np.abs(np.stack(a.logits) - np.stack(b.logits)).max())
+                for a, b in zip(runs[str(dev)], runs["cpu"]))
+        same = len(runs["cpu"]) == 5 and all(
+            a.output == b.output for a, b in zip(runs[str(dev)], runs["cpu"]))
+        log(f"small LM {name}: same greedy tokens {same}, max logit err {e:.3e}")
+        if not same or e > 1e-4:
+            fail(f"reduced {name} on the card disagrees with the CPU: tokens {same}, err {e}")
+
+
+PROFILE_TICKS = 8
+
+
+def profile_window(fn) -> dict:
+    """Host wall time of ``fn`` (ending in a device sync), the device's busy
+    time (the sum of its kernels' durations: one stream, so they do not
+    overlap), its idle share 1 − busy / wall, its launches and the kernels
+    with the most device time, from ``torch.profiler``."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = collections.defaultdict(float)
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            launches += 1
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us, "device_launches": launches,
+        "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
+    }
+
+
+def profile_serve(model, engine, prompts) -> dict:
+    """The serve path's two windows: one prefill of a 1,024-token prompt into
+    a 1-slot cache (as the engine admits a request), and PROFILE_TICKS
+    batched decode ticks with all slots live."""
+    from repro_torch.serve import GenerationConfig, Request
+
+    prompt = prompts[SERVE_PROMPTS.index(1024)]
+
+    def prefill():
+        cache = model.init_cache(1, SERVE_MAX_LEN)
+        logits, _ = model.prefill({"tokens": prompt[None, :]}, cache)
+        logits.float().cpu()
+
+    out = {"prefill_1024": profile_window(prefill)}
+    eng = engine()
+    for i, p in enumerate(prompts[:SERVE_SLOTS]):
+        eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
+    eng.step()  # admits every slot and runs the first tick
+    eng.step()
+
+    def ticks():
+        for _ in range(PROFILE_TICKS):
+            eng.step()
+
+    out[f"decode_{PROFILE_TICKS}_ticks"] = profile_window(ticks)
+    return out
+
+
+def phase_serve(dev):
+    """Each full-width model serving 8 requests through ServeEngine; returns
+    the launches of flash_attention and ssd over their serve runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.models import build_model
+    from repro_torch.serve import GenerationConfig, Request, ServeEngine
+
+    launches, records = {}, {}
+    for name in SERVE_MODELS:
+        cfg = get_config(name)
+        kernel = fa if cfg.family == "dense" else ssd
+        kname = "flash_attention" if cfg.family == "dense" else "ssd"
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPTS]
+
+        def engine():
+            eng = ServeEngine(model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev,
+                              keep_logits=True)
+            eng.cache["pos"] = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device=dev)
+            return eng
+
+        warm = engine()  # first calls: cuBLAS handles, allocator pools
+        warm.submit(Request(uid=-1, prompt=prompts[0], gen=GenerationConfig(max_new_tokens=2)))
+        warm.run_until_drained()
+        del warm
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine()
+        for mod in (fa, ssd):
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        count = kernel.LAUNCHES
+        launches[kname] = count
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        done.sort(key=lambda r: r.uid)
+        if len(done) != len(prompts) or any(len(r.output) != SERVE_NEW for r in done):
+            fail(f"{name}: {len(done)} of {len(prompts)} requests finished, outputs "
+                 f"{[len(r.output) for r in done]}")
+        if not all(np.isfinite(row).all() for r in done for row in r.logits):
+            fail(f"{name}: a logit is not finite")
+        if count != cfg.n_layers * len(prompts):
+            fail(f"{name}: {kname} launched {count} times, expected "
+                 f"{cfg.n_layers} layers × {len(prompts)} prefills")
+        # teacher-forced: a single-request run of the same model fed the engine's tokens
+        tf_err, tf_scale, agree = 0.0, 0.0, 0
+        for r in done:
+            cache = model.init_cache(1, SERVE_MAX_LEN)
+            logits, cache = model.prefill({"tokens": r.prompt[None, :]}, cache)
+            rows_ = [logits[0, -1].float().cpu().numpy()]
+            for tok in r.output[:-1]:
+                logits, cache = model.decode_step(np.asarray([[tok]]), cache)
+                rows_.append(logits[0, -1].float().cpu().numpy())
+            a, b = np.stack(r.logits), np.stack(rows_)
+            tf_err = max(tf_err, float(np.abs(a - b).max()))
+            tf_scale = max(tf_scale, float(np.abs(b).max()))
+            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        pre = np.asarray(eng.prefill_seconds) * 1e3
+        tick = np.asarray(eng.tick_seconds) * 1e3
+        rec = {
+            "model": cfg.name, "params": n_params, "load_s": load_s, "requests": len(done),
+            "prompt_tokens": int(sum(SERVE_PROMPTS)), "new_tokens": SERVE_NEW * len(done),
+            "prefill_ms": dict(zip(map(str, SERVE_PROMPTS[:4]),
+                                   [float(np.mean(pre[i::4])) for i in range(4)])),
+            "prefill_ms_mean": float(pre.mean()), "ticks": eng.ticks,
+            "decode_ms_per_tick_median": float(np.median(tick)),
+            "decode_ms_per_tick_mean": float(tick.mean()), "drain_s": drain_s,
+            "generated_tokens_per_s": SERVE_NEW * len(done) / drain_s,
+            "peak_memory_gb": peak_gb, f"{kname}_launches": count,
+            "teacher_forced_max_abs_err": tf_err, "teacher_forced_max_abs_logit": tf_scale,
+            "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(done)}",
+        }
+        records[name] = rec
+        log(f"serve {name}: " + json.dumps(rec))
+        if tf_err > TEACHER_FORCED_REL * tf_scale:
+            fail(f"{name}: engine logits differ from the single-request run by {tf_err} "
+                 f"(> {TEACHER_FORCED_REL} × {tf_scale})")
+        rec["profile"] = profile_serve(model, engine, prompts)
+        log(f"serve profile {name}: " + json.dumps(rec["profile"]))
+        del model, eng
+        torch.cuda.empty_cache()
+    return launches, records
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
@@ -360,13 +701,20 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_environment()
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_lm_kernels(dev)
     phase_small_agreement(dev)
     launches = phase_path(dev)
+    phase_lm_small_agreement(dev)
+    serve_launches, serve = phase_serve(dev)
+    launches.update(serve_launches)
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
-            fail(f"kernel {row['name']} was not launched on the main path")
+            fail(f"kernel {row['name']} was not launched on its path")
+    out_dir = os.path.join(ROOT, "results")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": kernels, "serve": serve}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,64 @@
+"""Architecture registry of the port: ``get_config(name)`` /
+``get_reduced_config(name)``.
+
+The ported architectures live in their own modules with the exact published
+numbers (copies of ``repro/configs/<id>.py``); ``reduced()`` shrinks each to
+CPU-test size (same family and topology, tiny widths). The reference's other
+architectures raise ``NotImplementedError`` naming the ROADMAP item that
+ports them. Random init only: no weights are downloaded.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_NAMES = ("tinyllama_1b", "mamba2_370m")
+
+# public ids → module names, the reference's full list
+ARCH_IDS = {
+    "phi-3-vision-4.2b": "phi3_vision_4b",
+    "olmo-1b": "olmo_1b",
+    "minicpm3-4b": "minicpm3_4b",
+    "tinyllama-1.1b": "tinyllama_1b",
+    "gemma-2b": "gemma_2b",
+    "arctic-480b": "arctic_480b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "whisper-medium": "whisper_medium",
+    "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+# architectures of the reference that the port does not carry yet
+UNPORTED = {
+    "phi3_vision_4b": "ROADMAP.md Queue A 14: vision prefix (phi3-vision)",
+    "olmo_1b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
+    "gemma_2b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
+    "minicpm3_4b": "ROADMAP.md Queue A 14: MLA (minicpm3)",
+    "arctic_480b": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
+    "qwen2_moe_a2_7b": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
+    "whisper_medium": "ROADMAP.md Queue A 14: encdec (whisper)",
+    "recurrentgemma_2b": "ROADMAP.md Queue A 14: hybrid with ring-cache local attention "
+                         "(recurrentgemma)",
+}
+
+
+def _module(name: str):
+    mod_name = ARCH_IDS.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name in UNPORTED:
+        raise NotImplementedError(f"{name} is not ported yet: {UNPORTED[mod_name]}")
+    if mod_name not in ARCH_NAMES:
+        raise ValueError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced_config(name: str) -> ModelConfig:
+    return _module(name).reduced()
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}

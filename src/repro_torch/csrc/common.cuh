@@ -8,10 +8,24 @@
 // ascending CTA order, so every sum is taken in the same order on every run.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Element loads and stores of the kernels that take bfloat16 or float32:
+// arithmetic is float32, conversions go through the intrinsics.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // Largest P-row width (Bernstein degree + 1) the templated kernels take.
 #define REPRO_MAX_DP 16

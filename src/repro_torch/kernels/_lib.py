@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "repro_bernstein_featurize": (_P, _L, _I, _I, _P, _P, _P, _P),
@@ -43,6 +44,14 @@ _SIGNATURES = {
     "repro_sweep": (
         _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    "repro_flash_attention": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F,
+        _P,
+    ),
+    "repro_ssd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+        _L, _L, _P,
     ),
 }
 _RESTYPES = {"repro_sweep_smem_bytes": _L}

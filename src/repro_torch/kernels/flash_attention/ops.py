@@ -1,0 +1,72 @@
+"""Flash-attention wrapper: the CUDA kernel (``csrc/flash_attention.cu``)
+for CUDA tensors, ``ref.py`` for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+MAX_D = 128
+LAUNCHES = 0
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_path(q: torch.Tensor) -> str:
+    """Which body of the kernel q's dtype and width take: "mma" (bf16 tensor
+    cores, d ∈ {16, 32, 64, 128}) or "simt" (f32 FMA, any other d ≤ 128)."""
+    return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in (16, 32, 64, 128) else "simt"
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned base and (b, s, h) strides, as the mma body loads rows."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    backend: str | None = None,
+) -> torch.Tensor:
+    """q (B, S, H, d), k/v (B, S, KV, d) with H % KV == 0, bf16 or f32 →
+    (B, S, H, d) in q's dtype. Causal masks key j > query i. Inputs are read
+    through their strides (unit stride along d); where the tensor-core body
+    takes them, an input whose base or strides are not 16-byte aligned is
+    copied first. The output is contiguous."""
+    global LAUNCHES
+    if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"flash_attention wants q (B, S, H, d), k/v (B, S, KV, d); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"H = {H} is not a multiple of KV = {KV}")
+    if _lib.resolve_backend(backend, q, "flash_attention") == "torch":
+        return flash_attention_ref(q, k, v, causal=causal)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the flash_attention kernel takes bf16 or f32, got {q.dtype}")
+    if d > MAX_D:
+        raise ValueError(f"the flash_attention kernel supports d ≤ {MAX_D}, got {d}")
+    if len({t.device for t in (q, k, v)}) != 1 or any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v must share one CUDA device and have unit stride along d")
+    path = kernel_path(q)
+    if path == "mma":
+        q, k, v = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+    _lib.check(
+        _lib.lib().repro_flash_attention(
+            _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), _DTYPES[q.dtype],
+            int(path == "mma"), B, S, H, KV, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), d ** -0.5, _lib.stream_ptr(q.device),
+        ),
+        "repro_flash_attention",
+    )
+    LAUNCHES += 1
+    return o

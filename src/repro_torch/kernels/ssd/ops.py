@@ -1,0 +1,74 @@
+"""SSD wrapper: the CUDA kernel (``csrc/ssd.cu``) for CUDA tensors,
+``ref.py`` for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+MAX_CHUNK = 256
+MAX_N = 128
+LAUNCHES = 0
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    state0: torch.Tensor | None = None,
+    *,
+    chunk: int,
+    backend: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, H, P), dt (B, T, H) f32 > 0, A (H,) f32 < 0, Bm/Cm
+    (B, T, 1, N) in x's dtype, state0 (B, H, P, N) f32 or None (zeros) →
+    (y (B, T, H, P) in x's dtype, state_T (B, H, P, N) f32). The scan runs
+    in chunks of ``chunk`` steps, in f32; T need not be a multiple of it."""
+    global LAUNCHES
+    Bt, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if dt.shape != (Bt, T, H) or A.shape != (H,) or Bm.shape != Cm.shape or Bm.shape[:2] != (Bt, T):
+        raise ValueError(
+            f"ssd_chunked shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+            f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}"
+        )
+    if Bm.shape[2] != 1:
+        raise ValueError(f"ssd_chunked shares B/C across heads (G = 1), got G = {Bm.shape[2]}")
+    if state0 is not None and state0.shape != (Bt, H, P, N):
+        raise ValueError(f"state0 must be {(Bt, H, P, N)}, got {tuple(state0.shape)}")
+    if _lib.resolve_backend(backend, x, "ssd") == "torch":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, state0, chunk=chunk)
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"the ssd kernel takes x, Bm, Cm in bf16 or f32 alike, got {x.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 or (
+        state0 is not None and state0.dtype != torch.float32
+    ):
+        raise ValueError("the ssd kernel takes dt, A and state0 in float32")
+    if not 0 < chunk <= MAX_CHUNK or N > MAX_N:
+        raise ValueError(f"the ssd kernel takes chunk ≤ {MAX_CHUNK} and N ≤ {MAX_N}")
+    if x.stride(3) != 1 or x.stride(2) != P or dt.stride(2) != 1 or Bm.stride(3) != 1 or (
+        Cm.stride(3) != 1
+    ):
+        raise ValueError("the ssd kernel reads x by (h, p) rows and dt, Bm, Cm with unit inner stride")
+    _lib.require_cuda(A, state0)
+    if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
+        raise ValueError("ssd_chunked inputs must lie on one CUDA device")
+    nc = -(-T // chunk)
+    y = torch.empty((Bt, T, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    cb = torch.empty((Bt, nc, chunk, chunk), dtype=torch.float32, device=x.device)
+    _lib.check(
+        _lib.lib().repro_ssd(
+            _lib.ptr(x), _lib.ptr(dt), _lib.ptr(A), _lib.ptr(Bm), _lib.ptr(Cm), _lib.ptr(state0),
+            _lib.ptr(y), _lib.ptr(state), _lib.ptr(cb), _DTYPES[x.dtype], Bt, T, H, P, N, chunk,
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1), _lib.stream_ptr(x.device),
+        ),
+        "repro_ssd",
+    )
+    LAUNCHES += 1
+    return y, state

@@ -4,7 +4,13 @@ present (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 Tolerances are chip_smoke.py's: bernstein atol 1e-6; gram 1e-5 of max|G|;
 extremes exact (same FMA chain on both sides); sweep 1e-6, moments atol 1e-4
-against the plain version in float64."""
+against the plain version in float64; flash_attention f32 atol 2e-5 and bf16
+atol 3e-2 (the reference's own bounds; the kernel rounds the softmax weights
+to bf16 for the tensor-core PV product), and bf16 also per element within
+``flash_attention.ref.bf16_error_bound`` (the roundings of the output and of
+the softmax weights, from the same inputs in f32); ssd 1e-4·max at f32 and 1e-2·max
+for a bf16 y (its rounding), the f32 state 1e-4·max; the reduced LMs' logits
+on the card against the CPU at f32 within 1e-4·max."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -115,3 +121,97 @@ def test_scoring_on_the_card_matches_the_cpu_path(dev):
         out = [ScoringEngine(cfg, scaler, chunk_size=700, device=where).score(
             Y, method="ridge-lss", generator=_g(0), hull_k=20, **kw) for where in ("cpu", dev)]
         np.testing.assert_allclose(out[1].scores, out[0].scores, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,dtype", [
+    (1, 1, 4, 1, 64, "bfloat16"), (2, 777, 8, 2, 64, "bfloat16"), (1, 130, 4, 4, 16, "bfloat16"),
+    (1, 200, 4, 2, 128, "bfloat16"), (1, 64, 2, 1, 48, "bfloat16"), (1, 100, 4, 2, 8, "float32"),
+    (2, 257, 4, 2, 128, "float32"),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = _g(S + d)
+    # q, k, v as views of one fused projection: the kernel reads them by strides
+    qkv = torch.randn(B, S, H + 2 * KV, d, generator=g).to(dev, getattr(torch, dtype))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    before = ops.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES == before + 1 and out.dtype == q.dtype and out.is_contiguous()
+    exp = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=0,
+                               atol=3e-2 if dtype == "bfloat16" else 2e-5)
+    if dtype == "bfloat16":
+        # per element against the f32 output on the same bf16 inputs
+        o, bound = ref.bf16_error_bound(q, k, v, causal=causal)
+        assert bool(((out.float() - o).abs() <= bound).all())
+
+
+def test_flash_attention_copies_misaligned_bf16_rows(dev):
+    """A bf16 input off the 16-byte grid runs the same tensor-core body on
+    an aligned copy: the same bits as the aligned input."""
+    from repro_torch.kernels.flash_attention import ops
+
+    B, S, H, KV, d = 1, 150, 4, 2, 64
+    n = B * S * (H + 2 * KV) * d
+    flat = torch.randn(n + 1, generator=_g(1)).to(dev, torch.bfloat16)
+    odd = flat[1:].view(B, S, H + 2 * KV, d)  # base 2 bytes off the grid
+    even = odd.clone()
+    assert odd.data_ptr() % 16 and ops.kernel_path(odd) == "mma"
+    outs = [ops.flash_attention(t[:, :, :H], t[:, :, H:H + KV], t[:, :, H + KV:])
+            for t in (odd, even)]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,dtype,with_state", [
+    (1, 1024, 4, 64, 128, 256, "bfloat16", True), (2, 100, 3, 16, 8, 32, "float32", True),
+    (1, 31, 2, 24, 16, 32, "float32", False), (1, 777, 2, 64, 128, 256, "float32", True),
+    (1, 5, 2, 32, 16, 5, "float32", True),
+])
+def test_ssd_kernel(dev, B, T, H, P, N, chunk, dtype, with_state):
+    from repro_torch.kernels.ssd import ops, ref
+
+    g = _g(T + P)
+    dt_ = getattr(torch, dtype)
+    # x, B and C as views of one conv output, as the model hands them over
+    xbc = torch.randn(B, T, H * P + 2 * N, generator=g).to(dev, dt_)
+    x = xbc[..., :H * P].reshape(B, T, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, T, 1, N)
+    Cm = xbc[..., H * P + N:].reshape(B, T, 1, N)
+    dt = (torch.rand(B, T, H, generator=g) * 0.1 + 0.005).to(dev)
+    A = -torch.exp(torch.linspace(0.0, np.log(16.0), H)).to(dev)
+    s0 = torch.randn(B, H, P, N, generator=g).to(dev) if with_state else None
+    before = ops.LAUNCHES
+    y, st = ops.ssd_chunked(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    assert ops.LAUNCHES == before + 1 and y.dtype == x.dtype and st.dtype == torch.float32
+    yr, sr = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, s0, chunk=chunk)
+    ytol = (1e-2 if dtype == "bfloat16" else 1e-4) * float(yr.float().abs().max())
+    torch.testing.assert_close(y.float(), yr.float(), rtol=0, atol=ytol)
+    torch.testing.assert_close(st, sr, rtol=0, atol=1e-4 * float(sr.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])
+def test_reduced_lm_on_the_card_matches_the_cpu_path(dev, name):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.models import build_model
+
+    cfg = get_reduced_config(name).replace(dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=3)
+    card = build_model(cfg, device="cpu", seed=3).to(dev)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    before = fa.LAUNCHES + ssd.LAUNCHES
+    outs = []
+    for model in (cpu, card):
+        cache = model.init_cache(2, 48)
+        logits, cache = model.prefill({"tokens": tokens}, cache)
+        seq = [logits.float().cpu()]
+        for _ in range(3):
+            nxt = seq[-1][:, -1].argmax(-1, keepdim=True).numpy()
+            logits, cache = model.decode_step(nxt, cache)
+            seq.append(logits.float().cpu())
+        outs.append(torch.cat(seq, 1))
+    assert fa.LAUNCHES + ssd.LAUNCHES == before + cfg.n_layers
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4 * float(outs[0].abs().max()))

@@ -1,0 +1,81 @@
+"""The port's flash-attention plain version (the CPU path of
+``repro_torch.kernels.flash_attention``) against the JAX package's Pallas
+kernel in interpret mode and against its ``attention_ref`` oracle, on the
+same numpy inputs.
+
+Tolerances are the reference's own (tests/test_kernels.py): f32 atol 2e-5
+(sums in another order), bf16 atol 3e-2 (the output's rounding; both sides
+keep the softmax weights in f32).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+
+
+def _inputs(B, S, H, KV, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, d), (B, S, KV, d), (B, S, KV, d)))
+
+
+def _oracle(q, k, v, causal):
+    """attention_ref on the flattened (B·H, S, d) layout, kv heads repeated."""
+    B, S, H, d = q.shape
+    g = H // k.shape[2]
+
+    def flat(a):
+        return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(B * H, S, d)
+
+    ref = attention_ref(flat(q), flat(np.repeat(k, g, 2)), flat(np.repeat(v, g, 2)), causal=causal)
+    return np.asarray(ref, np.float32).reshape(B, H, S, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,KV,d", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 8, 1, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_matches_pallas_kernel(B, S, H, KV, d, causal):
+    q, k, v = _inputs(B, S, H, KV, d, S + H)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               block_q=64, block_k=64))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got, _oracle(q, k, v, causal), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("S", [1, 37, 100, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_ragged_matches_attention_ref(S, causal):
+    """S that no block divides: the Pallas kernel refuses it, the oracle and
+    the port's kernel (which masks the ragged edge) take it."""
+    q, k, v = _inputs(2, S, 8, 2, 16, S)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    np.testing.assert_allclose(got, _oracle(q, k, v, causal), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_bf16_matches_pallas_kernel(causal):
+    q, k, v = (a.astype(jnp.bfloat16) for a in map(jnp.asarray, _inputs(1, 128, 2, 2, 64, 0)))
+    ref = np.asarray(jax_flash(q, k, v, causal=causal, block_q=64, block_k=64), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=3e-2)
+
+
+def test_flash_dispatch_follows_the_tensor():
+    q = torch.zeros(1, 4, 2, 8)
+    before = ops.LAUNCHES
+    ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert ops.LAUNCHES == before  # the CPU path launches nothing
+    with pytest.raises(ValueError, match="does not run on a cpu tensor"):
+        ops.flash_attention(q, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="unknown flash_attention backend"):
+        ops.flash_attention(q, q, q, backend="pallas")
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(torch.zeros(1, 4, 3, 8), q, q)

@@ -36,8 +36,21 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.core import mctm as TM
     from repro_torch.core import mctm_fit as TF
     from repro_torch.core import scoring as TS
+    from repro_torch.configs import get_reduced_config
     from repro_torch.launch import train_mctm
+    from repro_torch.models import build_model, model_from_jax
+    from repro_torch.serve import ServeEngine
 
+    lm_cfg = get_reduced_config("tinyllama_1b")
+    cpu_model = build_model(lm_cfg, device="cpu")
+    np_params = {
+        "emb": {k: v.float().numpy() for k, v in cpu_model.emb.items()},
+        "layers": {part: {k: np.stack([getattr(layer, part)[k].float().numpy()
+                                       for layer in cpu_model.layers])
+                          for k in getattr(cpu_model.layers[0], part)}
+                   for part in ("ln_attn", "ln_mlp", "attn", "mlp")},
+        "ln_f": {k: v.float().numpy() for k, v in cpu_model.ln_f.items()},
+    }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TM.MCTMConfig(J=2)
     Y = np.random.default_rng(0).normal(size=(50, 2)).astype(np.float32)
@@ -49,6 +62,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: TF.streamed_nll(cfg, scaler, TM.init_params(cfg, device="cpu"), Y),
         lambda: TM.init_params(cfg),
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1"]),
+        lambda: build_model(lm_cfg),
+        lambda: model_from_jax(lm_cfg, np_params),
+        lambda: ServeEngine(cpu_model),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -76,3 +92,62 @@ def test_dgp_copy_matches_reference():
     assert tuple(TDGPS) == tuple(DGPS)
     for name in DGPS:
         np.testing.assert_array_equal(tgenerate(name, 64, seed=5), generate(name, 64, seed=5))
+
+
+def _lm_cache_case(branch):
+    """A reduced tinyllama on the CPU and an attention call down ``branch``."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    cfg = get_reduced_config("tinyllama_1b").replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    attn = model.layers[0].attn
+    cache = model.init_cache(1, 16)
+    lc = {"k": cache["k"][0], "v": cache["v"][0], "pos": torch.tensor(3, dtype=torch.int32)}
+    x = torch.zeros(1, 4, cfg.d_model)
+    pos = torch.arange(4)
+    if branch == "prefill_into_nonempty_cache":
+        return lambda: L.attention_apply(attn, x, cfg, positions=pos, cache=lc)
+    if branch == "per_slot_multi_token":
+        lc["pos"] = torch.zeros(1, dtype=torch.int32)
+        return lambda: L.attention_apply(attn, x, cfg, positions=pos[None], cache=lc)
+    if branch == "no_cache":
+        return lambda: L.attention_apply(attn, x, cfg, positions=pos)
+    if branch == "local_window":
+        return lambda: L.attention_apply(attn, x[:, :1], cfg, positions=pos[:1], cache=lc, window=8)
+    if branch == "softcap":
+        return lambda: L.attention_apply(attn, x[:, :1], cfg.replace(logits_softcap=30.0),
+                                         positions=pos[:1], cache=lc)
+    if branch == "mla":
+        return lambda: L.attention_apply(attn, x[:, :1], cfg.replace(attn_type="mla"),
+                                         positions=pos[:1], cache=lc)
+    if branch == "bidirectional":
+        return lambda: L.attention_apply(attn, x, cfg, positions=pos, cache=lc, bidirectional=True)
+    raise AssertionError(branch)
+
+
+@pytest.mark.parametrize("what", [
+    "config:gemma_2b", "config:whisper-medium", "reduced:minicpm3_4b", "reduced:arctic_480b",
+    "family:moe", "family:hybrid", "family:encdec", "modality:vision",
+    "attention:prefill_into_nonempty_cache", "attention:per_slot_multi_token",
+    "attention:no_cache", "attention:local_window", "attention:softcap", "attention:mla",
+    "attention:bidirectional",
+])
+def test_unported_parts_raise_not_implemented(what):
+    """What the port does not carry raises NotImplementedError naming the
+    ROADMAP item — never plain code on a detour around a kernel."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    kind, arg = what.split(":")
+    tiny = configs.get_reduced_config("tinyllama_1b")
+    call = {
+        "config": lambda: configs.get_config(arg),
+        "reduced": lambda: configs.get_reduced_config(arg),
+        "family": lambda: build_model(tiny.replace(family=arg), device="cpu"),
+        "modality": lambda: build_model(tiny.replace(modality=arg), device="cpu"),
+        "attention": lambda: _lm_cache_case(arg)(),
+    }[kind]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()
