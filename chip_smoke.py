@@ -9,9 +9,15 @@ of each path ran.
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
-  1. environment: card, power limit, torch/CUDA/nvcc versions, Triton, build time;
-  2. each kernel vs its plain version on the card, with times from CUDA events
-     (the four MCTM kernels, flash_attention and ssd);
+  1. environment: card, power limit, torch/CUDA/nvcc versions, Triton, build time,
+     and ptxas's registers and spills of the redesigned bodies (flash_attention's
+     wgmma body, gram's cluster kernel);
+  2. each kernel vs its plain version on the card (the four MCTM kernels,
+     flash_attention and ssd), timed by CUDA events (``ms``, which also read the
+     host's issue rate) and by the device time of its kernels from
+     torch.profiler (``device_ms``); where one PyTorch call computes the same
+     function, kernel and call are timed in turns (kernel, call, call,
+     kernel) and their ratios printed;
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, adam 250 steps at lr 0.05 for the coreset
      and the full-data fits), both strategies; every ratio must lie in its
@@ -24,7 +30,8 @@ Phases (any failure exits nonzero):
      positions; every logit finite, and the engine's logits held against a
      single-request teacher-forced run of the same model; then, with
      ``torch.profiler``, the device's busy time and idle share over one
-     1,024-token prefill and over 8 batched decode ticks;
+     1,024-token prefill and over 8 batched decode ticks; tinyllama's prefills
+     must all take flash_attention's wgmma body (its own launch counter);
   5. launch census: each kernel counted over its own path's run.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,7 +96,31 @@ def phase_environment():
     _lib.lib()
     log(f"kernel library ready in {time.perf_counter() - t0:.2f}s "
         f"(nvcc build {_lib.BUILD_SECONDS if _lib.BUILD_SECONDS is not None else 'cached'}s)")
+    for line in ptxas_report(_lib.BUILD_LOG):
+        log(line)
     return smi.splitlines()[0] if smi else smi
+
+
+REDESIGNED = ("flash_wgmma_kernel", "gram_cluster_kernel")
+
+
+def ptxas_report(build_log: dict) -> list[str]:
+    """Registers, static shared memory and spills that ptxas reported for
+    the redesigned bodies, and every warning of the build."""
+    out = []
+    for src, text in build_log.items():
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            if "warning" in line.lower():
+                out.append(f"nvcc {src}: {line.strip()}")
+            if "Compiling entry function" in line and any(k in line for k in REDESIGNED):
+                name = next(k for k in REDESIGNED if k in line)
+                hd = re.search(r"ILi(\d+)E", line)  # the head width of a template
+                tmpl = f"<{hd.group(1)}>" if hd else ""
+                info = " | ".join(x.strip().replace("ptxas info    : ", "")
+                                  for x in lines[i + 2:i + 4])
+                out.append(f"ptxas {name}{tmpl}: {info}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -110,22 +142,60 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Per-call device time of ``fn``: the summed durations of the kernels
+    it launches over ``iters`` calls (``profile_window``), over ``iters``.
+    Unlike ``cuda_ms`` it does not read the host's issue rate."""
+    fn()
+    return profile_window(lambda: [fn() for _ in range(iters)])["device_busy_ms"] / iters
+
+
+def in_turns(kernel, library) -> dict:
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel), by CUDA events and by device time; ms are the means of each
+    pair, ratios kernel ÷ library."""
+    order = (kernel, library, library, kernel)
+    ev = [cuda_ms(f) for f in order]
+    dv = [device_ms(f) for f in order]
+    out = {"ms": (ev[0] + ev[3]) / 2, "library_ms": (ev[1] + ev[2]) / 2,
+           "device_ms": (dv[0] + dv[3]) / 2, "library_device_ms": (dv[1] + dv[2]) / 2,
+           "turns_ms": ev, "turns_device_ms": dv}
+    out["ratio"] = out["ms"] / out["library_ms"]
+    out["device_ratio"] = out["device_ms"] / out["library_device_ms"]
+    return out
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = H100_F32_FLOPS) -> tuple[float, str]:
     tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, lib_ms, nbytes, flops,
+def kernel_row(name, source, replaces, err, kernel, plain, library, nbytes, flops,
                peak=H100_F32_FLOPS) -> dict:
-    """One row of the ``kernels`` line; launches are filled in from the path's run."""
+    """One row of the ``kernels`` line, timing ``kernel``, ``plain`` and
+    ``library`` (None where no single PyTorch call computes the function;
+    otherwise timed in turns with the kernel); launches are filled in from
+    the path's run."""
     b, by = bound_ms(nbytes, flops, peak)
-    log(f"kernel {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {b:.4f} ms ({by}; "
+    if library is None:
+        t = {"ms": cuda_ms(kernel), "library_ms": None, "device_ms": device_ms(kernel),
+             "library_device_ms": None}
+    else:
+        t = in_turns(kernel, library)
+        log(f"kernel {name} in turns (kernel, library, library, kernel): events "
+            f"{[round(x, 5) for x in t['turns_ms']]} ms, ratio {t['ratio']:.3f}; device "
+            f"{[round(x, 5) for x in t['turns_device_ms']]} ms, ratio {t['device_ratio']:.3f}")
+    plain_ms = cuda_ms(plain)
+    lib = t["library_ms"]
+    log(f"kernel {name}: max_abs_err {err:.3e}  kernel {t['ms']:.5f} ms (device "
+        f"{t['device_ms']:.5f})  plain {plain_ms:.4f} ms  library "
+        f"{lib if lib is None else f'{lib:.5f}'} ms  bound {b:.5f} ms ({by}; "
         f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP at {peak / 1e12:g} TFLOP/s)")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+        "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+        "bound_ms": b, "bound_by": by, "library_ms": lib, "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
     }
 
 
@@ -187,22 +257,44 @@ def phase_kernels(dev):
     nv = MAIN_N * cfg.J
     row("bernstein", "src/repro_torch/csrc/bernstein.cu",
         "src/repro/kernels/bernstein/kernel.py:48", err,
-        cuda_ms(lambda: bernstein_featurize(Y, bounds, cfg.degree)),
-        cuda_ms(lambda: bernstein_featurize_ref(Y, bounds, cfg.degree)), None,
+        lambda: bernstein_featurize(Y, bounds, cfg.degree),
+        lambda: bernstein_featurize_ref(Y, bounds, cfg.degree), None,
         nbytes=4 * nv + 4 * bounds.numel() + 2 * 4 * nv * d,
         flops=nv * (7 + 2 * cfg.degree + 2 * d + 2 * cfg.degree + 3 * d))
+    # the fit's launches run at one chunk of rows, not at the whole n
+    Yc = Y[:CHUNK].contiguous()
+    nc = CHUNK * cfg.J
+    bc, _ = bound_ms(4 * nc + 4 * bounds.numel() + 2 * 4 * nc * d, 0)
+    log(f"  bernstein at one {CHUNK:,}-row chunk: device "
+        f"{device_ms(lambda: bernstein_featurize(Yc, bounds, cfg.degree)):.5f} ms, events "
+        f"{cuda_ms(lambda: bernstein_featurize(Yc, bounds, cfg.degree)):.5f} ms, "
+        f"bound {bc:.5f} ms (bytes)")
 
-    # ---- gram: one (16,384, 14) chunk, √w = 1 as on the main path
-    G = gram_matrix(X, sw)
-    Gr = gram_ref(X, sw)
+    # ---- gram: one (16,384, 14) chunk, √w = 1, accumulated into G as on
+    # the main path (pass1_update); one launch, bit-identical on every call
+    G0 = gram_ref(X[:4096], sw[:4096])
+    G = gram_matrix(X, sw, acc=G0)
+    Gr = gram_ref(X.double(), sw.double(), acc=G0.double())
+    again = [gram_matrix(X, sw, acc=G0) for _ in range(3)]
+    separate = G0 + gram_matrix(X, sw)
     torch.cuda.synchronize()
     err = max_err(G, Gr)
     if err > 1e-5 * float(Gr.abs().max()):
-        errs.append(f"gram disagrees with its plain version: {err}")
+        errs.append(f"gram disagrees with its plain version in float64: {err}")
+    if not all(torch.equal(G, a) for a in again) or not torch.equal(G, separate):
+        errs.append("gram is not bit-identical across calls, or with acc= against the add")
+    log(f"  gram vs float64: max abs err {err:.3e} of max|G| {float(Gr.abs().max()):.3e}; "
+        "bit-identical over repeated calls and with the separate add")
+    calls = 20
+    prof = profile_window(lambda: [gram_matrix(X, sw, acc=G0) for _ in range(calls)])
+    log(f"  gram: {prof['device_launches']} device kernels over {calls} calls with acc= "
+        f"({prof['top_kernels_ms']})")
+    if prof["device_launches"] != calls:
+        errs.append(f"gram ran {prof['device_launches']} device kernels over {calls} calls")
     row("gram", "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/kernel.py:30", err,
-        cuda_ms(lambda: gram_matrix(X, sw)), cuda_ms(lambda: gram_ref(X, sw)),
-        cuda_ms(lambda: torch.mm(X.T, X)),
-        nbytes=4 * (CHUNK * D + CHUNK + D * D), flops=CHUNK * (D + D * (D + 1)))
+        lambda: gram_matrix(X, sw, acc=G0), lambda: gram_ref(X, sw, acc=G0),
+        lambda: torch.mm(X.T, X),
+        nbytes=4 * (CHUNK * D + CHUNK + 2 * D * D), flops=CHUNK * (D + D * (D + 1)))
 
     # ---- extremes: P (32,768, 7) against both nets, whole, ragged, and tied
     Ptie = P.clone()
@@ -233,8 +325,8 @@ def phase_kernels(dev):
 
     row("extremes", "src/repro_torch/csrc/extremes.cu",
         "src/repro/kernels/extremes/kernel.py:66", ext_err,
-        cuda_ms(lambda: directional_extremes(P, dk)),
-        cuda_ms(lambda: directional_extremes_ref(P, dk)), cuda_ms(library_extremes),
+        lambda: directional_extremes(P, dk), lambda: directional_extremes_ref(P, dk),
+        library_extremes,
         nbytes=4 * (P.numel() + dk.numel() + 4 * m), flops=2 * m * P.shape[0] * d)
 
     # ---- sweep: sketch 784, with and without Ω, with and without moments
@@ -274,8 +366,8 @@ def phase_kernels(dev):
     mu = up.shape[0]
     row("sweep", "src/repro_torch/csrc/sweep.cu", "src/repro/kernels/sweep/kernel.py:136",
         sweep_err,
-        cuda_ms(lambda: fused_sweep_update(SX0, X, P, sw, rows_p, signs_p, dirs=up)),
-        cuda_ms(lambda: fused_sweep_ref(SX0, X, P, sw, rows_p, signs_p, dirs=up)), None,
+        lambda: fused_sweep_update(SX0, X, P, sw, rows_p, signs_p, dirs=up),
+        lambda: fused_sweep_ref(SX0, X, P, sw, rows_p, signs_p, dirs=up), None,
         nbytes=4 * (2 * CHUNK * D + P.numel() + 3 * CHUNK + up.numel() + 2 * SKETCH * D
                     + 4 * mu),
         flops=CHUNK * 2 * D + 2 * mu * P.shape[0] * d)
@@ -440,14 +532,31 @@ def phase_lm_kernels(dev):
     q, k, v = qkv(S, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pairs = H * B * S * (S + 1) / 2                   # (query, key) pairs the causal mask keeps
+    if kernel_path(q) != "wgmma":
+        errs.append(f"flash_attention takes the {kernel_path(q)} body at the serve shape")
     rows.append(kernel_row(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:62", fa_err,
-        cuda_ms(lambda: flash_attention(q, k, v)), cuda_ms(lambda: flash_attention_ref(q, k, v)),
-        cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
         nbytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * d * pairs,
         peak=H100_BF16_FLOPS))
+
+    # ---- flash_attention at d = 128, olmo-1b's heads (16 × 128, no GQA):
+    # checked and timed against SDPA in turns; not on this slice's path
+    q8, k8, v8 = (torch.randn(B, S, 16, 128, generator=gen).to(dev, torch.bfloat16)
+                  for _ in range(3))
+    got = flash_attention(q8, k8, v8)
+    use, at = fa_bound_use(got, q8, k8, v8, True)
+    if use > 1.0 or kernel_path(q8) != "wgmma":
+        errs.append(f"flash_attention d=128 uses {use} of its bound ({kernel_path(q8)} body)")
+    t8 = in_turns(lambda: flash_attention(q8, k8, v8),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      *(t.transpose(1, 2) for t in (q8, k8, v8)), is_causal=True))
+    log(f"  flash_attention d=128 (1, 1024, 16, 128) causal: bound use {use:.3f} at query {at}; "
+        f"device {t8['device_ms']:.5f} ms vs SDPA {t8['library_device_ms']:.5f} ms (ratio "
+        f"{t8['device_ratio']:.3f}, in turns {[round(x, 5) for x in t8['turns_device_ms']]})")
 
     # ---- ssd: mamba2 prefill, (1, 1024, 32, 64) x, N = 128, chunk 256
     T, H, P, N, Q = 1024, 32, 64, 128, 256
@@ -486,8 +595,7 @@ def phase_lm_kernels(dev):
         + 2 * 4 * B * H * P * N
     rows.append(kernel_row(
         "ssd", "src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:63", ssd_err,
-        cuda_ms(lambda: ssd_chunked(*args, chunk=Q)),
-        cuda_ms(lambda: ssd_chunked_ref(*args, chunk=Q)), None,
+        lambda: ssd_chunked(*args, chunk=Q), lambda: ssd_chunked_ref(*args, chunk=Q), None,
         nbytes=ssd_bytes, flops=ssd_flops))
     if errs:
         fail("; ".join(errs))
@@ -631,6 +739,7 @@ def phase_serve(dev):
         eng = engine()
         for mod in (fa, ssd):
             mod.LAUNCHES = 0
+        fa.PATH_LAUNCHES.update(dict.fromkeys(fa.PATH_LAUNCHES, 0))
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
@@ -649,6 +758,9 @@ def phase_serve(dev):
         if count != cfg.n_layers * len(prompts):
             fail(f"{name}: {kname} launched {count} times, expected "
                  f"{cfg.n_layers} layers × {len(prompts)} prefills")
+        bodies = dict(fa.PATH_LAUNCHES)
+        if cfg.family == "dense" and bodies["wgmma"] != count:
+            fail(f"{name}: the wgmma body took {bodies['wgmma']} of {count} launches {bodies}")
         # teacher-forced: a single-request run of the same model fed the engine's tokens
         tf_err, tf_scale, agree = 0.0, 0.0, 0
         for r in done:
@@ -677,6 +789,8 @@ def phase_serve(dev):
             "teacher_forced_max_abs_err": tf_err, "teacher_forced_max_abs_logit": tf_scale,
             "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(done)}",
         }
+        if cfg.family == "dense":
+            rec["flash_attention_launches_by_body"] = bodies
         records[name] = rec
         log(f"serve {name}: " + json.dumps(rec))
         if tf_err > TEACHER_FORCED_REL * tf_scale:

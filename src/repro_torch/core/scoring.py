@@ -125,9 +125,10 @@ def _mctm_featurize(cfg, scaler) -> Callable[[torch.Tensor], tuple]:
 
 
 def pass1_update(G, s1, s2, X, P, sw):
-    """Pass-1 accumulation: Gram of √w-scaled rows (gram kernel, √w fused)
-    plus the P first/second moments (``P is None`` skips them)."""
-    G = G + gram_matrix(X, sw)
+    """Pass-1 accumulation: Gram of √w-scaled rows added to G (gram kernel,
+    √w and the add fused) plus the P first/second moments (``P is None``
+    skips them)."""
+    G = gram_matrix(X, sw, acc=G)
     if P is not None:
         s1, s2 = _moments_update(s1, s2, P)
     return G, s1, s2

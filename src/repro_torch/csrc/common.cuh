@@ -3,9 +3,11 @@
 // Every kernel is exported through a plain C function that launches on the
 // caller's stream, allocates nothing (the Python wrapper hands in outputs
 // and scratch) and returns the cudaError_t of the launch, which the wrapper
-// checks. Reductions across CTAs never use atomics: each CTA writes its
-// partial to scratch and a second small kernel combines the partials in
-// ascending CTA order, so every sum is taken in the same order on every run.
+// checks. Reductions across CTAs never use float atomics, so every sum is
+// taken in the same order on every run: either each CTA writes its partial
+// to scratch and a second small kernel combines the partials in ascending
+// CTA order, or (gram) the CTAs form one cluster and its first CTA sums the
+// others' partials over distributed shared memory in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>

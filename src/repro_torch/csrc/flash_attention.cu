@@ -9,26 +9,40 @@
 // accumulator are f32; the output is in the input dtype; scale d^-0.5.
 //
 // Bound on the H100 at the serve path's prefill (1, 1024, 32, 64) bf16: the
-// causal work is 2·B·H·S²·d ≈ 4.3 GFLOP (≈ 4.3 µs at the 989 TFLOP/s bf16
-// tensor-core peak); the bytes are ≈ 9.4 MB (≈ 2.8 µs). Operations bound it.
+// causal work is 2·B·H·S²·d ≈ 4.30 GFLOP (≈ 4.35 µs at the 989 TFLOP/s bf16
+// tensor-core peak); the bytes are ≈ 9.4 MB (≈ 2.8 µs). Operations bound it,
+// and only wgmma reaches that tensor-core rate.
 //
-// Two bodies behind one entry point:
-//  - bf16 with d ∈ {16, 32, 64, 128}: tensor cores through mma.sync
-//    m16n8k16 (bf16 in, f32 accumulate) on 16-byte aligned rows (the
-//    wrapper copies an input that is not aligned). One CTA of four
-//    warps per (b·h, 64-row q tile); each warp owns 16 q rows whose Q
-//    fragments stay in registers. K and V tiles of 64 keys are staged in
-//    shared memory (rows padded by 8 bf16, so the fragment loads hit 32
-//    distinct banks); S = QKᵀ stays in registers, the online softmax runs on
-//    it in the log2 domain, and P is re-packed in registers as the A operand
-//    of PV (the FlashAttention-2 register layout). The softmax weights are
-//    rounded to bf16 for the PV product, as every bf16 flash kernel does;
-//    the running sum takes them in f32.
+// Three bodies behind one entry point:
+//  - bf16 with d ∈ {64, 128} (the zoo's dense heads): wgmma, fed by TMA.
+//    One CTA of three warpgroups per (b·h, 128-row q tile). Warpgroup 2
+//    drops to 24 registers (setmaxnreg) so that the two consumer
+//    warpgroups can hold 240 each; one of its threads loads Q once and
+//    keeps K and V tiles of 128 keys in flight through a two-stage ring of
+//    mbarriers, with TMA boxes of 64 columns in the 128-byte swizzle that
+//    the wgmma descriptors read (4-D tensor maps over the strided GQA
+//    views, encoded per call through cudaGetDriverEntryPoint, passed as
+//    __grid_constant__). Each consumer warpgroup owns 64 q rows: S = QKᵀ is
+//    wgmma m64n128k16 from shared memory, the online softmax runs on S in
+//    registers, and P, rounded to bf16, is the register A operand of
+//    O += PV, with V read MN-major (the transpose bit), so V needs no
+//    transposed copy. The mask is applied only on the tiles that the
+//    diagonal or the ragged end crosses.
+//  - bf16 with d ∈ {16, 32}: tensor cores through mma.sync m16n8k16 (bf16
+//    in, f32 accumulate). One CTA of four warps per (b·h, 64-row q tile);
+//    each warp owns 16 q rows whose Q fragments stay in registers. K and V
+//    tiles of 64 keys are staged in shared memory (rows padded by 8 bf16,
+//    so the fragment loads hit 32 distinct banks); S = QKᵀ stays in
+//    registers and P is re-packed in registers as the A operand of PV (the
+//    FlashAttention-2 register layout).
 //  - everything else (f32, or d not a multiple of 16, up to 128): plain f32
 //    FMA. Two threads per q row, each holding every other dimension of q and
 //    of the accumulator; K and V tiles of 32 keys in shared memory as f32.
-// Both skip key tiles above the diagonal, and launch the q tiles with the
-// most key tiles first.
+// The tensor-core bodies run the softmax in the log2 domain and round its
+// weights to bf16 for the PV product, as every bf16 flash kernel does; the
+// running sum takes them in f32. Every body skips key tiles above the
+// diagonal and launches the q tiles with the most key tiles first.
+#include <cuda.h>  // CUtensorMap and its enums (libcuda itself is not linked)
 #include <stdint.h>
 
 #include "common.cuh"
@@ -322,13 +336,483 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- wgmma body
+
+constexpr int kWgRows = 128;     // q rows per CTA: two consumer warpgroups × 64
+constexpr int kWgKeys = 128;     // keys per staged K/V tile
+constexpr int kWgStages = 2;     // K/V ring depth
+constexpr int kWgThreads = 384;  // warpgroups 0, 1 consume; warpgroup 2 loads
+constexpr int kChunk = 64;       // bf16 columns of one 128-byte swizzled chunk
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+
+template <int HD>
+struct WgLayout {  // byte offsets in dynamic shared memory, 1,024-aligned tiles
+  static constexpr int kQ = kWgRows * HD * 2;    // HD/64 chunks of 128 rows × 128 B
+  static constexpr int kKV = kWgKeys * HD * 2;   // one K or V tile, HD/64 chunks
+  static constexpr int kQChunk = kWgRows * 128;
+  static constexpr int kKVChunk = kWgKeys * 128;
+  static constexpr int q = 0;
+  static constexpr int k = kQ;
+  static constexpr int v = k + kWgStages * kKV;
+  static constexpr int bars = v + kWgStages * kKV;
+  // q_full, k_full[2], v_full[2], k_empty[2], v_empty[2]
+  static constexpr int bytes = bars + 16 * 8 + 1024;  // + slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of the 4-D (d, heads, S, B) map into shared memory; the
+// barrier counts its bytes (rows past S arrive as zeros).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x on the special-function unit (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The two consumer warpgroups take turns issuing their wgmmas (named
+// barriers 1 and 2 of 256 threads): one issues while the other runs its
+// softmax, so the tensor cores and the special-function units overlap.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across a wgmma.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D (64×128 f32) = A·B, plus D when scale_d: A 64×16 bf16 and B 16×128
+// bf16 both from shared memory, K-major (B as 128 rows of 16 k values).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64×64 f32) += A·B: A 64×16 bf16 in registers (each warp's 16 rows
+// in the mma.m16n8k16 A-fragment layout), B 16×64 bf16 from shared memory,
+// MN-major (transposed: each k row holds 64 contiguous columns).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// One CTA per (b·h, 128-row q tile), heaviest causal tiles first. Warpgroup
+// 2 gives up its registers and one of its threads streams Q once and the
+// K/V tiles through a two-stage ring with TMA; warpgroups 0 and 1 each own
+// 64 q rows: S = QKᵀ by wgmma from shared memory, the online softmax on S
+// in registers (log2 domain, f32), P re-packed in registers as the A
+// operand of O += PV, V read MN-major (transposed) from its tile.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       int S, int H, int KV, float scale_log2, int causal) {
+  using L = WgLayout<HD>;
+  constexpr int kChunks = HD / kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 3;
+  uint64_t* k_empty = bars + 5;
+  uint64_t* v_empty = bars + 7;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int qtile = gridDim.y - 1 - blockIdx.y;  // most key tiles first
+  const int q0 = qtile * kWgRows;
+  const int n_kv = (S + kWgKeys - 1) / kWgKeys;
+  const int n_tiles = causal ? min(n_kv, qtile + 1) : n_kv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(smem + L::q + c * L::kQChunk, &qmap, q_full, c * kChunk, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kWgStages, ph = (j / kWgStages) & 1;
+        mbar_wait(&k_empty[st], ph ^ 1);
+        mbar_expect_tx(&k_full[st], L::kKV);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(smem + L::k + st * L::kKV + c * L::kKVChunk, &kmap, &k_full[st],
+                      c * kChunk, kvh, j * kWgKeys, b);
+        mbar_wait(&v_empty[st], ph ^ 1);
+        mbar_expect_tx(&v_full[st], L::kKV);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(smem + L::v + st * L::kKV + c * L::kKVChunk, &vmap, &v_full[st],
+                      c * kChunk, kvh, j * kWgKeys, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows q0 + 64·wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wt = threadIdx.x % 128, warp = wt >> 5, lane = wt & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rlo = q0 + wg * 64;
+    const int r0 = rlo + warp * 16 + g, r1 = r0 + 8;
+
+    float acc[kChunks][32];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    float m0 = -1e30f, m1 = -1e30f;  // running max of rows r0, r1 (log2 domain)
+    float l0 = 0.f, l1 = 0.f;        // this thread's share of the running sums
+    float s[64];                     // S of one tile, then its softmax weights
+    uint32_t p[kWgKeys / 16][4];     // the weights in bf16, the A operand of PV
+    const uint8_t* qs = smem + L::q + wg * 64 * 128;
+
+    // S = Q Kᵀ of tile j, 64 rows × 128 keys, issued and committed (not
+    // waited for); a k16 step advances 32 B inside a 128-byte row, then to
+    // the next 64-column chunk
+    auto issue_s = [&](int j) {
+      const uint8_t* ks = smem + L::k + (j % kWgStages) * L::kKV;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk & 3) * 32;
+        wgmma_ss_n128(s, sw128_desc(qs + (kk >> 2) * L::kQChunk + off, 16, 1024),
+                      sw128_desc(ks + (kk >> 2) * L::kKVChunk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of tile j: 16 keys (two 8-row groups, 1,024 B apart) per k
+    // step, one wgmma per 64-column chunk of V; issued and committed
+    auto issue_pv = [&](int j) {
+      const uint8_t* vs = smem + L::v + (j % kWgStages) * L::kKV;
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+          wgmma_rs_n64_tb(acc[c], p[kk],
+                          sw128_desc(vs + c * L::kKVChunk + kk * 16 * 128, 1024, 1024));
+      wgmma_commit();
+    };
+    // one arrival per warp on a stage's "empty" barrier (count 8)
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // the online softmax of tile j on s: mask only where the diagonal or
+    // the ragged end crosses the tile, weights exp2(s·scale − m) in place;
+    // returns the factors that rescale the accumulator rows
+    auto softmax = [&](int j, float& al0, float& al1) {
+      const int k0 = j * kWgKeys;
+      if ((causal && k0 + kWgKeys - 1 > rlo) || k0 + kWgKeys > S) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int key = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
+          const int row = (i & 2) ? r1 : r0;
+          if (key >= S || (causal && key > row)) s[i] = -CUDART_INF_F;
+        }
+      }
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int nb = 0; nb < kWgKeys / 8; ++nb) {
+        mx0 = fmaxf(mx0, fmaxf(s[nb * 4], s[nb * 4 + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nb * 4 + 2], s[nb * 4 + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      al0 = ex2(m0 - mn0);
+      al1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kWgKeys / 8; ++nb) {
+        s[nb * 4] = ex2(fmaf(s[nb * 4], scale_log2, -mn0));
+        s[nb * 4 + 1] = ex2(fmaf(s[nb * 4 + 1], scale_log2, -mn0));
+        s[nb * 4 + 2] = ex2(fmaf(s[nb * 4 + 2], scale_log2, -mn1));
+        s[nb * 4 + 3] = ex2(fmaf(s[nb * 4 + 3], scale_log2, -mn1));
+        rs0 += s[nb * 4] + s[nb * 4 + 1];
+        rs1 += s[nb * 4 + 2] + s[nb * 4 + 3];
+      }
+      l0 = l0 * al0 + rs0;
+      l1 = l1 * al1 + rs1;
+    };
+    // rescale O by the new tile's factors, then pack its weights in the
+    // A-fragment layout: keys 16kk .. 16kk + 15 per k step
+    auto rescale_and_pack = [&](float al0, float al1) {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          acc[c][nb * 4] *= al0;
+          acc[c][nb * 4 + 1] *= al0;
+          acc[c][nb * 4 + 2] *= al1;
+          acc[c][nb * 4 + 3] *= al1;
+        }
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    // Software pipeline: while the softmax of tile j runs on the CUDA
+    // cores, the tensor cores finish S of tile j and O += P V of tile j − 1
+    // (this warpgroup's) and the other warpgroup's products.
+    float al0, al1;
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+    mbar_wait(q_full, 0);
+    mbar_wait(&k_full[0], 0);
+    turn_wait(wg);
+    wgmma_fence();
+    issue_s(0);
+    turn_pass(wg);
+    wgmma_wait<0>();
+    pin(s);
+    release(&k_empty[0]);
+    softmax(0, al0, al1);
+    rescale_and_pack(al0, al1);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % kWgStages, prev = (j - 1) % kWgStages;
+      mbar_wait(&k_full[st], (j / kWgStages) & 1);
+      mbar_wait(&v_full[prev], ((j - 1) / kWgStages) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      turn_pass(wg);
+      wgmma_wait<1>();  // S of tile j
+      pin(s);
+      release(&k_empty[st]);
+      softmax(j, al0, al1);
+      wgmma_wait<0>();  // PV of tile j − 1
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) pin(acc[c]);
+      pin(p);
+      release(&v_empty[prev]);
+      rescale_and_pack(al0, al1);
+    }
+    const int last = n_tiles - 1;
+    mbar_wait(&v_full[last % kWgStages], (last / kWgStages) & 1);
+    turn_wait(wg);
+    wgmma_fence();
+    issue_pv(last);
+    turn_pass(wg);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) pin(acc[c]);
+    pin(p);
+    release(&v_empty[last % kWgStages]);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const long long row_stride = (long long)H * HD;
+    __nv_bfloat16* ob = o + ((long long)b * S * H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int col = c * kChunk + nb * 8 + t4 * 2;
+        if (r0 < S)
+          *reinterpret_cast<uint32_t*>(ob + r0 * row_stride + col) =
+              pack_bf16(acc[c][nb * 4] * inv0, acc[c][nb * 4 + 1] * inv0);
+        if (r1 < S)
+          *reinterpret_cast<uint32_t*>(ob + r1 * row_stride + col) =
+              pack_bf16(acc[c][nb * 4 + 2] * inv1, acc[c][nb * 4 + 3] * inv1);
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda through the runtime's entry-point
+// query, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (d, heads, S, B) of a bf16 (B, S, heads, d) view with the
+// given (b, s, h) element strides, boxes of 64 columns × rows positions of
+// one head, 128-byte swizzle, zeros past every edge.
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int d, Strides st,
+              int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kChunk, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                 int KV, Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
+                 cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, S, H, HD, qs, kWgRows) || !make_map(&km, k, B, S, KV, HD, ks, kWgKeys) ||
+      !make_map(&vm, v, B, S, KV, HD, vs, kWgKeys))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgLayout<HD>::bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
+  flash_wgmma_kernel<HD><<<grid, kWgThreads, WgLayout<HD>::bytes, st>>>(
+      qm, km, vm, (__nv_bfloat16*)o, S, H, KV, scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, S, H, d), k and v (B, S, KV, d) with unit d stride, read through the
 // given (b, s, h) strides in elements; o (B, S, H, d) contiguous. dtype 0 is
-// float32, 1 bfloat16. path 1 asks for the tensor-core body (bf16, d a
-// multiple of 16 up to 128, every pointer and row stride 16-byte aligned),
-// path 0 for the f32-FMA body (d ≤ 128). scale multiplies q·k.
+// float32, 1 bfloat16. path 2 asks for the wgmma body (bf16, d ∈ {64, 128}),
+// path 1 for the mma.sync body (bf16, d ∈ {16, 32}), both with every pointer
+// and (b, s, h) stride 16-byte aligned; path 0 for the f32-FMA body
+// (d ≤ 128). scale multiplies q·k.
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                        int dtype, int path, int B, int S, int H, int KV, int d,
                                        long long qsb, long long qss, long long qsh,
@@ -341,31 +825,25 @@ REPRO_EXPORT int repro_flash_attention(const void* q, const void* k, const void*
   if (B == 0 || S == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  const float sl2 = scale * 1.4426950408889634f;
+  if (path == 2) {
+    if (dtype != 1 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+    if (d == 64) return launch_wgmma<64>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
+    return launch_wgmma<128>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
+  }
   if (path == 1) {
-    if (dtype != 1 || d % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (dtype != 1 || (d != 16 && d != 32)) return (int)cudaErrorInvalidValue;
     const dim3 grid(B * H, (S + kMmaRows - 1) / kMmaRows);
-    const float sl2 = scale * 1.4426950408889634f;
     const __nv_bfloat16* qp = (const __nv_bfloat16*)q;
     const __nv_bfloat16* kp = (const __nv_bfloat16*)k;
     const __nv_bfloat16* vp = (const __nv_bfloat16*)v;
     __nv_bfloat16* op = (__nv_bfloat16*)o;
-    switch (d) {
-      case 16:
-        flash_mma_kernel<16><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks, vs,
-                                                           sl2, causal);
-        break;
-      case 32:
-        flash_mma_kernel<32><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks, vs,
-                                                           sl2, causal);
-        break;
-      case 64:
-        flash_mma_kernel<64><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks, vs,
-                                                           sl2, causal);
-        break;
-      default:
-        flash_mma_kernel<128><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks,
-                                                            vs, sl2, causal);
-    }
+    if (d == 16)
+      flash_mma_kernel<16><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks, vs,
+                                                         sl2, causal);
+    else
+      flash_mma_kernel<32><<<grid, kMmaThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, qs, ks, vs,
+                                                         sl2, causal);
     return (int)cudaGetLastError();
   }
   if (dtype == 0)

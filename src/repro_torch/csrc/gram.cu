@@ -1,105 +1,308 @@
-// Gram matrix G = (√w·X)ᵀ(√w·X) of one chunk of basis rows.
+// Gram matrix G = acc + (√w·X)ᵀ(√w·X) of one chunk of basis rows, in one
+// launch.
 //
 // Replaces: src/repro/kernels/gram/kernel.py:gram_kernel (the TPU kernel
 // revisits one (D, D) VMEM block across a sequential grid of row blocks).
-// On the H100 the CTAs run in no order, so each CTA accumulates the Gram of
-// its own rows and writes it to scratch; a second kernel sums the partials
-// in ascending CTA order and mirrors the triangle. No atomics: the sum is
-// taken in the same order on every run.
 //
-// Bound on the H100: bytes, and at the main path's shapes launch latency.
-// A chunk is 16,384 × 14 f32 = 0.9 MB (≈0.3 µs at 3.35 TB/s) and 2·D² flops
-// per row (≈6.4 MFLOP). Design: rows staged through shared memory in tiles,
-// one thread per upper-triangle entry (D(D+1)/2 = 105 at D = 14) summing
-// its products with a compensated f32 sum, √w applied while staging.
+// Bound on the H100: bytes — a chunk is 16,384 × 14 f32 = 0.9 MB (≈ 0.3 µs
+// at 3.35 TB/s) for 2·D² flops a row (≈ 6.4 MFLOP) — and below that a
+// launch's own latency, so the design spends exactly one launch per call:
+//
+//  - One thread-block cluster of C ≤ 16 CTAs (C = ⌈n/512⌉ capped at 16; 16
+//    needs the non-portable cluster size). CTA c copies its contiguous
+//    span of rows into shared memory with 16-byte cp.async, in stages of
+//    ≤ 8,192 floats, two in flight (at the path's 16,384 × 14 chunk the
+//    whole 1,024-row span is in flight at once), and √w with it; √w
+//    scales each value as a row is read for the products.
+//  - Every thread works: the upper triangle of 4×4 blocks of G (10 blocks
+//    at D = 14) times G_r row groups fills ≥ 377 threads of ≤ 512, each
+//    summing a 4×4 block over the rows of its group (four 8-byte shared
+//    loads, eight multiplies by √w and 16 FMAs a row at even D). A stage's
+//    products are summed plainly (≤ 12 rows a thread at D = 14), and the
+//    stage sums go into compensated (Kahan) f32 sums, which hold the Gram
+//    against float64 at any row count.
+//  - The short sums that follow take a fixed order in plain f32: each
+//    entry's 51 row-group partials (at D = 14) in four interleaved chains,
+//    then rank 0 of the cluster gathers the C CTA partials over distributed
+//    shared memory and sums them in a pairwise tree over the ranks, adds
+//    acc (prefetched with the first tile) last and writes both triangles.
+//    No float atomics and no scratch: the sum is taken in the same order
+//    on every run, on every stream. (Compensated sums there cost more than
+//    the rest of the kernel: a single warp's dependent chains.)
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRowsPerCta = 256;
-constexpr int kTile = 64;
-constexpr int kThreads = 256;
 constexpr int kMaxD = 64;
-constexpr int kMaxEntries = (kMaxD * (kMaxD + 1) / 2 + kThreads - 1) / kThreads;
+constexpr int kMaxCluster = 16;
+constexpr int kMinRowsPerCta = 512;
+constexpr int kThreadsTarget = 512;  // row groups × 4×4 blocks ≤ this
+constexpr int kMinThreads = 377;     // nblk·⌊512/nblk⌋ for every D ≤ 64 is at least this
+constexpr int kStages = 2;
+constexpr int kStageFloats = 8192;   // rows of X in one stage, unpadded
+constexpr int kMaxStageRows = 2048;
+constexpr int kRedFloats = kStages * kStageFloats;  // row-group partials (alias the stages)
+constexpr int kSmemBytes = 4 * (kStages * (kStageFloats + kMaxStageRows) + kMaxD * kMaxD);
 
-__device__ __forceinline__ void tri_index(int e, int D, int& a, int& b) {
-  a = 0;
-  while (e >= D - a) {
-    e -= D - a;
-    ++a;
-  }
-  b = a + e;
+struct Shape {
+  int ntri, nb, nblk, groups, stage_rows;
+};
+
+__host__ __device__ inline Shape make_shape(int D) {
+  Shape s;
+  s.nb = (D + 3) / 4;
+  s.ntri = D * (D + 1) / 2;
+  s.nblk = s.nb * (s.nb + 1) / 2;
+  s.groups = kThreadsTarget / s.nblk > 1 ? kThreadsTarget / s.nblk : 1;
+  const int rows = kStageFloats / D / 4 * 4;
+  s.stage_rows = rows < kMaxStageRows ? rows : kMaxStageRows;
+  return s;
 }
 
-__global__ void gram_partial_kernel(const float* __restrict__ X,
-                                    const float* __restrict__ sw, int n, int D,
-                                    float* __restrict__ partial) {
-  __shared__ float tile[kTile * kMaxD];
-  const int ntri = D * (D + 1) / 2;
-  const int row0 = blockIdx.x * kRowsPerCta;
-  const int row_end = min(row0 + kRowsPerCta, n);
-  int ea[kMaxEntries], eb[kMaxEntries];
-  KahanSum acc[kMaxEntries];
-#pragma unroll
-  for (int q = 0; q < kMaxEntries; ++q) {
-    const int e = threadIdx.x + q * kThreads;
-    ea[q] = eb[q] = 0;
-    if (e < ntri) tri_index(e, D, ea[q], eb[q]);
+// e-th entry of the upper triangle (row-major, a ≤ b) of a D×D matrix
+__device__ __forceinline__ int tri_of(int a, int b, int D) { return a * D - a * (a - 1) / 2 + b - a; }
+
+// k-th block of the upper triangle of an nb×nb block grid
+__device__ __forceinline__ void block_of(int k, int nb, int& ba, int& bb) {
+  ba = 0;
+  while (k >= nb - ba) {
+    k -= nb - ba;
+    ++ba;
   }
-  for (int r0 = row0; r0 < row_end; r0 += kTile) {
-    const int cnt = min(kTile, row_end - r0);
-    for (int i = threadIdx.x; i < cnt * D; i += kThreads) {
-      const int r = i / D;
-      const float x = X[(long long)(r0 + r) * D + (i - r * D)];
-      tile[i] = sw != nullptr ? x * sw[r0 + r] : x;
-    }
-    __syncthreads();
+  bb = ba + k;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+// Copy n floats (src and dst 16-byte aligned) with 16-byte cp.async, the
+// ragged tail by element.
+__device__ __forceinline__ void stage_copy(float* dst, const float* src, int n, int tid, int T) {
+  const int n4 = n / 4;
+  for (int i = tid; i < n4; i += T) cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n4 + tid; i < n; i += T) cp_async4(dst + i, src + i);
+}
+
+// The products of one staged tile: thread (blk, grp) sums the 4×4 block
+// (ca.., cb..) of (√w·x)ᵀ(√w·x) over rows grp, grp + groups, ...; rows of
+// even D are 8-byte aligned, so each half of a 4-vector is one 8-byte load.
+// Columns past D read the next row or stale floats: their entries are never
+// written out.
+template <bool kEven, bool kWeighted>
+__device__ __forceinline__ void tile_products(const float* __restrict__ x,
+                                              const float* __restrict__ w, int cnt, int D,
+                                              int ca, int cb, int grp, int groups,
+                                              float (&part)[16]) {
+  for (int r = grp; r < cnt; r += groups) {
+    const float* xr = x + r * D;
+    float av[4], bv[4];
+    if (kEven) {
+      const float2 a0 = *reinterpret_cast<const float2*>(xr + ca);
+      const float2 a1 = *reinterpret_cast<const float2*>(xr + ca + 2);
+      const float2 b0 = *reinterpret_cast<const float2*>(xr + cb);
+      const float2 b1 = *reinterpret_cast<const float2*>(xr + cb + 2);
+      av[0] = a0.x, av[1] = a0.y, av[2] = a1.x, av[3] = a1.y;
+      bv[0] = b0.x, bv[1] = b0.y, bv[2] = b1.x, bv[3] = b1.y;
+    } else {
 #pragma unroll
-    for (int q = 0; q < kMaxEntries; ++q) {
-      if (threadIdx.x + q * kThreads < ntri) {
-        for (int r = 0; r < cnt; ++r)
-          acc[q].add(tile[r * D + ea[q]] * tile[r * D + eb[q]]);
+      for (int i = 0; i < 4; ++i) {
+        av[i] = xr[ca + i];
+        bv[i] = xr[cb + i];
       }
     }
-    __syncthreads();
-  }
+    if (kWeighted) {
+      const float wr = w[r];
 #pragma unroll
-  for (int q = 0; q < kMaxEntries; ++q) {
-    const int e = threadIdx.x + q * kThreads;
-    if (e < ntri) partial[(long long)blockIdx.x * ntri + e] = acc[q].s;
+      for (int i = 0; i < 4; ++i) {
+        av[i] *= wr;
+        bv[i] *= wr;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[4 * i + j] = fmaf(av[i], bv[j], part[4 * i + j]);
   }
 }
 
-__global__ void gram_combine_kernel(const float* __restrict__ partial,
-                                    int nblk, int D, float* __restrict__ G) {
-  const int ntri = D * (D + 1) / 2;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= ntri) return;
-  KahanSum s;
-  for (int b = 0; b < nblk; ++b) s.add(partial[(long long)b * ntri + e]);
-  int a, c;
-  tri_index(e, D, a, c);
-  G[a * D + c] = s.s;
-  G[c * D + a] = s.s;
+__global__ void __launch_bounds__(kThreadsTarget)
+    gram_cluster_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
+                        int span, const float* __restrict__ acc, float* __restrict__ G) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                                  // kStages × kStageFloats
+  float* ws = smem + kStages * kStageFloats;         // kStages × kMaxStageRows
+  float* accs = ws + kStages * kMaxStageRows;        // acc, on rank 0
+  float* red = smem;                                 // after the last tile
+  cg::cluster_group cluster = cg::this_cluster();
+  const Shape sh = make_shape(D);
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int blk = tid % sh.nblk, grp = tid / sh.nblk;
+  int ba, bb;
+  block_of(blk, sh.nb, ba, bb);
+  const int ca = 4 * ba, cb = 4 * bb;
+
+  const int rank = (int)cluster.block_rank();
+  const int row0 = min(n, rank * span);
+  const int row_end = min(n, row0 + span);
+  const int ntiles = (row_end - row0 + sh.stage_rows - 1) / sh.stage_rows;
+
+  // tile t's rows (row0 + t·stage_rows is a multiple of 4 rows, so its
+  // first float is 16-byte aligned) and √w into stage t % 2
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const int r0 = row0 + t * sh.stage_rows;
+      const int cnt = min(sh.stage_rows, row_end - r0);
+      const int st = t % kStages;
+      stage_copy(xs + st * kStageFloats, X + (long long)r0 * D, cnt * D, tid, T);
+      if (sw != nullptr) stage_copy(ws + st * kMaxStageRows, sw + r0, cnt, tid, T);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (rank == 0 && acc != nullptr)  // lands with the first tile
+    for (int i = tid; i < D * D; i += T) cp_async4(accs + i, acc + i);
+  KahanSum run[16];
+  issue(0);
+  issue(1);
+  for (int t = 0; t < ntiles; ++t) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const int cnt = min(sh.stage_rows, row_end - (row0 + t * sh.stage_rows));
+    const float* x = xs + (t % kStages) * kStageFloats;
+    const float* w = ws + (t % kStages) * kMaxStageRows;
+    float part[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) part[i] = 0.f;
+    if (D % 2 == 0) {
+      if (sw != nullptr)
+        tile_products<true, true>(x, w, cnt, D, ca, cb, grp, sh.groups, part);
+      else
+        tile_products<true, false>(x, w, cnt, D, ca, cb, grp, sh.groups, part);
+    } else {
+      if (sw != nullptr)
+        tile_products<false, true>(x, w, cnt, D, ca, cb, grp, sh.groups, part);
+      else
+        tile_products<false, false>(x, w, cnt, D, ca, cb, grp, sh.groups, part);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) run[i].add(part[i]);
+    __syncthreads();  // stage t % 2 is free again
+    issue(t + 2);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // row-group partials → red[grp·ntri + e]; then each entry's partials are
+  // summed in a fixed order, four interleaved chains over the groups
+  // (g mod 4) combined as (c0 + c1) + (c2 + c3), into red[e]
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = ca + i, b = cb + j;
+      if (a <= b && b < D) red[grp * sh.ntri + tri_of(a, b, D)] = run[4 * i + j].s;
+    }
+  __syncthreads();
+  float total[(kMaxD * (kMaxD + 1) / 2 + kMinThreads - 1) / kMinThreads];  // tid, tid + T, ...
+#pragma unroll
+  for (int q = 0; q < (int)(sizeof(total) / sizeof(float)); ++q) {
+    const int e = tid + q * T;
+    total[q] = 0.f;
+    if (e < sh.ntri) {
+      float c4[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int g = 0; g < sh.groups; g += 4)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (g + k < sh.groups) c4[k] += red[(g + k) * sh.ntri + e];
+      total[q] = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < (int)(sizeof(total) / sizeof(float)); ++q)
+    if (tid + q * T < sh.ntri) red[tid + q * T] = total[q];
+
+  // rank 0 gathers the CTA partials (red[0, ntri) of every rank) over
+  // distributed shared memory and sums them in a fixed pairwise tree over
+  // the ranks (missing ranks count as +0)
+  cluster.sync();
+  if (rank == 0) {
+    const int C = (int)cluster.num_blocks();
+    for (int e = tid; e < sh.ntri; e += T) {
+      float v[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c)
+        v[c] = c < C ? cluster.map_shared_rank(red, c)[e] : 0.f;
+      static_assert(kMaxCluster == 16, "the rank tree below is written for 16");
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = v[2 * c] + v[2 * c + 1];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[c] = v[2 * c] + v[2 * c + 1];
+      const float sum = (v[0] + v[1]) + (v[2] + v[3]);
+      int a = 0, k = e;
+      while (k >= D - a) {
+        k -= D - a;
+        ++a;
+      }
+      const int b = a + k;
+      G[a * D + b] = acc != nullptr ? accs[a * D + b] + sum : sum;
+      if (a != b) G[b * D + a] = acc != nullptr ? accs[b * D + a] + sum : sum;
+    }
+  }
+  cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
 }  // namespace
 
-// X (n, D) f32, sw (n,) f32 or null (all ones); partial scratch of
-// max(1, ceil(n/256)) · D(D+1)/2 f32 → G (D, D) f32.
-REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D,
-                            void* partial, void* G, void* stream) {
+// X (n, D) f32 and sw (n,) f32 or null (all ones), both with 16-byte
+// aligned bases,
+// acc (D, D) f32 or null (zeros) → G = acc + (√w·X)ᵀ(√w·X), (D, D) f32. G
+// must not alias X, sw or acc.
+REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const void* acc,
+                            void* G, void* stream) {
   if (D <= 0 || D > kMaxD || n < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nblk = (n + kRowsPerCta - 1) / kRowsPerCta;
-  if (nblk > 0) {
-    gram_partial_kernel<<<nblk, kThreads, 0, st>>>(
-        (const float*)X, (const float*)sw, n, D, (float*)partial);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const Shape sh = make_shape(D);
+  if (sh.groups * sh.ntri > kRedFloats || sh.nblk * sh.groups < kMinThreads)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e =
+        cudaFuncSetAttribute(gram_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gram_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
-  const int ntri = D * (D + 1) / 2;
-  gram_combine_kernel<<<(ntri + 127) / 128, 128, 0, st>>>(
-      (const float*)partial, nblk, D, (float*)G);
-  return (int)cudaGetLastError();
+  int C = (n + kMinRowsPerCta - 1) / kMinRowsPerCta;
+  C = C < 1 ? 1 : (C > kMaxCluster ? kMaxCluster : C);
+  const int span = ((n + C - 1) / C + 3) / 4 * 4;  // rows a CTA, a multiple of 4
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(sh.nblk * sh.groups);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, gram_cluster_kernel, (const float*)X, (const float*)sw, n,
+                                 D, span, (const float*)acc, (float*)G);
 }

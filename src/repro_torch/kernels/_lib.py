@@ -5,7 +5,9 @@ with a plain C interface, loaded with ``ctypes``. The build runs at first use
 — never at import — into ``build/repro_torch/<hash>/`` at the repository
 root, keyed by a hash of the sources and flags, so an edited source builds
 anew. Each ``.cu`` file compiles to an object in its own ``nvcc`` process,
-all started together, and one more ``nvcc`` links them.
+all started together, and one more ``nvcc`` links them. Each compile runs
+with ``-Xptxas -v``; its report (registers, shared memory and spills of
+every kernel) is kept in ``BUILD_LOG`` by source name.
 
 Every exported function launches on the stream it is given, allocates
 nothing and returns the ``cudaError_t`` of its launches; ``check`` raises on
@@ -58,6 +60,7 @@ _RESTYPES = {"repro_sweep_smem_bytes": _L}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None  # wall time of this process's build, if it built
+BUILD_LOG: dict[str, str] = {}  # nvcc/ptxas output of each source, if this process built
 
 
 def _nvcc() -> str:
@@ -95,12 +98,13 @@ def _build(out_dir: Path) -> Path:
         obj = out_dir / f"{src.stem}.{os.getpid()}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     failed = []
     for src, proc in procs:
         out, _ = proc.communicate()
+        BUILD_LOG[src.name] = out
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
     if failed:

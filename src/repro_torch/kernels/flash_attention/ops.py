@@ -9,17 +9,27 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 MAX_D = 128
 LAUNCHES = 0
+# launches of each body, beside the total
+PATH_LAUNCHES = {"wgmma": 0, "mma": 0, "simt": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODE = {"simt": 0, "mma": 1, "wgmma": 2}
 
 
 def kernel_path(q: torch.Tensor) -> str:
-    """Which body of the kernel q's dtype and width take: "mma" (bf16 tensor
-    cores, d ∈ {16, 32, 64, 128}) or "simt" (f32 FMA, any other d ≤ 128)."""
-    return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in (16, 32, 64, 128) else "simt"
+    """Which body of the kernel q's dtype and width take: "wgmma" (bf16,
+    d ∈ {64, 128}: Hopper warpgroup tensor cores fed by TMA), "mma" (bf16,
+    d ∈ {16, 32}: mma.sync tensor cores) or "simt" (f32 FMA: f32, or any
+    other d ≤ 128)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128):
+        return "wgmma"
+    if q.dtype == torch.bfloat16 and q.shape[-1] in (16, 32):
+        return "mma"
+    return "simt"
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte aligned base and (b, s, h) strides, as the mma body loads rows."""
+    """16-byte aligned base and (b, s, h) strides, as the tensor-core bodies
+    load rows (TMA needs the same)."""
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
 
 
@@ -55,18 +65,19 @@ def flash_attention(
     if len({t.device for t in (q, k, v)}) != 1 or any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must share one CUDA device and have unit stride along d")
     path = kernel_path(q)
-    if path == "mma":
+    if path != "simt":
         q, k, v = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     _lib.check(
         _lib.lib().repro_flash_attention(
             _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), _DTYPES[q.dtype],
-            int(path == "mma"), B, S, H, KV, d,
+            _PATH_CODE[path], B, S, H, KV, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), d ** -0.5, _lib.stream_ptr(q.device),
         ),
         "repro_flash_attention",
     )
     LAUNCHES += 1
+    PATH_LAUNCHES[path] += 1
     return o

@@ -2,7 +2,9 @@
 small ragged shapes. Marked ``cuda``: they skip where no CUDA device is
 present (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``).
-Tolerances are chip_smoke.py's: bernstein atol 1e-6; gram 1e-5 of max|G|;
+Tolerances are chip_smoke.py's: bernstein atol 1e-6; gram 1e-5 of max|G|
+against float64, and bit-identical across calls, streams and the fused
+accumulator;
 extremes exact (same FMA chain on both sides); sweep 1e-6, moments atol 1e-4
 against the plain version in float64; flash_attention f32 atol 2e-5 and bf16
 atol 3e-2 (the reference's own bounds; the kernel rounds the softmax weights
@@ -47,17 +49,62 @@ def test_bernstein_kernel(dev, n, J, degree):
         ops.bernstein_featurize(Y.double(), bounds.double(), degree)
 
 
-@pytest.mark.parametrize("n,D,weighted", [(1, 14, False), (777, 14, True), (300, 64, True)])
+@pytest.mark.parametrize("n,D,weighted", [
+    (0, 14, True), (1, 14, False), (777, 14, True), (300, 64, True), (5, 3, True),
+    (16_384, 14, True), (16_387, 14, False), (40_000, 37, True), (250_001, 14, True),
+])
 def test_gram_kernel(dev, n, D, weighted):
+    """n from none to many rows per CTA of a 16-CTA cluster, ragged n, D
+    that is no multiple of 4, and the path's (16,384, 14) chunk."""
     from repro_torch.kernels.gram import ops, ref
 
     X = torch.randn(n, D, generator=_g(D)).to(dev)
     sw = torch.rand(n, generator=_g(n)).to(dev) if weighted else None
+    before = ops.LAUNCHES
     G = ops.gram_matrix(X, sw)
+    assert ops.LAUNCHES == before + 1
     Gr = ref.gram_ref(X.double(), None if sw is None else sw.double())
     assert float((G.double() - Gr).abs().max()) <= 1e-5 * float(Gr.abs().max())
+    assert torch.equal(G, G.T)
     with pytest.raises(ValueError):
         ops.gram_matrix(torch.zeros(4, 65, device=dev))
+
+
+@pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64)])
+def test_gram_kernel_is_bit_identical_across_calls_and_streams(dev, n, D):
+    """The fixed-order reduction: the same bits on every call, on the
+    default stream and on a second one."""
+    from repro_torch.kernels.gram import ops
+
+    X = torch.randn(n, D, generator=_g(n)).to(dev)
+    sw = torch.rand(n, generator=_g(D)).to(dev)
+    first = ops.gram_matrix(X, sw)
+    again = [ops.gram_matrix(X, sw) for _ in range(5)]
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = [ops.gram_matrix(X, sw) for _ in range(3)]
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for G in again + on_side:
+        assert torch.equal(G, first)
+
+
+@pytest.mark.parametrize("n,D,weighted", [(0, 14, True), (777, 14, True), (16_384, 14, False),
+                                          (300, 64, True)])
+def test_gram_kernel_accumulator_equals_the_separate_add(dev, n, D, weighted):
+    """gram_matrix(X, sw, acc=G) has the bits of G + gram_matrix(X, sw),
+    for an accumulator that is not symmetric."""
+    from repro_torch.kernels.gram import ops
+
+    X = torch.randn(n, D, generator=_g(n + 1)).to(dev)
+    sw = torch.rand(n, generator=_g(n + 2)).to(dev) if weighted else None
+    acc = torch.randn(D, D, generator=_g(D)).to(dev) * 1e3
+    before = ops.LAUNCHES
+    fused = ops.gram_matrix(X, sw, acc=acc)
+    assert ops.LAUNCHES == before + 1
+    assert torch.equal(fused, acc + ops.gram_matrix(X, sw))
+    with pytest.raises(ValueError, match="acc"):
+        ops.gram_matrix(X, sw, acc=acc[:-1])
 
 
 @pytest.mark.parametrize("rows,m,d,n_valid", [(64, 8, 5, 64), (1030, 130, 7, 517),
@@ -123,11 +170,18 @@ def test_scoring_on_the_card_matches_the_cpu_path(dev):
         np.testing.assert_allclose(out[1].scores, out[0].scores, rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,S,H,KV,d,dtype", [
-    (1, 1, 4, 1, 64, "bfloat16"), (2, 777, 8, 2, 64, "bfloat16"), (1, 130, 4, 4, 16, "bfloat16"),
-    (1, 200, 4, 2, 128, "bfloat16"), (1, 64, 2, 1, 48, "bfloat16"), (1, 100, 4, 2, 8, "float32"),
-    (2, 257, 4, 2, 128, "float32"),
-])
+# the wgmma body (bf16, d ∈ {64, 128}) at GQA ratios H/KV ∈ {1, 4, 8} and S
+# around its 128-row tiles, then the mma.sync (d ∈ {16, 32}) and f32-FMA bodies
+_FA_CASES = [
+    (2 if S == 777 else 1, S, 2 * ratio, 2, d, "bfloat16")
+    for d in (64, 128) for ratio in (1, 4, 8) for S in (1, 63, 64, 65, 777, 1024, 2048)
+] + [
+    (1, 130, 4, 4, 16, "bfloat16"), (2, 257, 4, 2, 32, "bfloat16"), (1, 64, 2, 1, 48, "bfloat16"),
+    (1, 100, 4, 2, 8, "float32"), (2, 257, 4, 2, 128, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,dtype", _FA_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
     from repro_torch.kernels.flash_attention import ops, ref
@@ -136,9 +190,13 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
     # q, k, v as views of one fused projection: the kernel reads them by strides
     qkv = torch.randn(B, S, H + 2 * KV, d, generator=g).to(dev, getattr(torch, dtype))
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
-    before = ops.LAUNCHES
+    path = ops.kernel_path(q)
+    assert path == {64: "wgmma", 128: "wgmma", 16: "mma", 32: "mma"}.get(
+        d if dtype == "bfloat16" else 0, "simt")
+    before, before_path = ops.LAUNCHES, ops.PATH_LAUNCHES[path]
     out = ops.flash_attention(q, k, v, causal=causal)
-    assert ops.LAUNCHES == before + 1 and out.dtype == q.dtype and out.is_contiguous()
+    assert ops.LAUNCHES == before + 1 and ops.PATH_LAUNCHES[path] == before_path + 1
+    assert out.dtype == q.dtype and out.is_contiguous()
     exp = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), exp.float(), rtol=0,
                                atol=3e-2 if dtype == "bfloat16" else 2e-5)
@@ -148,17 +206,18 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
         assert bool(((out.float() - o).abs() <= bound).all())
 
 
-def test_flash_attention_copies_misaligned_bf16_rows(dev):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_copies_misaligned_bf16_rows(dev, d):
     """A bf16 input off the 16-byte grid runs the same tensor-core body on
     an aligned copy: the same bits as the aligned input."""
     from repro_torch.kernels.flash_attention import ops
 
-    B, S, H, KV, d = 1, 150, 4, 2, 64
+    B, S, H, KV = 1, 150, 4, 2
     n = B * S * (H + 2 * KV) * d
     flat = torch.randn(n + 1, generator=_g(1)).to(dev, torch.bfloat16)
     odd = flat[1:].view(B, S, H + 2 * KV, d)  # base 2 bytes off the grid
     even = odd.clone()
-    assert odd.data_ptr() % 16 and ops.kernel_path(odd) == "mma"
+    assert odd.data_ptr() % 16 and ops.kernel_path(odd) == "wgmma"
     outs = [ops.flash_attention(t[:, :, :H], t[:, :, H:H + KV], t[:, :, H + KV:])
             for t in (odd, even)]
     assert torch.equal(outs[0], outs[1])

@@ -79,3 +79,15 @@ def test_flash_dispatch_follows_the_tensor():
         ops.flash_attention(q, q, q, backend="pallas")
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_attention(torch.zeros(1, 4, 3, 8), q, q)
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "simt"), (torch.bfloat16, 8, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float16, 64, "simt"),
+])
+def test_flash_kernel_path_picks_the_body(dtype, d, path):
+    """bf16 at the dense heads' widths (64, 128) takes the wgmma body, bf16
+    at 16 and 32 the mma.sync body, anything else the f32-FMA body."""
+    assert ops.kernel_path(torch.zeros(1, 2, 2, d, dtype=dtype)) == path
+    assert set(ops.PATH_LAUNCHES) == {"wgmma", "mma", "simt"}

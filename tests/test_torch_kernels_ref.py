@@ -25,6 +25,7 @@ from repro_torch.kernels.bernstein import ops as tbern  # noqa: E402
 from repro_torch.kernels.extremes import ops as text  # noqa: E402
 from repro_torch.kernels.extremes.ref import directional_extremes_ref  # noqa: E402
 from repro_torch.kernels.gram import ops as tgram  # noqa: E402
+from repro_torch.kernels.gram.ref import gram_ref  # noqa: E402
 from repro_torch.kernels.sweep import ops as tsweep  # noqa: E402
 from repro_torch.kernels.sweep.ref import fused_sweep_ref  # noqa: E402
 
@@ -53,6 +54,26 @@ def test_gram_ref_matches_pallas_kernel(n, D, weighted):
     ref = np.asarray(gram_matrix(jnp.asarray(Xw), interpret=True))
     got = tgram.gram_matrix(_t(X), None if sw is None else _t(sw)).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n,D", [(0, 14), (1, 14), (777, 14), (300, 64)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gram_ref_accumulator_equals_the_separate_add(n, D, weighted):
+    """gram_matrix(X, sw, acc=G) on the plain version has the bits of
+    G + gram_ref(X, sw), and matches the Pallas kernel's Gram added to G
+    (1e-5 of max|G|, as above)."""
+    rng = np.random.default_rng(n + 3 * D)
+    X = rng.standard_normal((n, D)).astype(np.float32)
+    sw = np.sqrt(rng.uniform(0.2, 2.0, n)).astype(np.float32) if weighted else None
+    acc = (rng.standard_normal((D, D)) * 1e3).astype(np.float32)  # not symmetric
+    tsw = None if sw is None else _t(sw)
+    got = tgram.gram_matrix(_t(X), tsw, acc=_t(acc))
+    assert torch.equal(got, _t(acc) + tgram.gram_matrix(_t(X), tsw))
+    assert torch.equal(got, _t(acc) + gram_ref(_t(X), tsw))
+    Xw = X if sw is None else X * sw[:, None]
+    # the Pallas kernel takes no empty chunk: there the sum is acc itself
+    ref = acc + np.asarray(gram_matrix(jnp.asarray(Xw), interpret=True)) if n else acc
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
 def _extremes_case(rows, m, d, seed, tie):

@@ -189,3 +189,29 @@ def test_waiting_features_raise(data):
         eng.score(Y, strategy="three-pass")
     with pytest.raises(ValueError):
         eng.score(Y, sketch_size=8)  # a sketch needs a generator or a plan
+
+
+@pytest.mark.parametrize("with_moments", [True, False])
+def test_pass1_update_accumulates_like_the_reference(data, with_moments):
+    """pass1_update folds the chunk's Gram into the running G through the
+    gram wrapper's accumulator; over three chunks it matches the JAX
+    package's pass1_update (Gram 1e-5 of max|G|, moments rtol 1e-5 / atol
+    1e-4, as above) and equals G + gram_matrix(X, sw) bit for bit."""
+    _, _, _, X, P = data
+    sw = np.sqrt(np.random.default_rng(2).uniform(0.2, 3.0, N)).astype(np.float32)
+    t = torch.tensor  # a copy: the fixture's arrays are read-only
+    ref = (jnp.zeros((14, 14), jnp.float32), jnp.zeros(7, jnp.float32),
+           jnp.zeros((7, 7), jnp.float32))
+    got = (torch.zeros(14, 14), torch.zeros(7), torch.zeros(7, 7))
+    for lo, hi in ((0, 700), (700, 1400), (1400, N)):
+        Pc = P[2 * lo:2 * hi] if with_moments else None
+        ref = RS.pass1_update(*ref, jnp.asarray(X[lo:hi]),
+                              None if Pc is None else jnp.asarray(Pc), jnp.asarray(sw[lo:hi]))
+        prev = got[0]
+        got = TS.pass1_update(*got, t(X[lo:hi]), None if Pc is None else t(Pc), t(sw[lo:hi]))
+        assert torch.equal(got[0], prev + TS.gram_matrix(t(X[lo:hi]), t(sw[lo:hi])))
+    rg = np.asarray(ref[0])
+    np.testing.assert_allclose(got[0].numpy(), rg, rtol=0, atol=1e-5 * np.abs(rg).max())
+    if with_moments:
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
