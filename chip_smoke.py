@@ -11,13 +11,18 @@ of each path ran.
 Phases (any failure exits nonzero):
   1. environment: card, power limit, torch/CUDA/nvcc versions, Triton, build time,
      and ptxas's registers and spills of the redesigned bodies (flash_attention's
-     wgmma body, gram's cluster kernel);
+     wgmma body, gram's cluster kernel, ssd's three mma-body kernels, bernstein
+     at degrees 6 and 15);
   2. each kernel vs its plain version on the card (the four MCTM kernels,
      flash_attention and ssd), timed by CUDA events (``ms``, which also read the
      host's issue rate) and by the device time of its kernels from
      torch.profiler (``device_ms``); where one PyTorch call computes the same
      function, kernel and call are timed in turns (kernel, call, call,
-     kernel) and their ratios printed;
+     kernel) and their ratios printed; ssd's errors as shares of their
+     tolerances, its mma body timed at T = 256 and 1,024 beside its f32
+     CUDA-core and bf16×3 tensor-core bounds, bernstein at n = 250,001 and at
+     one 16,384-row chunk; ssd, gram and bernstein give the same bits on
+     repeated calls;
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, adam 250 steps at lr 0.05 for the coreset
      and the full-data fits), both strategies; every ratio must lie in its
@@ -30,8 +35,10 @@ Phases (any failure exits nonzero):
      positions; every logit finite, and the engine's logits held against a
      single-request teacher-forced run of the same model; then, with
      ``torch.profiler``, the device's busy time and idle share over one
-     1,024-token prefill and over 8 batched decode ticks; tinyllama's prefills
-     must all take flash_attention's wgmma body (its own launch counter);
+     1,024-token prefill (with the kernel's share of its device time) and over
+     8 batched decode ticks; tinyllama's prefills must all take
+     flash_attention's wgmma body and mamba2's all take ssd's mma body (their
+     own launch counters);
   5. launch census: each kernel counted over its own path's run.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
@@ -101,7 +108,10 @@ def phase_environment():
     return smi.splitlines()[0] if smi else smi
 
 
-REDESIGNED = ("flash_wgmma_kernel", "gram_cluster_kernel")
+# redesigned kernels → the template arguments to report (None: every one)
+REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
+              "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
+              "bernstein_featurize_kernel": ("6", "15")}
 
 
 def ptxas_report(build_log: dict) -> list[str]:
@@ -115,8 +125,12 @@ def ptxas_report(build_log: dict) -> list[str]:
                 out.append(f"nvcc {src}: {line.strip()}")
             if "Compiling entry function" in line and any(k in line for k in REDESIGNED):
                 name = next(k for k in REDESIGNED if k in line)
-                hd = re.search(r"ILi(\d+)E", line)  # the head width of a template
-                tmpl = f"<{hd.group(1)}>" if hd else ""
+                # integer template arguments (head width, degree, P and warps per tile)
+                args = re.findall(r"Li(\d+)E", line.split(name, 1)[1].split("'")[0])
+                keep = REDESIGNED[name]
+                if keep is not None and (not args or args[0] not in keep):
+                    continue
+                tmpl = f"<{', '.join(args)}>" if args else ""
                 info = " | ".join(x.strip().replace("ptxas info    : ", "")
                                   for x in lines[i + 2:i + 4])
                 out.append(f"ptxas {name}{tmpl}: {info}")
@@ -254,6 +268,9 @@ def phase_kernels(dev):
     err = max(max_err(A, Ar), max_err(Ap, Apr))
     if not (close(A, Ar, rtol=0, atol=1e-6) and close(Ap, Apr, rtol=0, atol=1e-6)):
         errs.append(f"bernstein disagrees with its plain version: {err}")
+    again = [bernstein_featurize(Y, bounds, cfg.degree) for _ in range(3)]
+    if not all(torch.equal(A, a) and torch.equal(Ap, ap) for a, ap in again):
+        errs.append("bernstein is not bit-identical across calls")
     nv = MAIN_N * cfg.J
     row("bernstein", "src/repro_torch/csrc/bernstein.cu",
         "src/repro/kernels/bernstein/kernel.py:48", err,
@@ -265,10 +282,10 @@ def phase_kernels(dev):
     Yc = Y[:CHUNK].contiguous()
     nc = CHUNK * cfg.J
     bc, _ = bound_ms(4 * nc + 4 * bounds.numel() + 2 * 4 * nc * d, 0)
-    log(f"  bernstein at one {CHUNK:,}-row chunk: device "
-        f"{device_ms(lambda: bernstein_featurize(Yc, bounds, cfg.degree)):.5f} ms, events "
+    dc = device_ms(lambda: bernstein_featurize(Yc, bounds, cfg.degree))
+    log(f"  bernstein at one {CHUNK:,}-row chunk: device {dc:.5f} ms, events "
         f"{cuda_ms(lambda: bernstein_featurize(Yc, bounds, cfg.degree)):.5f} ms, "
-        f"bound {bc:.5f} ms (bytes)")
+        f"bound {bc:.5f} ms (bytes), {bc / dc:.3f} of it")
 
     # ---- gram: one (16,384, 14) chunk, √w = 1, accumulated into G as on
     # the main path (pass1_update); one launch, bit-identical on every call
@@ -495,6 +512,7 @@ def phase_lm_kernels(dev):
 
     from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_path
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd.ops import kernel_path as ssd_path
     from repro_torch.kernels.ssd.ops import ssd_chunked
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
@@ -573,7 +591,7 @@ def phase_lm_kernels(dev):
 
     ssd_err = 0.0
     for T_, dtype in ((T, torch.bfloat16), (1000, torch.bfloat16), (T, torch.float32),
-                      (1000, torch.float32)):
+                      (1000, torch.float32), (256, torch.bfloat16), (777, torch.bfloat16)):
         args = ssd_inputs(T_, dtype)
         y, st = ssd_chunked(*args, chunk=Q)
         yr, sr = ssd_chunked_ref(*args, chunk=Q)
@@ -582,21 +600,49 @@ def phase_lm_kernels(dev):
         stol = 1e-4 * float(sr.abs().max())
         ey, es = max_err(y, yr), max_err(st, sr)
         ssd_err = max(ssd_err, ey, es)
-        tag = f"T={T_} {str(dtype).split('.')[-1]} state0 nonzero"
-        log(f"  ssd {tag}: y max abs err {ey:.3e} (tol {ytol:.3e}), state {es:.3e} "
-            f"(tol {stol:.3e})")
+        path = ssd_path(args[0], N)
+        tag = f"T={T_} {str(dtype).split('.')[-1]} state0 nonzero path={path}"
+        log(f"  ssd {tag}: y max abs err {ey:.3e} (tol {ytol:.3e}, {ey / ytol:.4f} of it), "
+            f"state {es:.3e} (tol {stol:.3e}, {es / stol:.4f} of it)")
         if not (ey <= ytol and es <= stol and torch.isfinite(y).all()):
             errs.append(f"ssd {tag} disagrees: y {ey}, state {es}")
+        if path != ("mma" if dtype == torch.bfloat16 else "simt"):
+            errs.append(f"ssd {tag} took the {path} body")
+        if dtype == torch.bfloat16 and T_ == T:
+            y2, st2 = ssd_chunked(*args, chunk=Q)
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                errs.append(f"ssd {tag} is not bit-identical across calls")
+
+    def ssd_work(T_):
+        """Bytes, f32 FLOP (the scan's arithmetic) and bf16 tensor-core FLOP
+        (the mma body's: three passes of the intra, inter and state products,
+        C Bᵀ once per head) of one call at T_ (a multiple of Q)."""
+        tri, n_ch = Q * (Q + 1) / 2, B * (T_ // Q)
+        nbytes = 2 * 2 * B * T_ * H * P + 4 * B * T_ * H + 4 * H + 2 * 2 * B * T_ * N \
+            + 2 * 4 * B * H * P * N
+        f32 = 2 * n_ch * (tri * N + H * (tri * P + 2 * Q * N * P))
+        bf16x3 = 2 * n_ch * H * (tri * N + 3 * (tri * P + 2 * Q * N * P))
+        return nbytes, f32, bf16x3
+
+    for T_ in (256, T):
+        a_ = ssd_inputs(T_, torch.bfloat16)
+        nbytes, f32, bf16x3 = ssd_work(T_)
+        b32, _ = bound_ms(nbytes, f32)
+        b16, by = bound_ms(nbytes, bf16x3, H100_BF16_FLOPS)
+        dms = device_ms(lambda: ssd_chunked(*a_, chunk=Q))
+        log(f"  ssd T={T_} bf16 (mma body): device {dms:.5f} ms, events "
+            f"{cuda_ms(lambda: ssd_chunked(*a_, chunk=Q)):.5f} ms; f32 CUDA-core bound "
+            f"{b32:.5f} ms ({f32 / 1e9:.3f} GFLOP at 67 TFLOP/s); bf16x3 tensor-core bound "
+            f"{b16:.5f} ms ({by}; {bf16x3 / 1e9:.3f} GFLOP at 989 TFLOP/s, {nbytes / 1e6:.3f} MB); "
+            f"{b16 / dms:.3f} of it")
     args = ssd_inputs(T, torch.bfloat16)
-    tri = Q * (Q + 1) / 2
-    nc = T // Q
-    ssd_flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
-    ssd_bytes = 2 * 2 * B * T * H * P + 4 * B * T * H + 4 * H + 2 * 2 * B * T * N \
-        + 2 * 4 * B * H * P * N
-    rows.append(kernel_row(
+    nbytes, f32, bf16x3 = ssd_work(T)
+    ssd_row = kernel_row(
         "ssd", "src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:63", ssd_err,
         lambda: ssd_chunked(*args, chunk=Q), lambda: ssd_chunked_ref(*args, chunk=Q), None,
-        nbytes=ssd_bytes, flops=ssd_flops))
+        nbytes=nbytes, flops=bf16x3, peak=H100_BF16_FLOPS)
+    ssd_row["bound_f32_ms"] = bound_ms(nbytes, f32)[0]
+    rows.append(ssd_row)
     if errs:
         fail("; ".join(errs))
     return rows
@@ -640,11 +686,12 @@ def phase_lm_small_agreement(dev):
 PROFILE_TICKS = 8
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, match: str | None = None) -> dict:
     """Host wall time of ``fn`` (ending in a device sync), the device's busy
     time (the sum of its kernels' durations: one stream, so they do not
     overlap), its idle share 1 − busy / wall, its launches and the kernels
-    with the most device time, from ``torch.profiler``."""
+    with the most device time, from ``torch.profiler``; with ``match``, also
+    the device time and share of the kernels whose names contain it."""
     import collections
 
     import torch
@@ -665,17 +712,23 @@ def profile_window(fn) -> dict:
             launches += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
+    out = {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us, "device_launches": launches,
         "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
     }
+    if match is not None:
+        m_us = sum(us for name, us in by_name.items() if match in name)
+        out[f"{match}_device_ms"] = m_us / 1e3
+        out[f"{match}_share_of_device"] = m_us / busy_us if busy_us else 0.0
+    return out
 
 
-def profile_serve(model, engine, prompts) -> dict:
+def profile_serve(model, engine, prompts, kernel: str) -> dict:
     """The serve path's two windows: one prefill of a 1,024-token prompt into
-    a 1-slot cache (as the engine admits a request), and PROFILE_TICKS
-    batched decode ticks with all slots live."""
+    a 1-slot cache (as the engine admits a request), with ``kernel``'s share
+    of its device time, and PROFILE_TICKS batched decode ticks with all
+    slots live."""
     from repro_torch.serve import GenerationConfig, Request
 
     prompt = prompts[SERVE_PROMPTS.index(1024)]
@@ -685,7 +738,7 @@ def profile_serve(model, engine, prompts) -> dict:
         logits, _ = model.prefill({"tokens": prompt[None, :]}, cache)
         logits.float().cpu()
 
-    out = {"prefill_1024": profile_window(prefill)}
+    out = {"prefill_1024": profile_window(prefill, match=kernel)}
     eng = engine()
     for i, p in enumerate(prompts[:SERVE_SLOTS]):
         eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
@@ -740,6 +793,7 @@ def phase_serve(dev):
         for mod in (fa, ssd):
             mod.LAUNCHES = 0
         fa.PATH_LAUNCHES.update(dict.fromkeys(fa.PATH_LAUNCHES, 0))
+        ssd.PATH_LAUNCHES.update(dict.fromkeys(ssd.PATH_LAUNCHES, 0))
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
@@ -758,9 +812,10 @@ def phase_serve(dev):
         if count != cfg.n_layers * len(prompts):
             fail(f"{name}: {kname} launched {count} times, expected "
                  f"{cfg.n_layers} layers × {len(prompts)} prefills")
-        bodies = dict(fa.PATH_LAUNCHES)
-        if cfg.family == "dense" and bodies["wgmma"] != count:
-            fail(f"{name}: the wgmma body took {bodies['wgmma']} of {count} launches {bodies}")
+        bodies = dict(fa.PATH_LAUNCHES if cfg.family == "dense" else ssd.PATH_LAUNCHES)
+        body = "wgmma" if cfg.family == "dense" else "mma"
+        if bodies[body] != count:
+            fail(f"{name}: the {body} body took {bodies[body]} of {count} launches {bodies}")
         # teacher-forced: a single-request run of the same model fed the engine's tokens
         tf_err, tf_scale, agree = 0.0, 0.0, 0
         for r in done:
@@ -789,14 +844,14 @@ def phase_serve(dev):
             "teacher_forced_max_abs_err": tf_err, "teacher_forced_max_abs_logit": tf_scale,
             "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(done)}",
         }
-        if cfg.family == "dense":
-            rec["flash_attention_launches_by_body"] = bodies
+        rec[f"{kname}_launches_by_body"] = bodies
         records[name] = rec
         log(f"serve {name}: " + json.dumps(rec))
         if tf_err > TEACHER_FORCED_REL * tf_scale:
             fail(f"{name}: engine logits differ from the single-request run by {tf_err} "
                  f"(> {TEACHER_FORCED_REL} × {tf_scale})")
-        rec["profile"] = profile_serve(model, engine, prompts)
+        rec["profile"] = profile_serve(model, engine, prompts,
+                                       "flash" if cfg.family == "dense" else "ssd")
         log(f"serve profile {name}: " + json.dumps(rec["profile"]))
         del model, eng
         torch.cuda.empty_cache()

@@ -60,26 +60,6 @@ constexpr int kSimtRows = 64;  // q rows per CTA (2 threads each)
 constexpr int kSimtKeys = 32;
 constexpr int kSimtThreads = 128;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// D = A·B + D for one 16×8×16 tile: A row-major 16×16 bf16 (4 regs), B
-// column-major 16×8 bf16 (2 regs), D 16×8 f32 (4 regs).
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* base, int row, int col, int S,
                                                 long long stride) {
   return row < S ? *reinterpret_cast<const uint32_t*>(base + (long long)row * stride + col) : 0u;
@@ -359,10 +339,6 @@ struct WgLayout {  // byte offsets in dynamic shared memory, 1,024-aligned tiles
   // q_full, k_full[2], v_full[2], k_empty[2], v_empty[2]
   static constexpr int bytes = bars + 16 * 8 + 1024;  // + slack to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)

@@ -52,8 +52,8 @@ _SIGNATURES = {
         _P,
     ),
     "repro_ssd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-        _L, _L, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+        _L, _L, _L, _P,
     ),
 }
 _RESTYPES = {"repro_sweep_smem_bytes": _L}

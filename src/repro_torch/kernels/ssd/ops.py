@@ -10,7 +10,27 @@ from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 MAX_CHUNK = 256
 MAX_N = 128
 LAUNCHES = 0
+# launches of each body, beside the total
+PATH_LAUNCHES = {"mma": 0, "simt": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODE = {"simt": 0, "mma": 1}
+
+
+def kernel_path(x: torch.Tensor, N: int) -> str:
+    """Which body of the kernel x (B, T, H, P) and the state width N take:
+    "mma" (bf16, P ∈ {32, 64}, N a multiple of 16: three chunk-parallel
+    launches on the tensor cores at f32 accuracy) or "simt" (f32, or any
+    other shape: one CTA per (b, h, 16 columns of P) walks the chunks on the
+    CUDA cores)."""
+    if x.dtype == torch.bfloat16 and x.shape[-1] in (32, 64) and N % 16 == 0:
+        return "mma"
+    return "simt"
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned base and (b, t) strides, as the mma body loads rows
+    (the state too: its base)."""
+    return t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
 
 
 def ssd_chunked(
@@ -27,7 +47,9 @@ def ssd_chunked(
     """x (B, T, H, P), dt (B, T, H) f32 > 0, A (H,) f32 < 0, Bm/Cm
     (B, T, 1, N) in x's dtype, state0 (B, H, P, N) f32 or None (zeros) →
     (y (B, T, H, P) in x's dtype, state_T (B, H, P, N) f32). The scan runs
-    in chunks of ``chunk`` steps, in f32; T need not be a multiple of it."""
+    in chunks of ``chunk`` steps, in f32; T need not be a multiple of it.
+    Where the mma body takes the call, an x, Bm or Cm whose base or (b, t)
+    strides are not 16-byte aligned is copied first."""
     global LAUNCHES
     Bt, T, H, P = x.shape
     N = Bm.shape[-1]
@@ -57,18 +79,27 @@ def ssd_chunked(
     _lib.require_cuda(A, state0)
     if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
         raise ValueError("ssd_chunked inputs must lie on one CUDA device")
+    path = kernel_path(x, N)
+    if path == "mma":
+        x, Bm, Cm = (t if _aligned(t) else t.contiguous() for t in (x, Bm, Cm))
+        if state0 is not None and state0.data_ptr() % 16:
+            state0 = state0.clone()
     nc = -(-T // chunk)
     y = torch.empty((Bt, T, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
-    cb = torch.empty((Bt, nc, chunk, chunk), dtype=torch.float32, device=x.device)
+    # mma: chunk states, entering states and la_Q (f32); simt: the lower
+    # triangle of C Bᵀ per (b, chunk)
+    n_scratch = Bt * nc * (H * (8 * P * N + 4) if path == "mma" else 4 * chunk * chunk)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
     _lib.check(
         _lib.lib().repro_ssd(
             _lib.ptr(x), _lib.ptr(dt), _lib.ptr(A), _lib.ptr(Bm), _lib.ptr(Cm), _lib.ptr(state0),
-            _lib.ptr(y), _lib.ptr(state), _lib.ptr(cb), _DTYPES[x.dtype], Bt, T, H, P, N, chunk,
-            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
-            Cm.stride(0), Cm.stride(1), _lib.stream_ptr(x.device),
+            _lib.ptr(y), _lib.ptr(state), _lib.ptr(scratch), _DTYPES[x.dtype], _PATH_CODE[path],
+            Bt, T, H, P, N, chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), _lib.stream_ptr(x.device),
         ),
         "repro_ssd",
     )
     LAUNCHES += 1
+    PATH_LAUNCHES[path] += 1
     return y, state

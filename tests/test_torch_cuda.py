@@ -11,7 +11,8 @@ atol 3e-2 (the reference's own bounds; the kernel rounds the softmax weights
 to bf16 for the tensor-core PV product), and bf16 also per element within
 ``flash_attention.ref.bf16_error_bound`` (the roundings of the output and of
 the softmax weights, from the same inputs in f32); ssd 1e-4·max at f32 and 1e-2·max
-for a bf16 y (its rounding), the f32 state 1e-4·max; the reduced LMs' logits
+for a bf16 y (its rounding), the f32 state 1e-4·max, on both bodies, and
+bit-identical across calls; the reduced LMs' logits
 on the card against the CPU at f32 within 1e-4·max."""
 import pytest
 
@@ -47,6 +48,25 @@ def test_bernstein_kernel(dev, n, J, degree):
     torch.testing.assert_close(Ap, Apr, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         ops.bernstein_featurize(Y.double(), bounds.double(), degree)
+
+
+@pytest.mark.parametrize("degree", [0, 6, 15])
+@pytest.mark.parametrize("n,J", [(1, 1), (255, 1), (257, 1), (4099, 3)])
+def test_bernstein_kernel_ragged_tiles(dev, n, J, degree):
+    """Value counts n·J that are no multiple of the 256-value tile: the last
+    tile's 16-byte stores stop short and its tail is written by scalars. The
+    same bits on repeated calls."""
+    from repro_torch.kernels.bernstein import ops, ref
+
+    Y = (torch.randn(n, J, generator=_g(n + degree)) * 3).to(dev)
+    bounds = torch.tensor([[-6.0] * J, [6.0] * J, [1 / 12.0] * J], device=dev)
+    A, Ap = ops.bernstein_featurize(Y, bounds, degree)
+    Ar, Apr = ref.bernstein_featurize_ref(Y, bounds, degree)
+    torch.testing.assert_close(A, Ar, rtol=0, atol=1e-6)
+    torch.testing.assert_close(Ap, Apr, rtol=0, atol=1e-6)
+    for _ in range(3):
+        A2, Ap2 = ops.bernstein_featurize(Y, bounds, degree)
+        assert torch.equal(A2, A) and torch.equal(Ap2, Ap)
 
 
 @pytest.mark.parametrize("n,D,weighted", [
@@ -227,6 +247,12 @@ def test_flash_attention_copies_misaligned_bf16_rows(dev, d):
     (1, 1024, 4, 64, 128, 256, "bfloat16", True), (2, 100, 3, 16, 8, 32, "float32", True),
     (1, 31, 2, 24, 16, 32, "float32", False), (1, 777, 2, 64, 128, 256, "float32", True),
     (1, 5, 2, 32, 16, 5, "float32", True),
+    # the mma body: one chunk (the row-block split alone fills the grid), the
+    # full serve shape, B = 2 with ragged T, P = 32 with a ragged chunk;
+    # grids under one CTA per SM take warp pairs, larger ones single warps
+    (1, 256, 32, 64, 128, 256, "bfloat16", True), (1, 1024, 32, 64, 128, 256, "bfloat16", True),
+    (2, 1000, 4, 64, 128, 256, "bfloat16", True), (1, 777, 4, 64, 128, 256, "bfloat16", False),
+    (1, 100, 2, 32, 32, 64, "bfloat16", True), (2, 1000, 32, 32, 64, 128, "bfloat16", True),
 ])
 def test_ssd_kernel(dev, B, T, H, P, N, chunk, dtype, with_state):
     from repro_torch.kernels.ssd import ops, ref
@@ -248,6 +274,61 @@ def test_ssd_kernel(dev, B, T, H, P, N, chunk, dtype, with_state):
     ytol = (1e-2 if dtype == "bfloat16" else 1e-4) * float(yr.float().abs().max())
     torch.testing.assert_close(y.float(), yr.float(), rtol=0, atol=ytol)
     torch.testing.assert_close(st, sr, rtol=0, atol=1e-4 * float(sr.abs().max()))
+
+
+def _ssd_args(dev, B, T, H, P, N, dtype, seed):
+    g = _g(seed)
+    xbc = torch.randn(B, T, H * P + 2 * N, generator=g).to(dev, dtype)
+    x = xbc[..., :H * P].reshape(B, T, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, T, 1, N)
+    Cm = xbc[..., H * P + N:].reshape(B, T, 1, N)
+    dt = (torch.rand(B, T, H, generator=g) * 0.1 + 0.005).to(dev)
+    A = -torch.exp(torch.linspace(0.0, np.log(16.0), H)).to(dev)
+    s0 = torch.randn(B, H, P, N, generator=g).to(dev)
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("dtype,P,N,path", [
+    ("bfloat16", 64, 128, "mma"), ("bfloat16", 32, 16, "mma"), ("bfloat16", 16, 16, "simt"),
+    ("bfloat16", 64, 24, "simt"), ("float32", 64, 128, "simt"),
+])
+def test_ssd_body_counter(dev, dtype, P, N, path):
+    """bf16 calls with P ∈ {32, 64} and N a multiple of 16 take the
+    tensor-core body; PATH_LAUNCHES counts each body beside LAUNCHES."""
+    from repro_torch.kernels.ssd import ops
+
+    args = _ssd_args(dev, 1, 300, 2, P, N, getattr(torch, dtype), P + N)
+    assert ops.kernel_path(args[0], N) == path
+    before, paths = ops.LAUNCHES, dict(ops.PATH_LAUNCHES)
+    ops.ssd_chunked(*args, chunk=256)
+    assert ops.LAUNCHES == before + 1
+    assert ops.PATH_LAUNCHES == {k: v + (k == path) for k, v in paths.items()}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_kernel_is_bit_identical_across_calls(dev, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.ssd import ops
+
+    args = _ssd_args(dev, 2, 600, 4, 64, 128, getattr(torch, dtype), 9)
+    y, st = ops.ssd_chunked(*args, chunk=256)
+    for _ in range(2):
+        y2, st2 = ops.ssd_chunked(*args, chunk=256)
+        assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+def test_ssd_mma_body_copies_misaligned_rows(dev):
+    """An x whose base is not 16-byte aligned is copied before the mma body
+    reads it: the same result as from an aligned copy."""
+    from repro_torch.kernels.ssd import ops
+
+    x, dt, A, Bm, Cm, s0 = _ssd_args(dev, 1, 300, 2, 64, 32, torch.bfloat16, 4)
+    wide = torch.zeros(1, 300, 2 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    wide[..., 1:] = x.reshape(1, 300, -1)
+    odd = wide[..., 1:].reshape(1, 300, 2, 64)
+    assert odd.data_ptr() % 16 and ops.kernel_path(odd, 32) == "mma"
+    outs = [ops.ssd_chunked(t, dt, A, Bm, Cm, s0, chunk=256) for t in (odd, x.contiguous())]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])

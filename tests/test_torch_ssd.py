@@ -98,3 +98,133 @@ def test_ssd_dispatch_and_shapes():
         ops.ssd_chunked(x, dt, A, Bm.repeat(1, 1, 2, 1), Cm.repeat(1, 1, 2, 1), chunk=4)
     with pytest.raises(ValueError, match="state0"):
         ops.ssd_chunked(x, dt, A, Bm, Cm, torch.zeros(1, 2, 4, 5), chunk=4)
+
+
+# ---- the algebra of the kernel's "mma" body (csrc/ssd.cu), in plain torch:
+# the chunk-parallel decomposition (chunk states, a pass over the chunks,
+# chunk scans) with every f32 × bf16 product taken as three bf16 products.
+# The body itself runs only on the card (tests/test_torch_cuda.py); this
+# checks its design here. Inputs x, B, C are bf16 values (exact bf16
+# operands, as on the serve path) held in f32.
+
+
+def _split3(v):
+    """v = hi + mid + lo in three bf16 tensors, as the kernel splits an f32
+    operand (8 significant bits each)."""
+    hi = v.to(torch.bfloat16)
+    r = v - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _mm3(a, b, *, split):
+    """a @ b with the f32 operand (``split`` = "a" or "b") in three bf16
+    pieces, each product summed in f32, the small pieces first."""
+    out = None
+    for piece in reversed(_split3(a if split == "a" else b)):
+        prod = piece.float() @ b if split == "a" else a @ piece.float()
+        out = prod if out is None else out + prod
+    return out
+
+
+def _ssd_three_phase(x, dt, A, Bm, Cm, state0, chunk):
+    """The mma body's decomposition: (y, state_T), both f32."""
+    Bt, T, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-T // Q)
+    pad = nc * Q - T
+
+    def chunks(a):
+        a = torch.cat([a, a.new_zeros((Bt, pad) + a.shape[2:])], 1) if pad else a
+        return a.reshape((Bt, nc, Q) + a.shape[2:])
+
+    xq, dtq = chunks(x), chunks(dt)                      # (B, nc, Q, H, P), (B, nc, Q, H)
+    Bq, Cq = chunks(Bm[:, :, 0]), chunks(Cm[:, :, 0])    # (B, nc, Q, N)
+    la = torch.cumsum(dtq * A, dim=2)                    # (B, nc, Q, H)
+    la_q = la[:, :, -1]                                  # (B, nc, H)
+    xh = xq.permute(0, 1, 3, 2, 4)                       # (B, nc, H, Q, P)
+    # 1. chunk states S_c = (B ⊙ dt ⊙ e^{la_Q − la})ᵀ x, every chunk alone
+    w = (dtq * torch.exp(la_q[:, :, None] - la)).permute(0, 1, 3, 2)       # (B, nc, H, Q)
+    a = (Bq[:, :, None] * w[..., None]).transpose(-1, -2)                   # (B, nc, H, N, Q)
+    S = _mm3(a, xh, split="a")                                              # (B, nc, H, N, P)
+    # 2. state passing: the state entering each chunk, and the last
+    h = torch.zeros((Bt, H, P, N)) if state0 is None else state0
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * torch.exp(la_q[:, c])[:, :, None, None] + S[:, c].transpose(-1, -2)
+    hc = torch.stack(entering, 1)                                           # (B, nc, H, P, N)
+    # 3. chunk scans: e^{la_i} C_i·h_c + Σ_{j ≤ i} (C Bᵀ ⊙ e^{la_i − la_j} ⊙ dt_j) x_j
+    inter = _mm3(Cq[:, :, None], hc.transpose(-1, -2), split="b")           # (B, nc, H, Q, P)
+    lah = la.permute(0, 1, 3, 2)                                            # (B, nc, H, Q)
+    inter = inter * torch.exp(lah)[..., None]
+    cb = Cq @ Bq.transpose(-1, -2)                                          # (B, nc, Q, Q)
+    diff = lah[..., :, None] - lah[..., None, :]
+    keep = torch.ones((Q, Q), dtype=torch.bool).tril()
+    m = torch.where(keep, cb[:, :, None] * torch.exp(diff) * dtq.permute(0, 1, 3, 2)[..., None, :],
+                    torch.zeros(()))
+    y = inter + _mm3(m, xh, split="a")                                      # (B, nc, H, Q, P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bt, nc * Q, H, P)[:, :T]
+    return y, h
+
+
+def _bf16_exact(a):
+    return torch.from_numpy(a).bfloat16().float()
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk,state", [
+    (1, 64, 3, 16, 16, 64, False),   # nc = 1
+    (2, 50, 3, 16, 16, 64, True),    # nc = 1, ragged T
+    (1, 256, 2, 32, 32, 64, False),  # nc = 4
+    (2, 200, 3, 16, 16, 64, True),   # nc = 4, ragged T
+])
+def test_three_phase_bf16x3_matches_ref_and_jax(B, T, H, P, N, chunk, state):
+    """The mma body's algebra against the port's plain version (f32, chunks
+    in series) within 1e-5·max, and against the JAX package: the Pallas
+    kernel in interpret mode without a state (2e-4·max, its own tests'
+    bound), the model's chunked scan with one (1e-5·max)."""
+    x, dt, A, Bm, Cm, s0 = _inputs(B, T, H, P, N, 3 * T + P, state=state)
+    x, Bm, Cm = (_bf16_exact(a) for a in (x, Bm, Cm))
+    dt_t, A_t = torch.from_numpy(dt), torch.from_numpy(A)
+    s0_t = None if s0 is None else torch.from_numpy(s0)
+    y, st = _ssd_three_phase(x, dt_t, A_t, Bm, Cm, s0_t, chunk)
+    yr, sr = ops.ssd_chunked(x, dt_t, A_t, Bm, Cm, s0_t, chunk=chunk)
+    scale = float(yr.abs().max())
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(st.numpy(), sr.numpy(), rtol=0, atol=1e-5 * float(sr.abs().max()))
+    xn, Bn, Cn = x.numpy(), Bm.numpy(), Cm.numpy()
+    if state:
+        # the model's scan takes whole chunks: pad with dt = 0 steps, which
+        # leave the state as it is (the Pallas wrapper's own padding)
+        pad = [(0, 0), (0, -T % chunk)]
+        xp, dtp, Bp, Cp = (np.pad(a, pad + [(0, 0)] * (a.ndim - 2)) for a in (xn, dt, Bn, Cn))
+        ym, stm = _ssd_chunked(*map(jnp.asarray, (xp, dtp, A, Bp, Cp, s0)), chunk=chunk)
+        np.testing.assert_allclose(y.numpy(), np.asarray(ym)[:, :T], rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(st.numpy(), np.asarray(stm), rtol=0,
+                                   atol=1e-5 * float(np.abs(np.asarray(stm)).max()))
+    else:
+        xr, dtr, Ar, Br, Cr = _rows(xn, dt, A, Bn, Cn)
+        yk = np.asarray(jax_ssd(*map(jnp.asarray, (xr, dtr, Ar, Br, Cr)), chunk=chunk))
+        np.testing.assert_allclose(y[0].numpy().transpose(1, 0, 2), yk, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-30, 1e30, 3.7e-5])
+def test_bf16x3_split_reconstructs_f32(scale):
+    """hi + mid + lo gives back the f32 value within 2⁻²⁴ of it, over f32's
+    exponent range (the pieces are bf16, which keeps f32's exponent); below
+    |v| ≈ 2⁻¹⁰⁹ the last piece turns subnormal and the error stays under
+    f32's smallest normal, 2⁻¹²⁶."""
+    rng = np.random.default_rng(int(np.log2(scale) + 200))
+    v = torch.from_numpy((rng.standard_normal(20_000) * scale).astype(np.float32))
+    v[:3] = torch.tensor([0.0, scale, -scale])
+    hi, mid, lo = _split3(v)
+    back = hi.double() + mid.double() + lo.double()
+    err = (back - v.double()).abs()
+    assert bool((err <= 2.0 ** -24 * v.double().abs() + 2.0 ** -126).all())
+    normal = v.double().abs() >= 2.0 ** -109
+    assert bool((err[normal] <= 2.0 ** -24 * v.double().abs()[normal]).all())
+    # hi alone is bf16 (8 bits): far from f32 accuracy
+    rel_hi = (hi.double() - v.double()).abs() / v.double().abs().clamp_min(1e-300)
+    assert float(rel_hi.max()) > 2.0 ** -12
