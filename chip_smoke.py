@@ -21,13 +21,22 @@ Phases (any failure exits nonzero):
      kernel) and their ratios printed; ssd's errors as shares of their
      tolerances, its mma body timed at T = 256 and 1,024 beside its f32
      CUDA-core and bf16×3 tensor-core bounds, bernstein at n = 250,001 and at
-     one 16,384-row chunk; ssd, gram and bernstein give the same bits on
-     repeated calls;
+     one 16,384-row chunk; ssd, gram, bernstein, extremes and sweep give the
+     same bits on repeated calls; extremes (values and indices) and the
+     sweep's SX' and extremes are bit-identical to their plain versions, and
+     extremes and sweep run two device kernels a call (their parent design's
+     device times in brackets); gram and sweep also at one chunk of the
+     paper's J = 10 (covertype) and J = 20 (equity) at degree 6, gram's tiled
+     body (D 70, 140) against float64 and torch.mm, the sweep at the default
+     one-pass sketch 4·D² (19,600 and 78,400);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, adam 250 steps at lr 0.05 for the coreset
      and the full-data fits), both strategies; every ratio must lie in its
      band; plus the path's scores and fit held against the plain (CPU) path
-     on a small input;
+     on a small input, and the scoring of J = 10 covertype (n = 50,000, both
+     strategies) on the card against the CPU path (identical features: the
+     same hull rows) and float64, with a TF32-Gram and a bf16-feature control
+     that the same limit must reject;
   4. the serve path: the reduced LMs on the card against the CPU at f32
      (same greedy tokens, logits within 1e-4), then each full-width model
      from a seeded generator on the card serving 8 greedy requests (prompts
@@ -61,6 +70,12 @@ MAIN_N = 250_001
 CHUNK = 16_384
 SKETCH = 784                 # 4·(J·d)² at J = 2, d = 7
 KS = (500, 2000)
+# device ms of the previous design of the extremes and sweep kernels at the
+# path's shapes, the mean of the two runs PERF.md §6 records (NVIDIA H100
+# 80GB HBM3 at 700.00 W): logged in brackets beside this run's, never in the
+# kernels line, which holds this run's measurements only
+PARENT_DEVICE_MS = {"extremes": 0.06264, "sweep": 0.11590}
+WIDE_J = (10, 20)            # table2_covertype.py (J = 10), table5_equity.py (J = 20)
 
 
 def fail(msg: str) -> None:
@@ -109,9 +124,11 @@ def phase_environment():
 
 
 # redesigned kernels → the template arguments to report (None: every one)
-REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
+REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None, "gram_wide_kernel": None,
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
-              "bernstein_featurize_kernel": ("6", "15")}
+              "bernstein_featurize_kernel": ("6", "15"), "extremes_score_kernel": ("7",),
+              "extremes_fold_kernel": ("7",), "sweep_main_kernel": ("7",),
+              "sweep_fold_kernel": ("7",)}
 
 
 def ptxas_report(build_log: dict) -> list[str]:
@@ -156,12 +173,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+CLEAN_WINDOW_TRIES = 5
+
+
+def clean_window(fn, iters: int = 20) -> dict:
+    """``profile_window`` over ``iters`` calls of ``fn``, taken again (up to
+    CLEAN_WINDOW_TRIES times) while its kernel count is no multiple of
+    ``iters``: the profiler has been seen to drop kernel records from a
+    window, and a window short of kernels reports a time short of them, so
+    it raises when every try lost records."""
+    fn()
+    for _ in range(CLEAN_WINDOW_TRIES):
+        w = profile_window(lambda: [fn() for _ in range(iters)])
+        if w["device_launches"] % iters == 0:
+            return w
+        log(f"  profiler window lost kernel records ({w['device_launches']} kernels over "
+            f"{iters} calls); measuring again")
+    raise RuntimeError(f"every one of {CLEAN_WINDOW_TRIES} profiler windows lost kernel "
+                       f"records ({w['device_launches']} kernels over {iters} calls)")
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Per-call device time of ``fn``: the summed durations of the kernels
-    it launches over ``iters`` calls (``profile_window``), over ``iters``.
+    it launches over ``iters`` calls (``clean_window``), over ``iters``.
     Unlike ``cuda_ms`` it does not read the host's issue rate."""
-    fn()
-    return profile_window(lambda: [fn() for _ in range(iters)])["device_busy_ms"] / iters
+    return clean_window(fn, iters)["device_busy_ms"] / iters
 
 
 def in_turns(kernel, library) -> dict:
@@ -211,6 +247,32 @@ def kernel_row(name, source, replaces, err, kernel, plain, library, nbytes, flop
         "bound_ms": b, "bound_by": by, "library_ms": lib, "device_ms": t["device_ms"],
         "library_device_ms": t["library_device_ms"],
     }
+
+
+def same_bits(a, b) -> bool:
+    """Equal to the bit (±0 and NaN payloads included), on any devices."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+
+
+def featurized_chunk(dev, J: int):
+    """One CHUNK-point chunk at degree 6 of the paper's wider tables: J = 10
+    on covertype (table2_covertype.py), J = 20 on equity returns
+    (table5_equity.py) → (X (c, 7J), P (c·J, 7)) from the port's featurize."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import _mctm_featurize
+    from repro_torch.data import generate_covertype, generate_equity_returns
+
+    Yn = generate_covertype(CHUNK, seed=0) if J == 10 else generate_equity_returns(CHUNK, J, seed=0)
+    Yn = Yn.astype(np.float32)
+    return _mctm_featurize(M.MCTMConfig(J=J, degree=6), DataScaler.fit(Yn))(
+        torch.as_tensor(Yn, device=dev))
 
 
 def max_err(a, b) -> float:
@@ -303,7 +365,7 @@ def phase_kernels(dev):
     log(f"  gram vs float64: max abs err {err:.3e} of max|G| {float(Gr.abs().max()):.3e}; "
         "bit-identical over repeated calls and with the separate add")
     calls = 20
-    prof = profile_window(lambda: [gram_matrix(X, sw, acc=G0) for _ in range(calls)])
+    prof = clean_window(lambda: gram_matrix(X, sw, acc=G0), calls)
     log(f"  gram: {prof['device_launches']} device kernels over {calls} calls with acc= "
         f"({prof['top_kernels_ms']})")
     if prof["device_launches"] != calls:
@@ -312,6 +374,36 @@ def phase_kernels(dev):
         lambda: gram_matrix(X, sw, acc=G0), lambda: gram_ref(X, sw, acc=G0),
         lambda: torch.mm(X.T, X),
         nbytes=4 * (CHUNK * D + CHUNK + 2 * D * D), flops=CHUNK * (D + D * (D + 1)))
+
+    # ---- gram's tiled body, 64 < D ≤ 160: one chunk at J = 10 and 20
+    wide = {J: featurized_chunk(dev, J) for J in WIDE_J}
+    extra = {}
+    for J, (Xw, _) in wide.items():
+        Dw = Xw.shape[1]
+        sww = torch.rand(CHUNK, generator=gen).to(dev)
+        Ga = torch.randn(Dw, Dw, generator=gen).to(dev)
+        Gw = gram_matrix(Xw, sww, acc=Ga)
+        Gr = gram_ref(Xw.double(), sww.double(), acc=Ga.double())
+        again = [gram_matrix(Xw, sww, acc=Ga) for _ in range(3)]
+        separate = Ga + gram_matrix(Xw, sww)
+        torch.cuda.synchronize()
+        err = max_err(Gw, Gr)
+        if err > 1e-5 * float(Gr.abs().max()):
+            errs.append(f"gram D={Dw} disagrees with its plain version in float64: {err}")
+        if not all(torch.equal(Gw, a) for a in again) or not torch.equal(Gw, separate):
+            errs.append(f"gram D={Dw} is not bit-identical across calls or with acc=")
+        prof = clean_window(lambda: gram_matrix(Xw, sww, acc=Ga), calls)
+        if prof["device_launches"] != calls:
+            errs.append(f"gram D={Dw} ran {prof['device_launches']} device kernels over {calls}")
+        t = in_turns(lambda: gram_matrix(Xw, sww, acc=Ga), lambda: torch.mm(Xw.T, Xw))
+        b, by = bound_ms(4 * (CHUNK * Dw + CHUNK + 2 * Dw * Dw), CHUNK * (Dw + Dw * (Dw + 1)))
+        extra[f"gram_D{Dw}"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+        log(f"  gram J={J} ({CHUNK:,}, {Dw}) tiled body: max abs err {err:.3e} of max|G| "
+            f"{float(Gr.abs().max()):.3e}; device {t['device_ms']:.5f} ms vs torch.mm "
+            f"{t['library_device_ms']:.5f} ms (ratio {t['device_ratio']:.3f}, in turns "
+            f"{[round(x, 5) for x in t['turns_device_ms']]}); events {t['ms']:.5f} vs "
+            f"{t['library_ms']:.5f} ms; bound {b:.5f} ms ({by}); "
+            f"{prof['device_launches'] // calls} device kernel a call")
 
     # ---- extremes: P (32,768, 7) against both nets, whole, ragged, and tied
     Ptie = P.clone()
@@ -323,13 +415,16 @@ def phase_kernels(dev):
                                  (Ptie, Ptie.shape[0], "tied")):
             got = directional_extremes(Pc, dirs[k], nv_rows)
             ref = directional_extremes_ref(Pc, dirs[k], nv_rows)
+            again = [directional_extremes(Pc, dirs[k], nv_rows) for _ in range(2)]
             torch.cuda.synchronize()
             mism = int((got[1] != ref[1]).sum()) + int((got[3] != ref[3]).sum())
             e = max(max_err(got[0], ref[0]), max_err(got[2], ref[2]))
+            bits = all(same_bits(g, r) for g, r in zip(got, ref))
+            stable = all(same_bits(g, a) for ag in again for g, a in zip(got, ag))
             ext_err = max(ext_err, e)
             log(f"  extremes m={dirs[k].shape[0]} {tag}: index mismatches {mism}, "
-                f"max value err {e:.3e}")
-            if mism or e > 1e-4:
+                f"max value err {e:.3e}, bit-identical {bits}, same bits on repeat {stable}")
+            if mism or not bits or not stable:
                 errs.append(f"extremes m={dirs[k].shape[0]} {tag} disagrees: {mism} indices, {e}")
             if tag == "tied" and (int(got[1].max()) >= half or int(got[3].max()) >= half):
                 errs.append("extremes kept a later copy on an exact tie")
@@ -345,41 +440,27 @@ def phase_kernels(dev):
         lambda: directional_extremes(P, dk), lambda: directional_extremes_ref(P, dk),
         library_extremes,
         nbytes=4 * (P.numel() + dk.numel() + 4 * m), flops=2 * m * P.shape[0] * d)
+    ex_row = rows_all[-1]
+    ex_row["device_kernels_per_call"] = kernels_per_call(
+        lambda: directional_extremes(P, dk), errs, "extremes", 2)
+    log(f"  extremes: device {ex_row['device_ms']:.5f} ms (parent "
+        f"[{PARENT_DEVICE_MS['extremes']}]), {ex_row['bound_ms'] / ex_row['device_ms']:.3f} "
+        f"of its bound, {ex_row['device_kernels_per_call']} device kernels a call")
 
-    # ---- sweep: sketch 784, with and without Ω, with and without moments
+    # ---- sweep: sketch 784, with and without Ω, with and without moments,
+    # from a nonzero carry
     rows_p, signs_p = sketch_plan(CHUNK, SKETCH, generator=gen, device=dev)
-    SX0 = torch.zeros((SKETCH, D), device=dev)
+    SX0 = torch.randn((SKETCH, D), generator=gen).to(dev)
     omega = torch.randn((D, 8), generator=gen).to(dev) / np.sqrt(8)
-    mom0 = (torch.zeros(d, device=dev), torch.zeros((d, d), device=dev))
+    mom0 = (torch.randn(d, generator=gen).to(dev), torch.randn((d, d), generator=gen).to(dev))
     up = torch.as_tensor(upfront_directions(d, KS[-1] - int(0.8 * KS[-1]), generator=gen),
                          device=dev)
     sweep_err = 0.0
     for om in (None, omega):
         for mom in (None, mom0):
-            got = fused_sweep_update(SX0, X, P, sw, rows_p, signs_p, dirs=up, omega=om,
-                                     n_valid=CHUNK - 77, moments=mom)
-            ref = fused_sweep_ref(SX0, X, P, sw, rows_p, signs_p, dirs=up, omega=om,
-                                  n_valid=CHUNK - 77, moments=mom)
-            torch.cuda.synchronize()
             tag = f"omega={'on' if om is not None else 'off'} moments={'on' if mom else 'off'}"
-            ok = close(got[0], ref[0], rtol=1e-6, atol=1e-6) and close(got[1], ref[1],
-                                                                      rtol=1e-6, atol=1e-6)
-            mism = int((got[2][1] != ref[2][1]).sum()) + int((got[2][3] != ref[2][3]).sum())
-            e = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]),
-                    max_err(got[2][0], ref[2][0]), max_err(got[2][2], ref[2][2]))
-            if mom is not None:
-                # moments against the plain version in float64: the kernel's
-                # compensated sums sit far below the f32 plain sum's own error
-                r64 = fused_sweep_ref(SX0.double(), X.double(), P.double(), sw.double(), rows_p,
-                                      signs_p.double(), moments=tuple(t.double() for t in mom),
-                                      want_z=False)[3]
-                for g, rr in zip(got[3], r64):
-                    ok = ok and close(g, rr, rtol=1e-6, atol=1e-4)
-                    e = max(e, max_err(g, rr))
-            sweep_err = max(sweep_err, e)
-            log(f"  sweep {tag}: index mismatches {mism}, max err {e:.3e}")
-            if not ok or mism:
-                errs.append(f"sweep {tag} disagrees: {mism} indices, {e}")
+            sweep_err = max(sweep_err, check_sweep(
+                tag, SX0, X, P, sw, rows_p, signs_p, up, om, CHUNK - 77, mom, errs))
     mu = up.shape[0]
     row("sweep", "src/repro_torch/csrc/sweep.cu", "src/repro/kernels/sweep/kernel.py:136",
         sweep_err,
@@ -388,9 +469,86 @@ def phase_kernels(dev):
         nbytes=4 * (2 * CHUNK * D + P.numel() + 3 * CHUNK + up.numel() + 2 * SKETCH * D
                     + 4 * mu),
         flops=CHUNK * 2 * D + 2 * mu * P.shape[0] * d)
+    sw_row = rows_all[-1]
+    sw_row["device_kernels_per_call"] = kernels_per_call(
+        lambda: fused_sweep_update(SX0, X, P, sw, rows_p, signs_p, dirs=up), errs, "sweep", 2)
+    log(f"  sweep: device {sw_row['device_ms']:.5f} ms (parent [{PARENT_DEVICE_MS['sweep']}]), "
+        f"{sw_row['bound_ms'] / sw_row['device_ms']:.3f} of its bound, "
+        f"{sw_row['device_kernels_per_call']} device kernels a call")
+
+    # ---- sweep at the default one-pass sketch 4·D² of J = 10 and 20
+    for J, (Xw, Pw) in wide.items():
+        Dw, skw = Xw.shape[1], 4 * Xw.shape[1] ** 2
+        sww = torch.ones(CHUNK, device=dev)
+        rw, sgw = sketch_plan(CHUNK, skw, generator=gen, device=dev)
+        SXw = torch.randn((skw, Dw), generator=gen).to(dev)
+        momw = (torch.zeros(d, device=dev), torch.zeros((d, d), device=dev))
+        tag = f"J={J} D={Dw} sketch={skw:,} m={mu}"
+        check_sweep(tag, SXw, Xw, Pw, sww, rw, sgw, up, None, CHUNK, momw, errs)
+        call = lambda: fused_sweep_update(SXw, Xw, Pw, sww, rw, sgw, dirs=up)  # noqa: E731
+        dms, ems = device_ms(call), cuda_ms(call)
+        b, by = bound_ms(4 * (2 * CHUNK * Dw + Pw.numel() + 3 * CHUNK + up.numel()
+                              + 2 * skw * Dw + 4 * mu), CHUNK * 2 * Dw + 2 * mu * Pw.shape[0] * d)
+        extra[f"sweep_J{J}"] = {"device_ms": dms, "ms": ems, "bound_ms": b, "bound_by": by,
+                                "sketch": skw, "D": Dw}
+        log(f"  sweep {tag}: device {dms:.5f} ms, events {ems:.5f} ms, bound {b:.5f} ms ({by}), "
+            f"{b / dms:.3f} of it")
     if errs:
         fail("; ".join(errs))
-    return rows_all
+    return rows_all, extra
+
+
+def kernels_per_call(fn, errs, name, want, calls=20):
+    """Device kernels a call of ``fn`` launches (torch.profiler)."""
+    n = clean_window(fn, calls)["device_launches"] / calls
+    if n != want:
+        errs.append(f"{name} ran {n} device kernels a call, expected {want}")
+    return n
+
+
+def check_sweep(tag, SX0, X, P, sw, rows, signs, dirs, omega, n_valid, mom, errs) -> float:
+    """One sweep call on the card against its plain version: SX' to the bit
+    and z within 1e-6 (to the bit, but for the double rounding of the plain
+    version's float64 emulation of each fma) against the plain version on the
+    CPU; the extremes to the bit against the plain version on the card;
+    the moments within rtol 1e-6 / atol 1e-4 of float64; the same bits on a
+    repeated call. Returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels.sweep.ops import fused_sweep_update
+    from repro_torch.kernels.sweep.ref import fused_sweep_ref
+
+    kw = dict(dirs=dirs, omega=omega, n_valid=n_valid, moments=mom)
+    got = fused_sweep_update(SX0, X, P, sw, rows, signs, **kw)
+    again = fused_sweep_update(SX0, X, P, sw, rows, signs, **kw)
+    cpu = [t.to(X.device) for t in fused_sweep_ref(
+        SX0.cpu(), X.cpu(), None, sw.cpu(), rows.cpu(), signs.cpu(),
+        omega=None if omega is None else omega.cpu())[:2]]
+    ext = fused_sweep_ref(SX0, X, P, sw, rows, signs, dirs=dirs, n_valid=n_valid,
+                          want_z=False)[2]
+    torch.cuda.synchronize()
+    sx_bits, z_bits = same_bits(got[0], cpu[0]), same_bits(got[1], cpu[1])
+    z_diff = int((got[1].view(torch.int32) != cpu[1].view(torch.int32)).sum())
+    e = max(max_err(got[0], cpu[0]), max_err(got[1], cpu[1]))
+    ok = sx_bits and close(got[1], cpu[1], rtol=1e-6, atol=1e-6)
+    mism = int((got[2][1] != ext[1]).sum()) + int((got[2][3] != ext[3]).sum())
+    ext_bits = all(same_bits(a, b) for a, b in zip(got[2], ext))
+    if mom is not None:
+        r64 = fused_sweep_ref(SX0.double(), X.double(), P.double(), sw.double(), rows,
+                              signs.double(), moments=tuple(t.double() for t in mom),
+                              want_z=False)[3]
+        for g, rr in zip(got[3], r64):
+            ok = ok and close(g, rr, rtol=1e-6, atol=1e-4)
+            e = max(e, max_err(g, rr))
+    flat = lambda o: [o[0], o[1], *o[2], *(o[3] or ())]  # noqa: E731
+    stable = all(same_bits(a, b) for a, b in zip(flat(got), flat(again)))
+    log(f"  sweep {tag}: SX' bit-identical {sx_bits}, z bit-identical {z_bits} ({z_diff} "
+        f"elements differ), extremes bit-identical {ext_bits} ({mism} index mismatches), "
+        f"same bits on repeat {stable}, max err {e:.3e}")
+    if not (ok and ext_bits and stable):
+        errs.append(f"sweep {tag} disagrees: SX' bits {sx_bits}, extremes bits {ext_bits}, "
+                    f"repeat {stable}, err {e}")
+    return e
 
 
 # ---------------------------------------------------------------- phase 3
@@ -475,6 +633,149 @@ def phase_small_agreement(dev):
     if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
         fail(f"fit on the card disagrees with the CPU path: {a} vs {b}")
     log(f"small input fit: final NLL {a:.6f} (card) vs {b:.6f} (CPU)")
+
+
+WIDE_SCORING_N = 50_000   # table2_covertype.py's n at J = 10
+# ridge-lss scores at J = 10 and n = 50,000: the CPU path itself lies 1.06e-4
+# from the float64 scores of the same features (the f32 Gram over 50,000
+# rows, measured on the CPU with this data), so card and CPU are held to
+# 2e-4 of each other and of float64. tests/test_torch_scoring.py's 2e-5 is for
+# n ≤ 3,001, where the same check on the card passes
+# (tests/test_torch_cuda.py). Two lower-precision controls run through the
+# same check and must fail it: a TF32 Gram, and features rounded to bf16.
+WIDE_SCORING_RTOL = 2e-4
+# each side's own featurize: the least share of hull points in common. The
+# card's bernstein bits differ from the plain version's in the last bit, and
+# the extreme rows of a direction lie within 1e-6 of each other here, so the
+# argmax moves between near-ties (112 and 104 of 154 in common, two-pass and
+# one-pass, NVIDIA H100 80GB HBM3); both sides give the same bits on every
+# run, and the floor catches a hull that goes wrong wholesale.
+WIDE_HULL_COMMON_FLOOR = 0.6
+
+
+def _tf32_gram(X, sw=None, *, acc=None, backend=None):
+    """acc + (√w·X)ᵀ(√w·X) by torch.mm with TF32 allowed: the control that
+    WIDE_SCORING_RTOL must reject."""
+    import torch
+
+    Xw = X if sw is None else X * sw[:, None]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        G = Xw.T @ Xw
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return G if acc is None else acc + G
+
+
+def phase_wide_scoring(dev):
+    """The port's scoring at J = 10 (D = 70) on covertype, n = 50,000 at
+    degree 6 as table2_covertype.py, on the card against its CPU path, both
+    strategies (one-pass at the default sketch 4·D² = 19,600), in the two
+    layers of tests/test_torch_scoring.py:
+
+    - identical features (both engines read the CPU featurize's bits through
+      a lookup) and one direction net (two-pass: from those features'
+      moments; one-pass: the same generator): the same hull rows, and
+      ridge-lss scores within WIDE_SCORING_RTOL of the CPU path's and, for
+      the exact two-pass Gram, of float64's;
+    - each side's own featurize: scores within WIDE_SCORING_RTOL, and at
+      least WIDE_HULL_COMMON_FLOOR of the hull points in common.
+
+    Then the controls: the two-pass card run on identical features once with
+    its Gram taken in TF32 (``_tf32_gram`` in place of the gram kernel), once
+    with the features rounded to bf16; each must lie beyond
+    WIDE_SCORING_RTOL of the CPU path or of float64, so the limit is shown
+    to separate a lower-precision card path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core import scoring
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import ScoringEngine, _mctm_featurize, directions_from_moments
+    from repro_torch.data import generate_covertype
+
+    n, J = WIDE_SCORING_N, 10
+    Y = generate_covertype(n, seed=0).astype(np.float32)
+    cfg, scaler = M.MCTMConfig(J=J, degree=6), DataScaler.fit(Y)
+    X, P = _mctm_featurize(cfg, scaler)(torch.as_tensor(Y))
+    Xd, Pd = X.double().numpy(), P.double().numpy()
+    exact = np.einsum("ij,jk,ik->i", Xd, np.linalg.inv(Xd.T @ Xd + np.eye(Xd.shape[1])), Xd)
+    exact += 1.0 / n
+    net = directions_from_moments(Pd.sum(0), Pd.T @ Pd, Pd.shape[0], 40,
+                                  generator=torch.Generator().manual_seed(3))
+    Yidx = np.stack([np.arange(n), np.zeros(n)], axis=1).astype(np.float32)
+
+    def lookup(where, dtype=torch.float32):
+        Xt, Pt = (t.to(dtype).float().to(where) for t in (X, P))
+
+        def featurize(Yc):
+            idx = Yc[:, 0].long()
+            return Xt[idx], Pt[(J * idx[:, None] + torch.arange(J, device=idx.device)).reshape(-1)]
+
+        return featurize
+
+    def score(where, layer, kw, dtype=torch.float32):
+        if layer == "identical features":
+            eng = ScoringEngine(featurize=lookup(where, dtype), rows_per_point=J,
+                                chunk_size=CHUNK, device=where)
+            Yw = Yidx
+        else:
+            eng = ScoringEngine(cfg, scaler, chunk_size=CHUNK, device=where)
+            Yw = Y
+        return eng.score(Yw, method="ridge-lss", hull_k=40,
+                         generator=torch.Generator().manual_seed(3), **kw)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    out, two_pass_cpu = {}, None
+    for name, kw in (("two-pass", {"hull_dirs": net}), ("one-pass", {"sketch_size": 4 * 70 * 70})):
+        for layer in ("identical features", "own featurize"):
+            res, secs = {}, {}
+            for where in ("cpu", "cuda"):
+                t0 = time.perf_counter()
+                res[where] = score(where, layer, kw)
+                secs[where] = time.perf_counter() - t0
+            a, b = res["cuda"], res["cpu"]
+            common = np.intersect1d(a.hull_points, b.hull_points).size
+            rec = {"max_score_rel_err": rel(a.scores, b.scores), "hull_points_common": int(common),
+                   "hull_points": int(b.hull_points.size),
+                   "hull_rows_equal": bool(np.array_equal(a.hull_rows, b.hull_rows)),
+                   "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+            worst = rec["max_score_rel_err"]
+            if name == "two-pass" and layer == "identical features":  # the exact Gram
+                two_pass_cpu = b.scores
+                rec["card_vs_float64"] = rel(a.scores, exact)
+                rec["cpu_vs_float64"] = rel(b.scores, exact)
+                worst = max(worst, rec["card_vs_float64"], rec["cpu_vs_float64"])
+            out[f"{name}, {layer}"] = rec
+            log(f"J=10 covertype n={n:,} {name}, {layer}: " + json.dumps(rec))
+            ok = (a.scores.shape == (n,) and bool(np.all(np.isfinite(a.scores)))
+                  and worst <= WIDE_SCORING_RTOL)
+            if layer == "identical features":
+                ok = ok and rec["hull_rows_equal"]
+            else:
+                ok = ok and common >= WIDE_HULL_COMMON_FLOOR * rec["hull_points"]
+            if not ok:
+                fail(f"J=10 scoring on the card disagrees with the CPU path ({name}, {layer})")
+
+    gram_kernel = scoring.gram_matrix
+    for control in ("TF32 Gram", "bf16 features"):
+        scoring.gram_matrix = _tf32_gram if control == "TF32 Gram" else gram_kernel
+        try:
+            a = score("cuda", "identical features", {"hull_dirs": net},
+                      torch.bfloat16 if control == "bf16 features" else torch.float32)
+        finally:
+            scoring.gram_matrix = gram_kernel
+        rec = {"card_vs_cpu": rel(a.scores, two_pass_cpu), "card_vs_float64": rel(a.scores, exact)}
+        rec["over_limit"] = max(rec.values()) / WIDE_SCORING_RTOL
+        out[f"control, two-pass, {control}"] = rec
+        log(f"J=10 covertype n={n:,} control, two-pass, {control}: " + json.dumps(rec))
+        if rec["over_limit"] <= 1.0:
+            fail(f"WIDE_SCORING_RTOL does not separate the {control} control: {rec}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -870,8 +1171,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_environment()
-    kernels = phase_kernels(dev) + phase_lm_kernels(dev)
+    mctm_kernels, wide = phase_kernels(dev)
+    kernels = mctm_kernels + phase_lm_kernels(dev)
     phase_small_agreement(dev)
+    wide["scoring_j10"] = phase_wide_scoring(dev)
     launches = phase_path(dev)
     phase_lm_small_agreement(dev)
     serve_launches, serve = phase_serve(dev)
@@ -883,7 +1186,7 @@ def main() -> None:
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "serve": serve}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,18 @@
 //    No float atomics and no scratch: the sum is taken in the same order
 //    on every run, on every stream. (Compensated sums there cost more than
 //    the rest of the kernel: a single warp's dependent chains.)
+//
+// For 64 < D ≤ 160 (J·(degree+1) at J = 10 and 20) a second body, simple
+// rather than fast, takes the call, also in one launch: G's upper triangle
+// is cut into 32×32 tiles (blockIdx.y), and the rows into C ≤ 16 contiguous
+// spans, one a CTA of a C-CTA cluster (blockIdx.x). A CTA stages 128-row
+// stages of its two 32-column panels of √w·X in shared memory, loading the
+// next stage into registers while it multiplies this one; each of its
+// 256 threads sums a 4×4 block of the tile over a quarter of each stage's
+// rows in plain f32 and adds the stage sums into compensated sums, as the
+// small body does. The four row groups are added in a fixed tree, and rank
+// 0 sums the ranks' tiles in rank order over distributed shared memory,
+// adds acc last and writes both triangles.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -265,15 +277,163 @@ __global__ void __launch_bounds__(kThreadsTarget)
   cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
+
+constexpr int kWideMaxD = 160;
+constexpr int kWideTile = 32;       // columns of a panel; G tiles are 32×32
+constexpr int kWideRows = 128;      // rows of a stage
+constexpr int kWideThreads = 256;   // 64 4×4 blocks × 4 row groups
+constexpr int kWideMaxCluster = 16; // as the small body: needs the non-portable size
+constexpr int kWideMinRows = 1024;  // rows a rank before another rank joins
+
+__global__ void __launch_bounds__(kWideThreads)
+    gram_wide_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
+                     int span, const float* __restrict__ acc, float* __restrict__ G) {
+  __shared__ __align__(16) float xa[kWideRows * kWideTile];
+  __shared__ __align__(16) float xb[kWideRows * kWideTile];
+  __shared__ float tp[kWideTile * kWideTile];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  int ta, tb;
+  block_of(blockIdx.y, (D + kWideTile - 1) / kWideTile, ta, tb);
+  const int ca0 = ta * kWideTile, cb0 = tb * kWideTile;
+  const bool diag = ta == tb;
+  const float* xbs = diag ? xa : xb;
+  const int tid = threadIdx.x;
+  const int blk = tid & 63, grp = tid >> 6;
+  const int bi = blk >> 3, bj = blk & 7;
+  const int row0 = min(n, rank * span);
+  const int row_end = min(n, row0 + span);
+
+  // each thread's elements of a stage: i = tid + 256·q, row i / 32, column
+  // i % 32 of each panel; the next stage's are loaded while this one is
+  // multiplied
+  constexpr int kPer = kWideRows * kWideTile / kWideThreads;
+  float na[kPer], nb[kPer], nw[kPer];
+  auto fetch = [&](int r0) {
+    const int cnt = min(kWideRows, row_end - r0);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = tid + kWideThreads * q, r = i / kWideTile, cc = i % kWideTile;
+      const long long o = (long long)(r0 + r) * D;
+      const bool ok = r < cnt;
+      nw[q] = ok && sw != nullptr ? sw[r0 + r] : 1.f;
+      na[q] = ok && ca0 + cc < D ? X[o + ca0 + cc] : 0.f;
+      nb[q] = ok && !diag && cb0 + cc < D ? X[o + cb0 + cc] : 0.f;
+    }
+  };
+  KahanSum run[16];
+  if (row0 < row_end) fetch(row0);
+  for (int r0 = row0; r0 < row_end; r0 += kWideRows) {
+    const int cnt = min(kWideRows, row_end - r0);
+    __syncthreads();  // the previous stage is read
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      xa[tid + kWideThreads * q] = na[q] * nw[q];
+      if (!diag) xb[tid + kWideThreads * q] = nb[q] * nw[q];
+    }
+    __syncthreads();
+    if (r0 + kWideRows < row_end) fetch(r0 + kWideRows);
+    float part[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) part[i] = 0.f;
+    for (int r = grp; r < cnt; r += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(xa + r * kWideTile + 4 * bi);
+      const float4 b = *reinterpret_cast<const float4*>(xbs + r * kWideTile + 4 * bj);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[4 * i + j] = fmaf(av[i], bv[j], part[4 * i + j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) run[i].add(part[i]);
+  }
+
+  // row groups → red[grp · 1024 + e] (aliasing xa), then a fixed tree
+  __syncthreads();
+  float* red = xa;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      red[grp * kWideTile * kWideTile + (4 * bi + i) * kWideTile + 4 * bj + j] = run[4 * i + j].s;
+  __syncthreads();
+  constexpr int kT2 = kWideTile * kWideTile;
+  for (int e = tid; e < kT2; e += kWideThreads)
+    tp[e] = (red[e] + red[kT2 + e]) + (red[2 * kT2 + e] + red[3 * kT2 + e]);
+
+  // rank 0 sums the ranks' tiles in rank order, adds acc, writes G
+  cluster.sync();
+  if (rank == 0) {
+    const int C = (int)cluster.num_blocks();
+    for (int e = tid; e < kT2; e += kWideThreads) {
+      const int a = ca0 + e / kWideTile, b = cb0 + e % kWideTile;
+      if (a >= D || b >= D || (diag && a > b)) continue;
+      float v[kWideMaxCluster];  // all ranks' values in flight, then summed in rank order
+#pragma unroll
+      for (int c = 0; c < kWideMaxCluster; ++c)
+        v[c] = c < C ? cluster.map_shared_rank(tp, c)[e] : 0.f;
+      float s = v[0];
+#pragma unroll
+      for (int c = 1; c < kWideMaxCluster; ++c)
+        if (c < C) s += v[c];
+      G[a * D + b] = acc != nullptr ? acc[a * D + b] + s : s;
+      if (a != b) G[b * D + a] = acc != nullptr ? acc[b * D + a] + s : s;
+    }
+  }
+  cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
+}
+
+int launch_wide(const float* X, const float* sw, int n, int D, const float* acc, float* G,
+                cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gram_wide_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nt = (D + kWideTile - 1) / kWideTile;
+  // ranks: one wave of CTAs (one an SM at this body's registers), and at
+  // least kWideMinRows rows a rank
+  int C = (n + kWideMinRows - 1) / kWideMinRows;
+  const int fit = sms / (nt * (nt + 1) / 2);
+  C = C > fit ? fit : C;
+  C = C < 1 ? 1 : (C > kWideMaxCluster ? kWideMaxCluster : C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, nt * (nt + 1) / 2);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, gram_wide_kernel, X, sw, n, D, (n + C - 1) / C, acc, G);
+}
+
 }  // namespace
 
-// X (n, D) f32 and sw (n,) f32 or null (all ones), both with 16-byte
-// aligned bases,
+// X (n, D) f32, D ≤ 160, and sw (n,) f32 or null (all ones), both with
+// 16-byte aligned bases,
 // acc (D, D) f32 or null (zeros) → G = acc + (√w·X)ᵀ(√w·X), (D, D) f32. G
 // must not alias X, sw or acc.
 REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const void* acc,
                             void* G, void* stream) {
-  if (D <= 0 || D > kMaxD || n < 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > kWideMaxD || n < 0) return (int)cudaErrorInvalidValue;
+  if (D > kMaxD)
+    return launch_wide((const float*)X, (const float*)sw, n, D, (const float*)acc, (float*)G,
+                       (cudaStream_t)stream);
   const Shape sh = make_shape(D);
   if (sh.groups * sh.ntri > kRedFloats || sh.nblk * sh.groups < kMinThreads)
     return (int)cudaErrorInvalidValue;

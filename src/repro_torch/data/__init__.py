@@ -1,3 +1,6 @@
+from repro_torch.data.covertype import COVERTYPE_COLUMNS, generate_covertype
 from repro_torch.data.dgp import DGP_NAMES, DGPS, generate
+from repro_torch.data.equity import generate_equity_returns
 
-__all__ = ["DGPS", "DGP_NAMES", "generate"]
+__all__ = ["DGPS", "DGP_NAMES", "generate", "generate_covertype", "COVERTYPE_COLUMNS",
+           "generate_equity_returns"]

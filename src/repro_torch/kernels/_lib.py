@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import functools
 import time
 from pathlib import Path
 
@@ -41,10 +42,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_bernstein_featurize": (_P, _L, _I, _I, _P, _P, _P, _P),
     "repro_gram": (_P, _P, _I, _I, _P, _P, _P),
-    "repro_extremes": (_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    "repro_sweep_smem_bytes": (_I, _I, _I, _I, _I),
+    "repro_extremes": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "repro_sweep": (
-        _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I,
+        _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     "repro_flash_attention": (
@@ -56,7 +56,15 @@ _SIGNATURES = {
         _L, _L, _L, _P,
     ),
 }
-_RESTYPES = {"repro_sweep_smem_bytes": _L}
+# the limits and launch units of csrc/ that the wrappers check and plan with,
+# by source and name; tests/test_torch_structure.py holds each to its
+# constexpr (or #define) there
+CUDA_CONSTANTS = {
+    "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
+                   "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
+    "gram.cu": {"kWideMaxD": 160},
+    "sweep.cu": {"kMaxD": 160},
+}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None  # wall time of this process's build, if it built
@@ -136,13 +144,19 @@ def lib() -> ctypes.CDLL:
     for name, args in _SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = list(args)
-        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+        fn.restype = ctypes.c_int
     _LIB = handle
     return handle
 
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

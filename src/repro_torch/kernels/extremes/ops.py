@@ -8,9 +8,29 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.extremes.ref import directional_extremes_ref
 
-MAX_DP = 16
-ROWS_PER_CTA = 512
+_C = _lib.CUDA_CONSTANTS["common.cuh"]
+MAX_DP = _C["REPRO_MAX_DP"]
+DIRS_PER_WARP = _C["kExtWarpDirs"]  # directions a warp of a score CTA
+MAX_WARPS = _C["kExtMaxWarps"]      # warps of a score CTA
+TILE_ROWS = _C["kExtTile"]          # rows of the tile-max loop; a block is whole tiles
+MAX_BLOCK_ROWS = _C["kExtMaxBlockRows"]
+CTAS_PER_SM = _C["kExtCtasPerSm"]   # score CTAs an SM holds: the grid the plan aims at
 LAUNCHES = 0
+
+
+def launch_plan(rows: int, m: int, sms: int) -> tuple[int, int, int]:
+    """(rb, warps, nblk) of a score launch over ``rows`` rows of P and ``m``
+    directions on a card of ``sms`` SMs: CTA rows of ``warps`` warps cover
+    the directions in as few rows of at most MAX_WARPS warps as possible,
+    and rows are cut into ``nblk`` blocks of ``rb`` rows so the grid is
+    about CTAS_PER_SM CTAs an SM."""
+    n_warps = -(-m // DIRS_PER_WARP)
+    cta_rows = -(-n_warps // MAX_WARPS)
+    warps = -(-n_warps // cta_rows)
+    target = max(1, CTAS_PER_SM * sms // cta_rows)
+    rb = -(-max(rows, 1) // target)
+    rb = min(MAX_BLOCK_ROWS, -(-rb // TILE_ROWS) * TILE_ROWS)
+    return rb, warps, -(-rows // rb)
 
 
 def directional_extremes(
@@ -34,20 +54,17 @@ def directional_extremes(
     nv = rows if n_valid is None else int(n_valid)
     _lib.require_cuda(P, dirs)
     dev = P.device
-    nblk = -(-rows // ROWS_PER_CTA)
-    fs = torch.empty(max(1, 2 * nblk * m), dtype=torch.float32, device=dev)
-    iscr = torch.empty(max(1, 2 * nblk * m), dtype=torch.int32, device=dev)
-    vmax = torch.empty(m, dtype=torch.float32, device=dev)
-    vmin = torch.empty_like(vmax)
-    imax = torch.empty(m, dtype=torch.int32, device=dev)
-    imin = torch.empty_like(imax)
+    rb, warps, nblk = launch_plan(rows, m, _lib.sm_count(dev.index or 0))
+    scratch = torch.empty(max(1, 4 * nblk * m), dtype=torch.float32, device=dev)
+    out = torch.empty(4 * m, dtype=torch.float32, device=dev)
+    ints = out[2 * m:].view(torch.int32)
     _lib.check(
         _lib.lib().repro_extremes(
-            _lib.ptr(P), rows, d, nv, _lib.ptr(dirs), m, _lib.ptr(fs), _lib.ptr(iscr),
-            _lib.ptr(vmax), _lib.ptr(imax), _lib.ptr(vmin), _lib.ptr(imin),
-            _lib.stream_ptr(dev),
+            _lib.ptr(P), rows, d, nv, _lib.ptr(dirs), m, rb, warps, _lib.ptr(scratch),
+            scratch.data_ptr() + 8 * nblk * m, _lib.ptr(out), _lib.ptr(ints),
+            out.data_ptr() + 4 * m, ints.data_ptr() + 4 * m, _lib.stream_ptr(dev),
         ),
         "repro_extremes",
     )
     LAUNCHES += 1
-    return vmax, imax, vmin, imin
+    return out[:m], ints[:m], out[m:2 * m], ints[m:]

@@ -1,6 +1,6 @@
 """Gram wrapper: G = acc + (√w·X)ᵀ(√w·X) on the CUDA kernel
-(``csrc/gram.cu``, one launch) for a CUDA tensor, on ``ref.py`` for a CPU
-tensor."""
+(``csrc/gram.cu``, one launch: the cluster body for D ≤ 64, the tiled body
+up to MAX_D) for a CUDA tensor, on ``ref.py`` for a CPU tensor."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gram.ref import gram_ref
 
-MAX_D = 64
+MAX_D = _lib.CUDA_CONSTANTS["gram.cu"]["kWideMaxD"]  # J·(degree+1) to J = 20 at degree 6
 LAUNCHES = 0
 
 

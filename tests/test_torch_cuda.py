@@ -3,10 +3,12 @@ small ragged shapes. Marked ``cuda``: they skip where no CUDA device is
 present (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 Tolerances are chip_smoke.py's: bernstein atol 1e-6; gram 1e-5 of max|G|
-against float64, and bit-identical across calls, streams and the fused
-accumulator;
-extremes exact (same FMA chain on both sides); sweep 1e-6, moments atol 1e-4
-against the plain version in float64; flash_attention f32 atol 2e-5 and bf16
+against float64 (both bodies: D ≤ 64 and up to 160), and bit-identical
+across calls, streams and the fused accumulator;
+extremes exact (same FMA chain on both sides); sweep 1e-6 against the plain
+version on the card, and at the default sketch of J = 2, 10 and 20 SX' and
+z bit-identical to the plain version on the CPU; moments rtol 1e-6 / atol
+1e-4 against the plain version in float64; flash_attention f32 atol 2e-5 and bf16
 atol 3e-2 (the reference's own bounds; the kernel rounds the softmax weights
 to bf16 for the tensor-core PV product), and bf16 also per element within
 ``flash_attention.ref.bf16_error_bound`` (the roundings of the output and of
@@ -72,10 +74,13 @@ def test_bernstein_kernel_ragged_tiles(dev, n, J, degree):
 @pytest.mark.parametrize("n,D,weighted", [
     (0, 14, True), (1, 14, False), (777, 14, True), (300, 64, True), (5, 3, True),
     (16_384, 14, True), (16_387, 14, False), (40_000, 37, True), (250_001, 14, True),
+    (0, 70, True), (1, 65, False), (16_384, 70, True), (16_384, 140, True), (20_001, 160, False),
+    (777, 99, True),
 ])
 def test_gram_kernel(dev, n, D, weighted):
     """n from none to many rows per CTA of a 16-CTA cluster, ragged n, D
-    that is no multiple of 4, and the path's (16,384, 14) chunk."""
+    that is no multiple of 4, and the path's (16,384, 14) chunk; the tiled
+    body for 64 < D ≤ 160 at J = 10 and 20's D = 70 and 140."""
     from repro_torch.kernels.gram import ops, ref
 
     X = torch.randn(n, D, generator=_g(D)).to(dev)
@@ -87,10 +92,10 @@ def test_gram_kernel(dev, n, D, weighted):
     assert float((G.double() - Gr).abs().max()) <= 1e-5 * float(Gr.abs().max())
     assert torch.equal(G, G.T)
     with pytest.raises(ValueError):
-        ops.gram_matrix(torch.zeros(4, 65, device=dev))
+        ops.gram_matrix(torch.zeros(4, ops.MAX_D + 1, device=dev))
 
 
-@pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64)])
+@pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64), (16_384, 140)])
 def test_gram_kernel_is_bit_identical_across_calls_and_streams(dev, n, D):
     """The fixed-order reduction: the same bits on every call, on the
     default stream and on a second one."""
@@ -110,7 +115,7 @@ def test_gram_kernel_is_bit_identical_across_calls_and_streams(dev, n, D):
 
 
 @pytest.mark.parametrize("n,D,weighted", [(0, 14, True), (777, 14, True), (16_384, 14, False),
-                                          (300, 64, True)])
+                                          (300, 64, True), (0, 70, True), (5_000, 140, False)])
 def test_gram_kernel_accumulator_equals_the_separate_add(dev, n, D, weighted):
     """gram_matrix(X, sw, acc=G) has the bits of G + gram_matrix(X, sw),
     for an accumulator that is not symmetric."""
@@ -176,6 +181,118 @@ def test_sweep_kernel(dev, c, r, m, q, moments):
         ops.fused_sweep_update(SX.double(), X, P, sw, rows, signs)
 
 
+def _device_kernels(fn, calls=4):
+    """Device kernels launched per call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / calls
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+
+
+@pytest.mark.parametrize("n_valid", [32_768, 32_768 - 1001])
+def test_extremes_kernel_at_the_path_shape(dev, n_valid):
+    """(32,768 × 7) × 1,614, the second half a copy of the first: values
+    (to the bit, ±0 included) and first-occurrence indices of the plain
+    version; the same bits on repeated calls; two device kernels a call."""
+    from repro_torch.kernels.extremes import ops, ref
+
+    P = torch.randn(32_768, 7, generator=_g(7)).to(dev)
+    P[16_384:] = P[:16_384].clone()
+    dirs = torch.randn(1614, 7, generator=_g(8)).to(dev)
+    got = ops.directional_extremes(P, dirs, n_valid)
+    exp = ref.directional_extremes_ref(P, dirs, n_valid)
+    for g, e in zip(got, exp):
+        assert _same_bits(g, e)
+    if n_valid == 32_768:
+        assert int(got[1].max()) < 16_384 and int(got[3].max()) < 16_384
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(ops.directional_extremes(P, dirs, n_valid),
+                                                     got))
+    assert _device_kernels(lambda: ops.directional_extremes(P, dirs, n_valid)) == 2
+
+
+def _sweep_inputs(J, c, sk, m, q, seed):
+    g = _g(seed)
+    D, d = 7 * J, 7
+    X, P = torch.rand(c, D, generator=g), torch.randn(c * J, d, generator=g)
+    sw = torch.rand(c, generator=g)
+    sw[-5:] = 0.0  # padding rows
+    rows = torch.randint(0, sk, (c,), generator=g).int()
+    signs = (torch.randint(0, 2, (c,), generator=g) * 2 - 1).float()
+    dirs = torch.randn(m, d, generator=g) if m else None
+    omega = torch.randn(D, q, generator=g) if q else None
+    SX = torch.randn(sk, D, generator=g)
+    mom = (torch.randn(d, generator=g), torch.randn(d, d, generator=g) * 100)
+    return SX, X, P, sw, rows, signs, dirs, omega, mom
+
+
+@pytest.mark.parametrize("J,m,q", [(2, 1614, None), (2, 1614, 8), (10, 200, None), (20, 200, 16)])
+def test_sweep_kernel_at_the_default_sketch(dev, J, m, q):
+    """One 16,384-point chunk at the default one-pass sketch 4·(7J)² (784,
+    19,600, 78,400): SX' and z have the bits of the plain version on the
+    CPU (each bucket's points added in ascending order from the carry;
+    z's FMA chain), the extremes those of the plain version's dense
+    argmax, the moments are within rtol 1e-6 / atol 1e-4 of float64, and
+    repeated calls give the same bits; two device kernels a call."""
+    from repro_torch.kernels.sweep import ops, ref
+
+    c = 16_384
+    sk = 4 * (7 * J) ** 2
+    cpu = _sweep_inputs(J, c, sk, m, q, J + m)
+    SX, X, P, sw, rows, signs, dirs, omega = (None if t is None else t.to(dev) for t in cpu[:8])
+    mom = tuple(t.to(dev) for t in cpu[8])
+    nv = c - 77
+    got = ops.fused_sweep_update(SX, X, P, sw, rows, signs, dirs=dirs, omega=omega,
+                                 n_valid=nv, moments=mom)
+    SXc, Xc, Pc, swc, rowsc, signsc, _, omc, _ = cpu
+    exp = ref.fused_sweep_ref(SXc, Xc, Pc, swc, rowsc, signsc, omega=omc)
+    assert _same_bits(got[0], exp[0]) and _same_bits(got[1], exp[1])
+    ext = ref.fused_sweep_ref(SX, X, P, sw, rows, signs, dirs=dirs, n_valid=nv, want_z=False)[2]
+    for a, b in zip(got[2], ext):
+        assert _same_bits(a, b)
+    e64 = ref.fused_sweep_ref(SX.double(), X.double(), P.double(), sw.double(), rows,
+                              signs.double(), moments=tuple(t.double() for t in mom),
+                              want_z=False)[3]
+    for a, b in zip(got[3], e64):
+        torch.testing.assert_close(a.double(), b, rtol=1e-6, atol=1e-4)
+    again = ops.fused_sweep_update(SX, X, P, sw, rows, signs, dirs=dirs, omega=omega,
+                                   n_valid=nv, moments=mom)
+    for a, b in zip((again[0], again[1], *again[2], *again[3]),
+                    (got[0], got[1], *got[2], *got[3])):
+        assert torch.equal(a, b)
+    assert _device_kernels(lambda: ops.fused_sweep_update(
+        SX, X, P, sw, rows, signs, dirs=dirs, omega=omega, n_valid=nv, moments=mom)) == 2
+    with pytest.raises(ValueError, match="Σp"):  # the kernel reads the carry as float32
+        ops.fused_sweep_update(SX, X, P, sw, rows, signs, moments=(mom[0].double(), mom[1]))
+    # the two-pass-sketched pass-1 call (no dirs, no z) and z alone
+    assert _device_kernels(lambda: ops.fused_sweep_update(
+        SX, X, P, sw, rows, signs, moments=mom, want_z=False)) == 2
+    assert _device_kernels(lambda: ops.fused_sweep_update(SX, X, None, sw, rows, signs)) == 1
+
+
+def test_sweep_kernel_with_every_point_in_one_bucket(dev):
+    """All 16,384 points in bucket 3 of 784: one sketch CTA flushes its range
+    in parts, and SX' keeps the plain version's bits."""
+    from repro_torch.kernels.sweep import ops, ref
+
+    SX, X, P, sw, rows, signs, _, _, _ = _sweep_inputs(2, 16_384, 784, 0, None, 3)
+    rows[:] = 3
+    got = ops.fused_sweep_update(SX.to(dev), X.to(dev), None, sw.to(dev), rows.to(dev),
+                                 signs.to(dev), want_z=False)
+    assert _same_bits(got[0], ref.fused_sweep_ref(SX, X, None, sw, rows, signs,
+                                                  want_z=False)[0])
+
+
 def test_scoring_on_the_card_matches_the_cpu_path(dev):
     from repro_torch.core import mctm as M
     from repro_torch.core.bernstein import DataScaler
@@ -188,6 +305,26 @@ def test_scoring_on_the_card_matches_the_cpu_path(dev):
         out = [ScoringEngine(cfg, scaler, chunk_size=700, device=where).score(
             Y, method="ridge-lss", generator=_g(0), hull_k=20, **kw) for where in ("cpu", dev)]
         np.testing.assert_allclose(out[1].scores, out[0].scores, rtol=1e-4)
+
+
+def test_scoring_on_the_card_matches_the_cpu_path_at_j10(dev):
+    """J = 10 (D = 70) on covertype, both strategies (one-pass at its default
+    sketch 4·D² = 19,600): ridge-lss scores to rtol 2e-5 and ≥ 90% of the
+    hull points in common with the port's CPU path (test_torch_scoring.py's
+    tolerances)."""
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import ScoringEngine
+    from repro_torch.data import generate_covertype
+
+    Y = generate_covertype(3001, seed=0).astype(np.float32)
+    cfg, scaler = M.MCTMConfig(J=10, degree=6), DataScaler.fit(Y)
+    for kw in ({}, {"sketch_size": 4 * 70 * 70}):
+        out = [ScoringEngine(cfg, scaler, chunk_size=1000, device=where).score(
+            Y, method="ridge-lss", generator=_g(0), hull_k=30, **kw) for where in ("cpu", dev)]
+        np.testing.assert_allclose(out[1].scores, out[0].scores, rtol=2e-5)
+        common = np.intersect1d(out[1].hull_points, out[0].hull_points).size
+        assert common >= 0.9 * out[0].hull_points.size
 
 
 # the wgmma body (bf16, d ∈ {64, 128}) at GQA ratios H/KV ∈ {1, 4, 8} and S

@@ -6,6 +6,11 @@ Tolerances: gram rtol 1e-5 of max|G| (f32 sums in another order); extremes
 values atol 1e-4 with exact indices (the reference's tests/test_kernels.py);
 sweep SX and z atol/rtol 1e-6, moments atol 1e-4, exact indices (the
 reference's tests/test_sweep_kernel.py::_check); bernstein atol 1e-6.
+
+Below those, plain torch/numpy models of the order in which the redesigned
+CUDA kernels compute (the bucket-owner sketch of ``csrc/sweep.cu`` and the
+tile-max + rescan extremes of ``csrc/common.cuh``) are held to the plain
+versions bit for bit, with the launch plans the wrappers hand the kernels.
 """
 import pytest
 
@@ -23,6 +28,7 @@ from repro.kernels.sweep.ops import fused_sweep_update  # noqa: E402
 from repro_torch.core import scoring as TS  # noqa: E402
 from repro_torch.kernels.bernstein import ops as tbern  # noqa: E402
 from repro_torch.kernels.extremes import ops as text  # noqa: E402
+from repro_torch.kernels.extremes.ref import direction_scores  # noqa: E402
 from repro_torch.kernels.extremes.ref import directional_extremes_ref  # noqa: E402
 from repro_torch.kernels.gram import ops as tgram  # noqa: E402
 from repro_torch.kernels.gram.ref import gram_ref  # noqa: E402
@@ -189,3 +195,171 @@ def test_wrappers_refuse_unknown_or_mismatched_backend(op):
         calls[op]("pallas")
     with pytest.raises(ValueError, match="does not run"):
         calls[op]("cuda")  # a CPU tensor never reaches the kernel
+
+
+# --------------------------------------------------------------------------
+# the redesigned kernels' order, modelled on the CPU
+
+
+def _bucket_owner_sketch(SX, X, sw, rows, signs, *, bk, step, cap=4096):
+    """SX' in the order of csrc/sweep.cu's sketch CTAs: buckets in ranges of
+    bk; per range, the points that land in it compacted in ascending order,
+    `step` points a step, and flushed once more than cap − step are held; a
+    flush adds sign·(x·√w) to each bucket's row, the bucket's points in list
+    order (a stable sort by bucket), starting from the carry."""
+    V = (signs[:, None] * (X * sw[:, None])).numpy()
+    out = SX.numpy().copy()
+    rows = rows.numpy().astype(np.int64)
+    c, sk = X.shape[0], SX.shape[0]
+
+    def flush(seg):
+        ids = np.asarray(seg, dtype=np.int64)
+        for pt in ids[np.argsort(rows[ids], kind="stable")]:
+            out[rows[pt]] = out[rows[pt]] + V[pt]
+
+    for lo in range(0, sk, bk):
+        hit = (rows >= lo) & (rows < min(sk, lo + bk))
+        seg = []
+        for t0 in range(0, c, step):
+            seg += (np.nonzero(hit[t0:t0 + step])[0] + t0).tolist()
+            if len(seg) > cap - step:
+                flush(seg)
+                seg = []
+        if seg:
+            flush(seg)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("sk,D,r,skew", [(784, 14, 2, False), (784, 14, 2, True),
+                                         (19_600, 70, 10, False)])
+def test_bucket_owner_sketch_order_equals_plain_version(sk, D, r, skew):
+    """The default one-pass sketch 4·D² at J = 2 and J = 10 over a 16,384-point
+    chunk, from a nonzero carry: the kernel's order gives the bits of
+    ``fused_sweep_ref``'s SX' (index_add on the CPU adds the points one by
+    one in ascending order). ``skew`` puts every point in 8 buckets, so one
+    range is flushed several times."""
+    c = 16_384
+    rng = np.random.default_rng(sk + skew)
+    X = torch.from_numpy(rng.standard_normal((c, D)).astype(np.float32))
+    sw = torch.from_numpy(rng.uniform(0.0, 2.0, c).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, 8 if skew else sk, c).astype(np.int32))
+    signs = torch.from_numpy((rng.integers(0, 2, c) * 2 - 1).astype(np.float32))
+    SX = torch.from_numpy(rng.standard_normal((sk, D)).astype(np.float32))
+    plan = tsweep.launch_plan(c, D, r, 7, sk, 1614, 132)
+    assert plan["ns"] * plan["bk"] >= sk
+    got = _bucket_owner_sketch(SX, X, sw, rows, signs, bk=plan["bk"],
+                               step=8 * max(256, 32 * plan["warps"]))
+    ref = fused_sweep_ref(SX, X, None, sw, rows, signs, want_z=False)[0]
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _tile_rescan_extremes(P, dirs, n_valid, *, rb, tile, reverse_fold):
+    """(vmax, imax, vmin, imin) in the order of csrc/common.cuh: per block of
+    rb rows, the running max/min over tiles of `tile` rows taken from each
+    tile's max/min with strict comparisons, so a block's partial is its
+    extreme and the first row of the first tile attaining it; the partials
+    folded by (value, lowest row), here in either order; then one rescan of
+    the winning tile for the first row whose score equals the extreme."""
+    S = direction_scores(P, dirs)
+    rows, m = P.shape[0], dirs.shape[0]
+    inf = torch.full((m,), float("inf"))
+    parts = []
+    for base in range(0, rows, rb):
+        nv = max(0, min(rb, rows - base, n_valid - base))
+        ext = []
+        for sign in (1.0, -1.0):  # max, then min as the max of −S
+            best, start = -inf, torch.full((m,), base)
+            for t0 in range(0, nv, tile):
+                hi = (sign * S[:, base + t0:base + min(nv, t0 + tile)]).amax(1)
+                up = hi > best
+                best, start = torch.where(up, hi, best), torch.where(up, base + t0, start)
+            ext += [sign * best, start]
+        parts.append(ext)
+    out = [-inf, torch.full((m,), 2**31 - 1), inf, torch.full((m,), 2**31 - 1)]
+    for vx, ix, vn, in_ in (reversed(parts) if reverse_fold else parts):
+        up = (vx > out[0]) | ((vx == out[0]) & (ix < out[1]))
+        out[0], out[1] = torch.where(up, vx, out[0]), torch.where(up, ix, out[1])
+        up = (vn < out[2]) | ((vn == out[2]) & (in_ < out[3]))
+        out[2], out[3] = torch.where(up, vn, out[2]), torch.where(up, in_, out[3])
+    for v, i in ((0, 1), (2, 3)):  # the rescan: rows past n_valid follow every valid one
+        for k in range(m):
+            t0 = int(out[i][k])
+            seg = S[k, t0:min(rows, t0 + tile)]
+            hit = torch.nonzero(seg == out[v][k])
+            if hit.numel():
+                out[i][k], out[v][k] = t0 + int(hit[0, 0]), seg[int(hit[0, 0])]
+        out[i] = out[i].to(torch.int32)
+    return tuple(out)
+
+
+def _signed_zero_case(rows, m, d, seed):
+    """Scores ≤ 0 everywhere (P ≤ 0, dirs > 0), with rows of −0 and +0: the
+    max is 0, first reached at a −0 row, then +0 and −0 rows tie with it."""
+    rng = np.random.default_rng(seed)
+    P = -np.abs(rng.standard_normal((rows, d))).astype(np.float32)
+    for i, z in ((5, -0.0), (9, 0.0), (rows // 2, -0.0), (rows - 2, 0.0)):
+        P[i] = z
+    dirs = np.abs(rng.standard_normal((m, d))).astype(np.float32) + 0.1
+    dirs[::3] *= -1  # these have 0 as their min: +0 products of −0 rows
+    return P, dirs
+
+
+@pytest.mark.parametrize("rb,tile", [(16, 16), (128, 16), (48, 16), (64, 8), (96, 32), (50, 3)])
+@pytest.mark.parametrize("case", ["ragged", "tied", "zeros"])
+def test_tile_rescan_extremes_equal_the_dense_argmax(rb, tile, case):
+    """The tile-max fold and the one rescan of the winning tile, over several
+    tile sizes and row-block splits, the blocks folded in either order, equals
+    ``directional_extremes_ref`` bit for bit: exact ties (the first copy
+    wins), a ragged n_valid, and ±0 scores (the sign of the reported zero
+    is the first occurrence's)."""
+    rows, m, d = 1030, 37, 7
+    if case == "zeros":
+        P, dirs = _signed_zero_case(rows, m, d, rb + tile)
+        n_valid = rows
+    else:
+        P, dirs = _extremes_case(rows, m, d, rb * tile, tie=case == "tied")
+        n_valid = 701 if case == "ragged" else rows
+    Pt, Dt = _t(P), _t(dirs)
+    ref = directional_extremes_ref(Pt, Dt, n_valid)
+    for reverse in (False, True):
+        got = _tile_rescan_extremes(Pt, Dt, n_valid, rb=rb, tile=tile, reverse_fold=reverse)
+        for g, e in zip(got, ref):
+            assert torch.equal(g.view(torch.int32), e.view(torch.int32))
+    if case == "zeros":
+        assert int(ref[1][1]) == 5 and bool(torch.signbit(ref[0][1]))  # −0 at row 5
+
+
+def test_extremes_launch_plan_covers_every_direction_and_row():
+    """The plan handed to csrc/extremes.cu: blocks a multiple of the 16-row
+    tile and at most 512 rows, CTAs of at most 16 warps covering m, and
+    about two CTAs an SM at the path's (32,768 × 7) × 1,614."""
+    assert text.launch_plan(32_768, 1614, 132) == (128, 13, 256)
+    assert text.launch_plan(32_768, 414, 132) == (128, 4, 256)
+    for rows in (1, 7, 513, 32_768, 327_680):
+        for m in (1, 127, 128, 129, 1614, 2049, 5000):
+            rb, warps, nblk = text.launch_plan(rows, m, 132)
+            cta_rows = -(-m // (128 * warps))
+            assert rb % 16 == 0 and rb <= 512 and nblk * rb >= rows > (nblk - 1) * rb
+            assert 1 <= warps <= 16 and cta_rows * warps * 128 >= m
+
+
+@pytest.mark.parametrize("J", [2, 10, 20])
+def test_sweep_launch_plan_fits_the_kernel(J):
+    """The default one-pass sketch 4·D² at J = 2, 10 and 20 (degree 6) over a
+    16,384-point chunk: sketch ranges cover every bucket, each copying
+    about SKETCH_FLOATS of SX at most, block CTAs cover every point with at most 512 P rows
+    each, and at the path's J = 2 sketch and block CTAs together fill about
+    two CTAs an SM."""
+    D, c, d = 7 * J, 16_384, 7
+    sk = 4 * D * D
+    plan = tsweep.launch_plan(c, D, J, d, sk, 1614, 132)
+    assert plan["ns"] * plan["bk"] >= sk > (plan["ns"] - 1) * plan["bk"]
+    assert plan["bk"] * D <= tsweep.SKETCH_FLOATS + D
+    assert plan["pb"] * J <= tsweep.MAX_BLOCK_ROWS
+    assert plan["pb"] * (D + J * 8) <= tsweep.BLOCK_FLOATS
+    alone = tsweep.launch_plan(c, D, 1, 1, sk, 0, 132)  # z alone: no P rows
+    assert alone["pb"] * (D + 4) <= tsweep.BLOCK_FLOATS
+    assert plan["nblk"] * plan["pb"] >= c > (plan["nblk"] - 1) * plan["pb"]
+    assert plan["warps"] == 13  # 1,614 directions: 13 warps of 128
+    if J == 2:
+        assert plan["ns"] + plan["nblk"] <= 2 * 132

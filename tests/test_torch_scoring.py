@@ -67,19 +67,20 @@ def _plan(rstrat, key):
     return tuple(None if p is None else np.asarray(p) for p in rstrat.begin(N, 14, key))
 
 
-def _lookup_featurizers(X, P):
-    """Both engines read row i's (X, P) by its index in column 0 of Y."""
+def _lookup_featurizers(X, P, r=2):
+    """Both engines read row i's (X, P) by its index in column 0 of Y (r P
+    rows a point)."""
 
     def ref(Yc):
         idx = np.asarray(Yc[:, 0]).astype(np.int64)
-        rows = (2 * idx[:, None] + np.arange(2)).reshape(-1)
+        rows = (r * idx[:, None] + np.arange(r)).reshape(-1)
         return jnp.asarray(X[idx]), jnp.asarray(P[rows])
 
     Xt, Pt = torch.tensor(X), torch.tensor(P)
 
     def port(Yc):
         idx = Yc[:, 0].long()
-        rows = (2 * idx[:, None] + torch.arange(2)).reshape(-1)
+        rows = (r * idx[:, None] + torch.arange(r)).reshape(-1)
         return Xt[idx], Pt[rows]
 
     return ref, port
@@ -215,3 +216,69 @@ def test_pass1_update_accumulates_like_the_reference(data, with_moments):
     if with_moments:
         for g, r in zip(got[1:], ref[1:]):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
+
+
+# J = 10 (D = 70), the paper's Table 2 configuration, on the ported covertype
+# generator; the one-pass strategy with its default sketch 4·D² = 19,600
+N10, J10, HULL_K10 = 3001, 10, 30
+SK10 = 4 * (7 * J10) ** 2
+
+
+@pytest.fixture(scope="module")
+def covertype10():
+    from repro_torch.data import generate_covertype
+
+    Y = generate_covertype(N10, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Y)
+    cfg = RM.MCTMConfig(J=J10, degree=6)
+    A, Ap = RM.basis_features(cfg, scaler, jnp.asarray(Y))
+    X, P = np.asarray(A).reshape(N10, 7 * J10), np.asarray(Ap).reshape(J10 * N10, 7)
+    return Y, scaler, TB.DataScaler(low=scaler.low, high=scaler.high), X, P
+
+
+@pytest.mark.parametrize("name", ["two-pass", "one-pass"])
+@pytest.mark.parametrize("chunk", [0, 1000])
+def test_engine_matches_reference_at_j10(covertype10, name, chunk):
+    """TwoPassExact and OnePassSketched(4·D²) at J = 10 against the JAX
+    package's engine, ridge-lss scores to rtol 2e-5: on identical features
+    with the same hull rows, and on each side's own featurize with ≥ 90% of
+    the hull points in common (this file's tolerances, see the module doc)."""
+    Y, scaler, tscaler, X, P = covertype10
+    if name == "two-pass":
+        rstrat, tstrat = RS.TwoPassExact(), TS.TwoPassExact()
+    else:
+        rstrat, tstrat = RS.OnePassSketched(SK10), TS.OnePassSketched(SK10)
+    key, hull_key = jax.random.split(jax.random.PRNGKey(5))
+    plan = None
+    if rstrat.needs_key:
+        plan = tuple(None if p is None else np.asarray(p)
+                     for p in rstrat.begin(N10, 7 * J10, key))
+    normals = np.asarray(jax.random.normal(hull_key, (4 * HULL_K10, 7), jnp.float32))
+    rfeat, tfeat = _lookup_featurizers(X, P, r=J10)
+    Yidx = np.stack([np.arange(N10), np.zeros(N10)], axis=1).astype(np.float32)
+    kw, rkw = {"hull_normals": normals}, {}
+    if not rstrat.one_pass:
+        s1, s2 = P.sum(0), P.T.astype(np.float64) @ P
+        rkw["hull_dirs"] = RS.directions_from_moments(hull_key, s1, s2, J10 * N10, HULL_K10)
+        kw = {"hull_dirs": rkw["hull_dirs"]}
+    ref = RS.ScoringEngine(featurize=rfeat, rows_per_point=J10, chunk_size=chunk).score(
+        jnp.asarray(Yidx), method="ridge-lss", key=key, hull_k=HULL_K10, hull_key=hull_key,
+        strategy=rstrat, **rkw)
+    got = TS.ScoringEngine(featurize=tfeat, rows_per_point=J10, chunk_size=chunk,
+                           device="cpu").score(
+        Yidx, method="ridge-lss", plan=plan, hull_k=HULL_K10, strategy=tstrat, **kw)
+    np.testing.assert_allclose(got.scores, ref.scores, rtol=2e-5)
+    np.testing.assert_array_equal(got.hull_rows, ref.hull_rows)
+
+    ref = RS.ScoringEngine(cfg=RM.MCTMConfig(J=J10, degree=6), scaler=scaler,
+                           chunk_size=chunk).score(
+        jnp.asarray(Y), method="ridge-lss", key=key, hull_k=HULL_K10, hull_key=hull_key,
+        strategy=rstrat)
+    got = TS.ScoringEngine(TM.MCTMConfig(J=J10, degree=6), tscaler, chunk_size=chunk,
+                           device="cpu").score(
+        Y, method="ridge-lss", plan=plan, hull_k=HULL_K10, hull_normals=normals,
+        strategy=tstrat)
+    assert got.scores.shape == (N10,) and np.all(np.isfinite(got.scores))
+    np.testing.assert_allclose(got.scores, ref.scores, rtol=2e-5)
+    common = np.intersect1d(got.hull_points, ref.hull_points).size
+    assert common >= 0.9 * ref.hull_points.size

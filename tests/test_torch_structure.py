@@ -151,3 +151,48 @@ def test_unported_parts_raise_not_implemented(what):
     }[kind]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+def test_ctypes_signatures_match_the_exported_functions():
+    """Every function ``csrc/*.cu`` exports has an argtypes entry in
+    ``kernels/_lib.py`` with as many arguments as its C declaration (a
+    mismatch shows only on the card, where the library is built)."""
+    import re
+
+    from repro_torch.kernels import _lib
+
+    exported = {}
+    for src in sorted(_lib.CSRC.glob("*.cu")):
+        for name, params in re.findall(r"REPRO_EXPORT\s+int\s+(repro_\w+)\(([^)]*)\)",
+                                       src.read_text()):
+            exported[name] = len([p for p in params.split(",") if p.strip()])
+    assert set(exported) == set(_lib._SIGNATURES)
+    for name, n in exported.items():
+        assert len(_lib._SIGNATURES[name]) == n, name
+
+
+def _cuda_int_constants(text: str) -> dict:
+    """The integer ``#define``s and ``constexpr int``s of a CUDA source, each
+    evaluated from the ones before it."""
+    import re
+
+    found = {}
+    pattern = r"^\s*(?:#define\s+(\w+)\s+([^\n/]+)|constexpr int (\w+) = ([^;]+);)"
+    for d_name, d_expr, c_name, c_expr in re.findall(pattern, text, flags=re.M):
+        try:
+            found[d_name or c_name] = int(eval(d_expr or c_expr, {"__builtins__": {}}, dict(found)))
+        except (NameError, SyntaxError, TypeError):
+            pass  # a macro with arguments, or a value that is no integer
+    return found
+
+
+def test_cuda_constants_match_the_sources():
+    """The limits and launch units that the wrappers check and plan with
+    (``_lib.CUDA_CONSTANTS``) are those of ``csrc/``: a mismatch would show
+    only on the card, as a refused launch or a slower plan."""
+    from repro_torch.kernels import _lib
+
+    for src, table in _lib.CUDA_CONSTANTS.items():
+        found = _cuda_int_constants((_lib.CSRC / src).read_text())
+        for name, value in table.items():
+            assert found.get(name) == value, (src, name, found.get(name), value)
