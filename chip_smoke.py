@@ -11,8 +11,8 @@ of each path ran.
 Phases (any failure exits nonzero):
   1. environment: card, power limit, torch/CUDA/nvcc versions, Triton, build time,
      and ptxas's registers and spills of the redesigned bodies (flash_attention's
-     wgmma body, gram's cluster kernel, ssd's three mma-body kernels, bernstein
-     at degrees 6 and 15);
+     wgmma body, gram's cluster kernel and its tiled kernel at the run widths of
+     D 70 and 140, ssd's three mma-body kernels, bernstein at degrees 6 and 15);
   2. each kernel vs its plain version on the card (the four MCTM kernels,
      flash_attention and ssd), timed by CUDA events (``ms``, which also read the
      host's issue rate) and by the device time of its kernels from
@@ -27,16 +27,23 @@ Phases (any failure exits nonzero):
      extremes and sweep run two device kernels a call (their parent design's
      device times in brackets); gram and sweep also at one chunk of the
      paper's J = 10 (covertype) and J = 20 (equity) at degree 6, gram's tiled
-     body (D 70, 140) against float64 and torch.mm, the sweep at the default
-     one-pass sketch 4·D² (19,600 and 78,400);
+     body (D 70, 140) against float64 and in turns with torch.mm (its parent
+     design's device times in brackets; its bound also from three TF32
+     tensor-core products a product), the sweep at the default one-pass
+     sketch 4·D² (19,600 and 78,400);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
-     α = 0.8, k = 500 and 2000, adam 250 steps at lr 0.05 for the coreset
-     and the full-data fits), both strategies; every ratio must lie in its
-     band; plus the path's scores and fit held against the plain (CPU) path
-     on a small input, and the scoring of J = 10 covertype (n = 50,000, both
-     strategies) on the card against the CPU path (identical features: the
-     same hull rows) and float64, with a TF32-Gram and a bf16-feature control
-     that the same limit must reject;
+     α = 0.8, k = 500 and 2000, 250 steps at lr 0.05): two-pass with the
+     driver's default full-data fit, the streaming lbfgs (gtol 1e-5; its time,
+     iterations, sweeps and the bernstein launches inside it are printed and
+     checked), one-pass with an adam full-data fit, adam coreset fits on both;
+     every ratio must lie in its band; plus the path's scores and its adam and
+     lbfgs fits held against the plain (CPU) path on a small input, and the
+     scoring of J = 10 covertype (n = 50,000, both strategies) on the card
+     against the CPU path (identical features: the same hull rows) and
+     two-pass against float64 of each side's own features (a second draw
+     too), with a TF32-Gram and a bf16-feature control that the same limit
+     must reject; gram's tiled body counted over the path's card runs, the
+     controls not;
   4. the serve path: the reduced LMs on the card against the CPU at f32
      (same greedy tokens, logits within 1e-4), then each full-width model
      from a seeded generator on the card serving 8 greedy requests (prompts
@@ -66,15 +73,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # bf16 dense tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12     # TF32 dense tensor cores, H100 SXM data sheet
 MAIN_N = 250_001
 CHUNK = 16_384
 SKETCH = 784                 # 4·(J·d)² at J = 2, d = 7
 KS = (500, 2000)
-# device ms of the previous design of the extremes and sweep kernels at the
-# path's shapes, the mean of the two runs PERF.md §6 records (NVIDIA H100
-# 80GB HBM3 at 700.00 W): logged in brackets beside this run's, never in the
-# kernels line, which holds this run's measurements only
-PARENT_DEVICE_MS = {"extremes": 0.06264, "sweep": 0.11590}
+# device ms of the previous design of the extremes and sweep kernels and of
+# gram's tiled body at the paths' shapes, the mean of the two runs PERF.md §6
+# records (NVIDIA H100 80GB HBM3 at 700.00 W): logged in brackets beside this
+# run's, never in the kernels line, which holds this run's measurements only
+PARENT_DEVICE_MS = {"extremes": 0.06264, "sweep": 0.11590, "gram D=70": 0.02606,
+                    "gram D=140": 0.04617}
 WIDE_J = (10, 20)            # table2_covertype.py (J = 10), table5_equity.py (J = 20)
 
 
@@ -124,7 +133,8 @@ def phase_environment():
 
 
 # redesigned kernels → the template arguments to report (None: every one)
-REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None, "gram_wide_kernel": None,
+REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
+              "gram_tiled_kernel": ("2", "6"),
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
               "bernstein_featurize_kernel": ("6", "15"), "extremes_score_kernel": ("7",),
               "extremes_fold_kernel": ("7",), "sweep_main_kernel": ("7",),
@@ -241,12 +251,15 @@ def kernel_row(name, source, replaces, err, kernel, plain, library, nbytes, flop
         f"{t['device_ms']:.5f})  plain {plain_ms:.4f} ms  library "
         f"{lib if lib is None else f'{lib:.5f}'} ms  bound {b:.5f} ms ({by}; "
         f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP at {peak / 1e12:g} TFLOP/s)")
-    return {
+    out = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
         "bound_ms": b, "bound_by": by, "library_ms": lib, "device_ms": t["device_ms"],
         "library_device_ms": t["library_device_ms"],
     }
+    if library is not None:
+        out["turns_device_ms"] = t["turns_device_ms"]
+    return out
 
 
 def same_bits(a, b) -> bool:
@@ -299,6 +312,7 @@ def phase_kernels(dev):
     from repro_torch.kernels.bernstein.ref import bernstein_featurize_ref
     from repro_torch.kernels.extremes.ops import directional_extremes
     from repro_torch.kernels.extremes.ref import directional_extremes_ref
+    from repro_torch.kernels.gram import ops as gram
     from repro_torch.kernels.gram.ops import gram_matrix
     from repro_torch.kernels.gram.ref import gram_ref
     from repro_torch.kernels.sweep.ops import fused_sweep_update
@@ -375,13 +389,15 @@ def phase_kernels(dev):
         lambda: torch.mm(X.T, X),
         nbytes=4 * (CHUNK * D + CHUNK + 2 * D * D), flops=CHUNK * (D + D * (D + 1)))
 
-    # ---- gram's tiled body, 64 < D ≤ 160: one chunk at J = 10 and 20
+    # ---- gram's tiled body, 64 < D ≤ 160: one chunk at J = 10 and 20, in
+    # turns with torch.mm; J = 10's is the tiled body's row of the kernels line
     wide = {J: featurized_chunk(dev, J) for J in WIDE_J}
     extra = {}
     for J, (Xw, _) in wide.items():
         Dw = Xw.shape[1]
         sww = torch.rand(CHUNK, generator=gen).to(dev)
         Ga = torch.randn(Dw, Dw, generator=gen).to(dev)
+        tiled0 = gram.PATH_LAUNCHES["tiled"]
         Gw = gram_matrix(Xw, sww, acc=Ga)
         Gr = gram_ref(Xw.double(), sww.double(), acc=Ga.double())
         again = [gram_matrix(Xw, sww, acc=Ga) for _ in range(3)]
@@ -392,18 +408,39 @@ def phase_kernels(dev):
             errs.append(f"gram D={Dw} disagrees with its plain version in float64: {err}")
         if not all(torch.equal(Gw, a) for a in again) or not torch.equal(Gw, separate):
             errs.append(f"gram D={Dw} is not bit-identical across calls or with acc=")
+        if gram.PATH_LAUNCHES["tiled"] - tiled0 != 5:
+            errs.append(f"gram D={Dw} did not take the tiled body")
         prof = clean_window(lambda: gram_matrix(Xw, sww, acc=Ga), calls)
         if prof["device_launches"] != calls:
             errs.append(f"gram D={Dw} ran {prof['device_launches']} device kernels over {calls}")
-        t = in_turns(lambda: gram_matrix(Xw, sww, acc=Ga), lambda: torch.mm(Xw.T, Xw))
-        b, by = bound_ms(4 * (CHUNK * Dw + CHUNK + 2 * Dw * Dw), CHUNK * (Dw + Dw * (Dw + 1)))
-        extra[f"gram_D{Dw}"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+        nbytes = 4 * (CHUNK * Dw + CHUNK + 2 * Dw * Dw)
+        flops = CHUNK * (Dw + Dw * (Dw + 1))
+        # the tiled body's own arithmetic: three TF32 tensor-core products
+        # (lo·hi, hi·lo, hi·hi) for each product of the upper triangle
+        b3, by3 = bound_ms(nbytes, 3 * CHUNK * Dw * (Dw + 1), H100_TF32_FLOPS)
+        if J == WIDE_J[0]:
+            row("gram_tiled", "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/kernel.py:30",
+                err, lambda: gram_matrix(Xw, sww, acc=Ga), lambda: gram_ref(Xw, sww, acc=Ga),
+                lambda: torch.mm(Xw.T, Xw), nbytes=nbytes, flops=flops)
+            r = rows_all[-1]
+            r["bound_tf32x3_ms"] = b3
+            t = {k: r[k] for k in ("ms", "library_ms", "device_ms", "library_device_ms")}
+            t["device_ratio"] = r["device_ms"] / r["library_device_ms"]
+            t["turns_device_ms"] = r["turns_device_ms"]
+        else:
+            t = in_turns(lambda: gram_matrix(Xw, sww, acc=Ga), lambda: torch.mm(Xw.T, Xw))
+        b, by = bound_ms(nbytes, flops)
+        extra[f"gram_D{Dw}"] = dict(t, bound_ms=b, bound_by=by, bound_tf32x3_ms=b3,
+                                    bound_tf32x3_by=by3, max_abs_err=err)
+        W, runs = gram.tiled_plan(Dw)
         log(f"  gram J={J} ({CHUNK:,}, {Dw}) tiled body: max abs err {err:.3e} of max|G| "
-            f"{float(Gr.abs().max()):.3e}; device {t['device_ms']:.5f} ms vs torch.mm "
-            f"{t['library_device_ms']:.5f} ms (ratio {t['device_ratio']:.3f}, in turns "
-            f"{[round(x, 5) for x in t['turns_device_ms']]}); events {t['ms']:.5f} vs "
-            f"{t['library_ms']:.5f} ms; bound {b:.5f} ms ({by}); "
-            f"{prof['device_launches'] // calls} device kernel a call")
+            f"{float(Gr.abs().max()):.3e}; device {t['device_ms']:.5f} ms (parent "
+            f"[{PARENT_DEVICE_MS[f'gram D={Dw}']}]) vs torch.mm {t['library_device_ms']:.5f} ms "
+            f"(ratio {t['device_ratio']:.3f}, in turns {[round(x, 5) for x in t['turns_device_ms']]}); "
+            f"events {t['ms']:.5f} vs {t['library_ms']:.5f} ms; bound {b:.5f} ms ({by}), "
+            f"{b / t['device_ms']:.3f} of it; TF32x3 tensor-core bound {b3:.5f} ms ({by3}), "
+            f"{b3 / t['device_ms']:.3f} of it; {prof['device_launches'] // calls} device kernel a "
+            f"call, run width {W} tiles in {len(runs)} warps")
 
     # ---- extremes: P (32,768, 7) against both nets, whole, ragged, and tied
     Ptie = P.clone()
@@ -555,40 +592,75 @@ def check_sweep(tag, SX0, X, P, sw, rows, signs, dirs, omega, n_valid, mom, errs
 
 
 def phase_path(dev):
-    """The Algorithm 1 path, both strategies; returns launches per kernel."""
+    """The Algorithm 1 path, both strategies; returns launches per kernel.
+    Two-pass takes the driver's default full-data fit (the streaming lbfgs),
+    one-pass an adam full-data fit, so both fit methods run at full size;
+    each full fit's time, steps, lbfgs sweeps and bernstein launches are
+    read around the driver's own calls of ``fit_mctm_streaming``."""
+    from repro_torch.core import mctm_fit
     from repro_torch.kernels.bernstein import ops as bern
     from repro_torch.kernels.extremes import ops as ext
     from repro_torch.kernels.gram import ops as gram
     from repro_torch.kernels.sweep import ops as sweep
     from repro_torch.launch import train_mctm
 
+    import torch
+
     mods = {"bernstein": bern, "gram": gram, "extremes": ext, "sweep": sweep}
     need = {"two-pass": ("bernstein", "gram", "extremes"), "one-pass": ("bernstein", "sweep")}
     total = dict.fromkeys(mods, 0)
-    for strategy in ("two-pass", "one-pass"):
-        argv = [
-            "--device", "cuda", "--dgp", "normal_mixture", "--n", str(MAIN_N), "--seed", "0",
-            "--degree", "6", "--chunk", str(CHUNK), "--alpha", "0.8",
-            "--ks", ",".join(map(str, KS)), "--steps", "250", "--lr", "0.05",
-            "--fit-method", "adam", "--ref-method", "adam", "--strategy", strategy,
-        ]
-        if strategy == "one-pass":
-            argv += ["--sketch-size", str(SKETCH)]
-        for mod in mods.values():
-            mod.LAUNCHES = 0
-        rec = train_mctm.main(argv)  # exits nonzero when a ratio leaves its band
-        counts = {k: mod.LAUNCHES for k, mod in mods.items()}
-        log(f"path {strategy}: full fit {rec['full_fit_s']:.3f}s  "
-            f"NLL/pt {rec['full_nll_per_point']:.5f}  launches {counts}")
-        for r in rec["per_k"]:
-            log(f"  {strategy} k={r['k']}: build_s {r['build_s']:.4f} fit_s {r['fit_s']:.4f} "
-                f"eps_hat {r['eps_hat']:.5f} ratio {r['ratio']:.5f} "
-                f"band [{r['band'][0]:.4f}, {r['band'][1]:.4f}] within_band {r['within_band']}")
-        for name in need[strategy]:
-            if counts[name] == 0:
-                fail(f"{name} was not launched on the {strategy} path")
-        for k in total:
-            total[k] += counts[k]
+    fits = []
+    real_fit = train_mctm.fit_mctm_streaming
+
+    def counted_fit(*args, **kwargs):
+        b0, t0 = bern.LAUNCHES, time.perf_counter()
+        out = real_fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = {"method": kwargs.get("method"), "weighted": kwargs.get("weights") is not None,
+               "s": time.perf_counter() - t0, "steps": int(out.losses.size),
+               "bernstein_launches": bern.LAUNCHES - b0, "final_nll": out.final_nll}
+        if rec["method"] == "lbfgs":
+            rec["lbfgs_sweeps"] = dict(mctm_fit.LAST_LBFGS_SWEEPS)
+        fits.append(rec)
+        return out
+
+    train_mctm.fit_mctm_streaming = counted_fit
+    try:
+        for strategy in ("two-pass", "one-pass"):
+            argv = [
+                "--device", "cuda", "--dgp", "normal_mixture", "--n", str(MAIN_N), "--seed", "0",
+                "--degree", "6", "--chunk", str(CHUNK), "--alpha", "0.8",
+                "--ks", ",".join(map(str, KS)), "--steps", "250", "--lr", "0.05",
+                "--fit-method", "adam", "--strategy", strategy,
+            ]
+            if strategy == "one-pass":
+                argv += ["--ref-method", "adam", "--sketch-size", str(SKETCH)]
+            for mod in mods.values():
+                mod.LAUNCHES = 0
+            del fits[:]
+            rec = train_mctm.main(argv)  # exits nonzero when a ratio leaves its band
+            counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+            full = fits[0]
+            log(f"path {strategy}: full fit ({rec['ref_method']}) {rec['full_fit_s']:.3f}s  "
+                f"NLL/pt {rec['full_nll_per_point']:.5f}  launches {counts}")
+            log(f"  {strategy} full fit: " + json.dumps(full))
+            if full["method"] != rec["ref_method"] or full["bernstein_launches"] <= 0:
+                fail(f"the {strategy} full-data fit ({full['method']}) launched bernstein "
+                     f"{full['bernstein_launches']} times")
+            if strategy == "two-pass" and (rec["ref_method"] != "lbfgs"
+                                           or full["lbfgs_sweeps"]["iters"] <= 0):
+                fail(f"the two-pass full-data fit is not the driver's lbfgs: {full}")
+            for r in rec["per_k"]:
+                log(f"  {strategy} k={r['k']}: build_s {r['build_s']:.4f} fit_s {r['fit_s']:.4f} "
+                    f"eps_hat {r['eps_hat']:.5f} ratio {r['ratio']:.5f} "
+                    f"band [{r['band'][0]:.4f}, {r['band'][1]:.4f}] within_band {r['within_band']}")
+            for name in need[strategy]:
+                if counts[name] == 0:
+                    fail(f"{name} was not launched on the {strategy} path")
+            for k in total:
+                total[k] += counts[k]
+    finally:
+        train_mctm.fit_mctm_streaming = real_fit
     return total
 
 
@@ -624,15 +696,19 @@ def phase_small_agreement(dev):
                 fail(f"scores on the card disagree with the CPU path {kw} {method}")
     idx = np.arange(0, 3001, 7)
     w = np.linspace(0.5, 2.0, idx.size).astype(np.float32)
-    fits = {}
-    for where in ("cpu", "cuda"):
-        init = M.init_params(cfg, normals=np.zeros((cfg.J, cfg.d), np.float32), device=where)
-        fits[where] = fit_mctm_streaming(cfg, scaler, Yn[idx], weights=w, init=init, steps=30,
-                                         chunk_size=100, device=where)
-    a, b = fits["cuda"].final_nll, fits["cpu"].final_nll
-    if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
-        fail(f"fit on the card disagrees with the CPU path: {a} vs {b}")
-    log(f"small input fit: final NLL {a:.6f} (card) vs {b:.6f} (CPU)")
+    # adam 30 steps; lbfgs to gtol 1e-5 (both sides converge to the same
+    # optimum: the line searches may accept other steps on the way)
+    for method, kw in (("adam", {"steps": 30}), ("lbfgs", {"steps": 100, "gtol": 1e-5})):
+        fits = {}
+        for where in ("cpu", "cuda"):
+            init = M.init_params(cfg, normals=np.zeros((cfg.J, cfg.d), np.float32), device=where)
+            fits[where] = fit_mctm_streaming(cfg, scaler, Yn[idx], weights=w, init=init,
+                                             method=method, chunk_size=100, device=where, **kw)
+        a, b = fits["cuda"].final_nll, fits["cpu"].final_nll
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            fail(f"{method} fit on the card disagrees with the CPU path: {a} vs {b}")
+        log(f"small input {method} fit: final NLL {a:.6f} (card) vs {b:.6f} (CPU), rel "
+            f"{abs(a - b) / abs(b):.2e}")
 
 
 WIDE_SCORING_N = 50_000   # table2_covertype.py's n at J = 10
@@ -679,10 +755,16 @@ def phase_wide_scoring(dev):
       moments; one-pass: the same generator): the same hull rows, and
       ridge-lss scores within WIDE_SCORING_RTOL of the CPU path's and, for
       the exact two-pass Gram, of float64's;
-    - each side's own featurize: scores within WIDE_SCORING_RTOL, and at
-      least WIDE_HULL_COMMON_FLOOR of the hull points in common.
+    - each side's own featurize: scores within WIDE_SCORING_RTOL of each
+      other and, two-pass, of the float64 scores of that side's own features
+      (the card's featurize differs from the CPU's in the last bits), and at
+      least WIDE_HULL_COMMON_FLOOR of the hull points in common;
+    - a second covertype draw (seed 1), two-pass on own featurize: the card
+      within WIDE_SCORING_RTOL of float64 of its features; card vs CPU and
+      the hull overlap reported.
 
-    Then the controls: the two-pass card run on identical features once with
+    The tiled body's launch count is read after the first two layers, the
+    path's runs. Then the controls: the two-pass card run on identical features once with
     its Gram taken in TF32 (``_tf32_gram`` in place of the gram kernel), once
     with the features rounded to bf16; each must lie beyond
     WIDE_SCORING_RTOL of the CPU path or of float64, so the limit is shown
@@ -695,16 +777,30 @@ def phase_wide_scoring(dev):
     from repro_torch.core.bernstein import DataScaler
     from repro_torch.core.scoring import ScoringEngine, _mctm_featurize, directions_from_moments
     from repro_torch.data import generate_covertype
+    from repro_torch.kernels.gram import ops as gram
 
     n, J = WIDE_SCORING_N, 10
-    Y = generate_covertype(n, seed=0).astype(np.float32)
-    cfg, scaler = M.MCTMConfig(J=J, degree=6), DataScaler.fit(Y)
-    X, P = _mctm_featurize(cfg, scaler)(torch.as_tensor(Y))
-    Xd, Pd = X.double().numpy(), P.double().numpy()
-    exact = np.einsum("ij,jk,ik->i", Xd, np.linalg.inv(Xd.T @ Xd + np.eye(Xd.shape[1])), Xd)
-    exact += 1.0 / n
-    net = directions_from_moments(Pd.sum(0), Pd.T @ Pd, Pd.shape[0], 40,
-                                  generator=torch.Generator().manual_seed(3))
+    cfg = M.MCTMConfig(J=J, degree=6)
+
+    def ridge_float64(Xf):
+        """The exact two-pass ridge-lss scores of features Xf, in float64."""
+        Xd = Xf.double().cpu().numpy()
+        return np.einsum("ij,jk,ik->i", Xd, np.linalg.inv(Xd.T @ Xd + np.eye(Xd.shape[1])),
+                         Xd) + 1.0 / n
+
+    def covertype(seed):
+        """Y, its scaler, the CPU featurize's (X, P), the float64 scores of the
+        CPU's and of the card's features, and a direction net from P."""
+        Y = generate_covertype(n, seed=seed).astype(np.float32)
+        scaler = DataScaler.fit(Y)
+        X, P = _mctm_featurize(cfg, scaler)(torch.as_tensor(Y))
+        Xc = _mctm_featurize(cfg, scaler)(torch.as_tensor(Y).to(dev))[0]
+        Pd = P.double().numpy()
+        net = directions_from_moments(Pd.sum(0), Pd.T @ Pd, Pd.shape[0], 40,
+                                      generator=torch.Generator().manual_seed(3))
+        return Y, scaler, X, P, ridge_float64(X), ridge_float64(Xc), net
+
+    Y, scaler, X, P, exact, exact_card, net = covertype(0)
     Yidx = np.stack([np.arange(n), np.zeros(n)], axis=1).astype(np.float32)
 
     def lookup(where, dtype=torch.float32):
@@ -716,14 +812,14 @@ def phase_wide_scoring(dev):
 
         return featurize
 
-    def score(where, layer, kw, dtype=torch.float32):
+    def score(where, layer, kw, dtype=torch.float32, data=None):
         if layer == "identical features":
             eng = ScoringEngine(featurize=lookup(where, dtype), rows_per_point=J,
                                 chunk_size=CHUNK, device=where)
             Yw = Yidx
         else:
-            eng = ScoringEngine(cfg, scaler, chunk_size=CHUNK, device=where)
-            Yw = Y
+            Yw, sc = (Y, scaler) if data is None else data
+            eng = ScoringEngine(cfg, sc, chunk_size=CHUNK, device=where)
         return eng.score(Yw, method="ridge-lss", hull_k=40,
                          generator=torch.Generator().manual_seed(3), **kw)
 
@@ -731,6 +827,7 @@ def phase_wide_scoring(dev):
         return float(np.max(np.abs(a - b) / np.abs(b)))
 
     out, two_pass_cpu = {}, None
+    gram.PATH_LAUNCHES["tiled"] = 0  # the tiled body's launches over the path's card runs
     for name, kw in (("two-pass", {"hull_dirs": net}), ("one-pass", {"sketch_size": 4 * 70 * 70})):
         for layer in ("identical features", "own featurize"):
             res, secs = {}, {}
@@ -745,9 +842,11 @@ def phase_wide_scoring(dev):
                    "hull_rows_equal": bool(np.array_equal(a.hull_rows, b.hull_rows)),
                    "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
             worst = rec["max_score_rel_err"]
-            if name == "two-pass" and layer == "identical features":  # the exact Gram
-                two_pass_cpu = b.scores
-                rec["card_vs_float64"] = rel(a.scores, exact)
+            if name == "two-pass":  # the exact Gram: each side against float64 of its features
+                own = layer == "own featurize"
+                if not own:
+                    two_pass_cpu = b.scores
+                rec["card_vs_float64"] = rel(a.scores, exact_card if own else exact)
                 rec["cpu_vs_float64"] = rel(b.scores, exact)
                 worst = max(worst, rec["card_vs_float64"], rec["cpu_vs_float64"])
             out[f"{name}, {layer}"] = rec
@@ -760,6 +859,29 @@ def phase_wide_scoring(dev):
                 ok = ok and common >= WIDE_HULL_COMMON_FLOOR * rec["hull_points"]
             if not ok:
                 fail(f"J=10 scoring on the card disagrees with the CPU path ({name}, {layer})")
+
+    out["gram_tiled_launches"] = gram.PATH_LAUNCHES["tiled"]
+    log(f"J=10 covertype n={n:,}: gram's tiled body launched {out['gram_tiled_launches']} times "
+        "over the path's card runs")
+    if out["gram_tiled_launches"] <= 0:
+        fail("gram's tiled body was not launched on the J = 10 scoring path")
+
+    # a second covertype draw, two-pass on each side's own featurize: the
+    # card held to float64 of its own features; card vs CPU and the hull
+    # overlap reported
+    Y1, scaler1, _, _, exact1, exact1_card, net1 = covertype(1)
+    res = {where: score(where, "own featurize", {"hull_dirs": net1}, data=(Y1, scaler1))
+           for where in ("cpu", "cuda")}
+    a, b = res["cuda"], res["cpu"]
+    rec = {"max_score_rel_err": rel(a.scores, b.scores),
+           "card_vs_float64": rel(a.scores, exact1_card), "cpu_vs_float64": rel(b.scores, exact1),
+           "hull_points_common": int(np.intersect1d(a.hull_points, b.hull_points).size),
+           "hull_points": int(b.hull_points.size)}
+    out["two-pass, own featurize, seed 1"] = rec
+    log(f"J=10 covertype n={n:,} seed 1 two-pass, own featurize: " + json.dumps(rec))
+    if (a.scores.shape != (n,) or not np.all(np.isfinite(a.scores))
+            or rec["card_vs_float64"] > WIDE_SCORING_RTOL):
+        fail(f"J=10 scoring on the card lies beyond {WIDE_SCORING_RTOL} of float64 (seed 1)")
 
     gram_kernel = scoring.gram_matrix
     for control in ("TF32 Gram", "bf16 features"):
@@ -1176,6 +1298,7 @@ def main() -> None:
     phase_small_agreement(dev)
     wide["scoring_j10"] = phase_wide_scoring(dev)
     launches = phase_path(dev)
+    launches["gram_tiled"] = wide["scoring_j10"]["gram_tiled_launches"]
     phase_lm_small_agreement(dev)
     serve_launches, serve = phase_serve(dev)
     launches.update(serve_launches)

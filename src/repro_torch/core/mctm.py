@@ -13,6 +13,7 @@ The parameters are an ``nn.Module`` holding ``theta_raw (J, d)`` and
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +51,15 @@ class MCTMParams(nn.Module):
         super().__init__()
         self.theta_raw = nn.Parameter(theta_raw)
         self.lam = nn.Parameter(lam)
+
+
+class ParamLeaves(NamedTuple):
+    """The parameters as plain tensors (``MCTMParams``'s fields), for
+    functional evaluation: every function here reads ``.theta_raw`` and
+    ``.lam``, so it takes either."""
+
+    theta_raw: torch.Tensor
+    lam: torch.Tensor
 
 
 def init_params(
@@ -175,20 +185,71 @@ def fit_mctm(
     device=None,
 ) -> FitResult:
     """Weighted maximum-likelihood fit of an MCTM (``weights`` are coreset
-    weights; None → unweighted). Dispatches to
-    ``mctm_fit.fit_mctm_streaming``; only ``method="adam"`` is ported."""
+    weights; None → unweighted). ``method`` ``"adam"`` or ``"lbfgs"``
+    dispatches to ``mctm_fit.fit_mctm_streaming`` (``"minibatch"`` is not
+    ported yet); ``"scipy-lbfgs"`` is the dense small-n oracle kept for
+    tests (scipy's L-BFGS-B on the flat float64 vector, featurizing inside
+    the objective)."""
     from repro_torch.core import mctm_fit
     from repro_torch.core.scoring import DEFAULT_CHUNK
 
-    if method not in mctm_fit.FIT_METHODS + ("scipy-lbfgs",):
+    if method in mctm_fit.FIT_METHODS:
+        return mctm_fit.fit_mctm_streaming(
+            cfg, scaler, Y, weights,
+            generator=generator, init=init, steps=steps, lr=lr, optimizer=optimizer,
+            method=method,
+            chunk_size=DEFAULT_CHUNK if chunk_size is None else chunk_size,
+            microbatches=microbatches, device=device,
+        )
+    if method != "scipy-lbfgs":
         raise ValueError(f"unknown fit method: {method}")
-    return mctm_fit.fit_mctm_streaming(
-        cfg, scaler, Y, weights,
-        generator=generator, init=init, steps=steps, lr=lr, optimizer=optimizer,
-        method=method,
-        chunk_size=DEFAULT_CHUNK if chunk_size is None else chunk_size,
-        microbatches=microbatches, device=device,
-    )
+    dev = resolve_device(device)
+    if init is None:
+        init = init_params(cfg, generator=generator, device=dev)
+    Yt = to_tensor(Y, torch.float32, dev)
+    w = None if weights is None else to_tensor(weights, torch.float32, dev)
+    total_w = float(Yt.shape[0]) if w is None else float(torch.sum(w))
+
+    def loss_fn(params) -> torch.Tensor:
+        # the (n, J, d) basis exists only for the duration of each evaluation
+        A, Ap = basis_features(cfg, scaler, Yt)
+        return nll(cfg, params, A, Ap, w) / total_w
+
+    params, losses = _scipy_lbfgs_fit(loss_fn, init)
+    with torch.no_grad():
+        final = float(loss_fn(params)) * total_w
+    return FitResult(params=params, losses=np.asarray(losses), final_nll=final)
+
+
+def _scipy_lbfgs_fit(loss_fn, params0: MCTMParams):
+    """L-BFGS-B via scipy on the flat parameter vector (theta_raw, then lam)
+    — the dense small-n oracle the streaming L-BFGS (``mctm_fit``,
+    ``method="lbfgs"``) is tested against. The objective and its gradient
+    are evaluated in float32, the optimizer runs in float64 (``maxiter``
+    500), as the reference's."""
+    from scipy.optimize import minimize
+
+    theta0, lam0 = params0.theta_raw.detach(), params0.lam.detach()
+    shapes, split = (theta0.shape, lam0.shape), theta0.numel()
+    dev = theta0.device
+    losses = []
+
+    def unravel(x):
+        flat = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return flat[:split].reshape(shapes[0]), flat[split:].reshape(shapes[1])
+
+    def fun(x):
+        leaves = [t.requires_grad_(True) for t in unravel(x)]
+        v = loss_fn(ParamLeaves(*leaves))
+        g = torch.autograd.grad(v, leaves)
+        v = float(v.detach())
+        losses.append(v)
+        return v, np.concatenate([t.reshape(-1).cpu().numpy() for t in g]).astype(np.float64)
+
+    x0 = np.concatenate([theta0.reshape(-1).cpu().numpy(), lam0.reshape(-1).cpu().numpy()])
+    res = minimize(fun, x0.astype(np.float64), jac=True, method="L-BFGS-B",
+                   options={"maxiter": 500})
+    return MCTMParams(*(t.clone() for t in unravel(res.x))), np.asarray(losses)
 
 
 def log_density(cfg: MCTMConfig, params, scaler: DataScaler, Y: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,41 @@
-"""MCTM fit layer — the single-host ``adam`` part of ``repro.core.mctm_fit``:
-streamed featurization, the weighted-NLL Adam fit, and the streamed
-full-data evaluator behind the (1±ε) validation.
+"""MCTM fit layer — the single-host ``adam`` and ``lbfgs`` parts of
+``repro.core.mctm_fit``: streamed featurization, the weighted-NLL fits, and
+the streamed full-data evaluator behind the (1±ε) validation.
 
 Objective: Σ w·nll(θ) / Σw. ``method_batch_plan`` owns the microbatch and
 normalizer rules (adam: norm = Σw / microbatches, so the mean over
-microbatches of each microbatch's Σ w·nll / norm is the objective). The step
-featurizes each microbatch inside the loss (the bernstein kernel; the
-features are constants of the fit, so no backward kernel is needed), sums
-the microbatch gradients, scales them by 1/microbatches and applies the
-reference's AdamW update — the arithmetic of ``repro.train.trainer``'s
-``make_train_step``. A single-microbatch adam fit featurizes once, outside
-the step loop (the dense fast path). No path holds an (n, J, d) basis beyond
-one chunk otherwise.
+microbatches of each microbatch's Σ w·nll / norm is the objective; lbfgs:
+norm = Σw, its oracles sum over microbatches). Every step featurizes each
+microbatch inside the loss (the bernstein kernel; the features are
+constants of the fit, so no backward kernel is needed).
+
+- ``adam``: sums the microbatch gradients, scales them by 1/microbatches and
+  applies the reference's AdamW update — the arithmetic of
+  ``repro.train.trainer``'s ``make_train_step``. A single-microbatch adam
+  fit featurizes once, outside the step loop (the dense fast path).
+- ``lbfgs``: the streaming-HVP quasi-Newton fit (``_fit_lbfgs``): loss,
+  gradient and Hessian-vector product each one sweep over the microbatches
+  on the device (``make_streamed_oracles``); the two-loop direction, the
+  Armijo bookkeeping and the curvature ring on the host in float64, the
+  state stored in float32 between iterations, as the reference stores it.
+
+No path holds an (n, J, d) basis beyond one chunk otherwise.
+``mctm.fit_mctm(method="scipy-lbfgs")`` is the dense small-n oracle that
+lbfgs is tested against.
 
 ``streamed_nll`` computes the total weighted NLL chunk by chunk;
 ``coreset_epsilon`` measures the realized ε̂ = max_θ |NLL_C(θ) − NLL(θ)| /
 |NLL(θ)| and ``likelihood_ratio`` the ratio checked against the (1±ε̂) band.
 
-Not ported yet (they raise ``NotImplementedError``): the ``lbfgs`` and
-``minibatch`` methods, ``scipy-lbfgs``, meshes, checkpoints and the
-fault-tolerance supervisor.
+Not ported yet (they raise ``NotImplementedError``): the ``minibatch``
+method (it draws through ``data/pipeline.py``, ROADMAP Queue A 8), meshes,
+checkpoints and the fault-tolerance supervisor; a non-finite loss raises
+``FloatingPointError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -36,11 +47,14 @@ from repro_torch.optim import Optimizer, adamw, apply_updates
 
 __all__ = [
     "MCTMDensityModel",
+    "LBFGSState",
+    "LAST_LBFGS_SWEEPS",
     "fit_featurize",
     "fit_density_model",
     "fit_mctm_streaming",
     "batch_plan",
     "method_batch_plan",
+    "make_streamed_oracles",
     "streamed_nll",
     "coreset_epsilon",
     "likelihood_ratio",
@@ -50,12 +64,14 @@ __all__ = [
 ]
 
 FIT_METHODS = ("adam", "lbfgs", "minibatch")
-_NOT_PORTED = ("lbfgs", "minibatch", "scipy-lbfgs")
+_NOT_PORTED = ("minibatch",)
 
 
 def _check_method(method: str) -> None:
     if method in _NOT_PORTED:
-        raise NotImplementedError(f"fit method {method!r} is not ported yet (adam only)")
+        raise NotImplementedError(
+            f"fit method {method!r} is not ported yet (ROADMAP.md Queue A 1: it waits for "
+            "data/pipeline.py, Queue A 8)")
     if method not in FIT_METHODS:
         raise ValueError(f"unknown fit method: {method!r} (one of {FIT_METHODS})")
 
@@ -136,6 +152,13 @@ def _pad_batch(batch: dict, multiple: int) -> tuple[dict, int, int]:
     return out, n, n_pad
 
 
+def _microbatches(batch: dict, microbatches: int) -> list[dict]:
+    """A padded batch cut into ``microbatches`` equal row slices."""
+    size = int(batch["weights"].shape[0]) // microbatches
+    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            for i in range(microbatches)]
+
+
 def batch_plan(n: int, weights, chunk_size: int | None, microbatches: int | None):
     """Resolved weights, their total, the chunk length and the microbatch
     count (⌈n/chunk⌉ unless given)."""
@@ -149,11 +172,13 @@ def batch_plan(n: int, weights, chunk_size: int | None, microbatches: int | None
 def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
                       microbatches: int | None):
     """``batch_plan`` plus the per-method objective normalizer: returns
-    ``(w, total_w, chunk, microbatches, norm)``; for adam
-    norm = Σw / microbatches."""
+    ``(w, total_w, chunk, microbatches, norm)`` where, so that the fit
+    minimizes Σ w·nll / Σw, adam's norm = Σw / microbatches (its step
+    averages the microbatches) and lbfgs's norm = Σw (its oracles sum
+    them)."""
     _check_method(method)
     w, total_w, chunk, mb = batch_plan(n, weights, chunk_size, microbatches)
-    return w, total_w, chunk, mb, total_w / mb
+    return w, total_w, chunk, mb, total_w if method == "lbfgs" else total_w / mb
 
 
 def fit_density_model(
@@ -161,25 +186,38 @@ def fit_density_model(
     params0: M.MCTMParams,
     batch: dict,
     *,
-    optimizer: Optimizer,
+    optimizer: Optimizer | None = None,
     steps: int,
     method: str = "adam",
     microbatches: int = 1,
+    history: int = 10,
+    gtol: float = 1e-6,
+    max_linesearch: int = 20,
     log_every: int = 0,
     label: str = "fit",
     device=None,
 ):
-    """Full-batch first-order fit: rows padded to a microbatch multiple with
+    """The density-fit driver, one ``method=`` contract. ``adam`` (any
+    first-order ``optimizer``): rows padded to a microbatch multiple with
     zero weight, one step per iteration, grads summed over microbatches then
-    scaled by 1/microbatches. Returns ``(params, losses)`` with one float
-    per step (each the objective before that step's update)."""
+    scaled by 1/microbatches; each loss is the objective before that step's
+    update. ``lbfgs`` ignores ``optimizer`` and runs ``_fit_lbfgs``
+    (``history`` curvature pairs, Armijo backtracking capped at
+    ``max_linesearch`` halvings, convergence at ``gtol`` gradient norm).
+    Returns ``(params, losses)`` with one float per step."""
+    if method == "lbfgs":
+        return _fit_lbfgs(
+            model, params0, batch, steps=steps, microbatches=microbatches,
+            history=history, gtol=gtol, max_linesearch=max_linesearch,
+            log_every=log_every, label=label, device=device,
+        )
     _check_method(method)
+    if optimizer is None:
+        raise ValueError(f"method={method!r} requires an optimizer")
     dev = resolve_device(device)
     mb = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    batch, _, n_pad = _pad_batch(batch, mb)
-    size = n_pad // mb
-    mbatches = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()} for i in range(mb)]
+    mbatches = _microbatches(_pad_batch(batch, mb)[0], mb)
     params = M.MCTMParams(
         params0.theta_raw.detach().to(dev).clone(), params0.lam.detach().to(dev).clone()
     )
@@ -212,6 +250,236 @@ def fit_density_model(
     return params, out
 
 
+# ---------------------------------------------------------------------------
+# streaming-HVP L-BFGS
+# ---------------------------------------------------------------------------
+
+
+def make_streamed_oracles(model, microbatches: int):
+    """``(value_and_grad, value, hvp)`` over a padded batch (tensors whose
+    rows are a multiple of ``microbatches``); ``params`` and ``vec`` are
+    (theta_raw, lam) pairs of tensors.
+
+    Each streams the batch microbatch by microbatch through
+    ``model.loss_fn``, which featurizes its rows, so the basis exists one
+    (chunk, J, d) block at a time, for the HVP too. Totals are sums over the
+    microbatches, in float32: the L-BFGS objective's normalizer is the
+    model's ``norm`` alone. The HVP is forward over reverse, as the
+    reference's (``torch.func.jvp`` of ``torch.func.grad``), on features
+    evaluated first: it tracks the reference's iterates more closely than
+    reverse over reverse (final NLL 1.9e-6 against 7.1e-6 relative after
+    150 iterations at n = 1,000 on the CPU)."""
+    microbatches = max(1, microbatches)
+
+    def _leaves(params, grad: bool):
+        return [p.detach().requires_grad_(grad) for p in params]
+
+    def value_and_grad(params, batch):
+        loss, grads = None, None
+        for mbatch in _microbatches(batch, microbatches):
+            leaves = _leaves(params, True)
+            li = model.loss_fn(M.ParamLeaves(*leaves), mbatch)
+            gi = torch.autograd.grad(li, leaves)
+            loss = li.detach() if loss is None else loss + li.detach()
+            grads = list(gi) if grads is None else [a + g for a, g in zip(grads, gi)]
+        return loss, grads
+
+    def value(params, batch):
+        with torch.no_grad():
+            leaves = M.ParamLeaves(*_leaves(params, False))
+            return sum(model.loss_fn(leaves, mb) for mb in _microbatches(batch, microbatches))
+
+    def hvp(params, vec, batch):
+        out = None
+        for mbatch in _microbatches(batch, microbatches):
+            # features first, outside the transforms: constants of the fit
+            A, Ap = model.features(mbatch)
+            fixed = dict(mbatch, A=A, Ap=Ap)
+            grad = torch.func.grad(lambda th, lam: model.loss_fn(M.ParamLeaves(th, lam), fixed),
+                                   argnums=(0, 1))
+            _, hv = torch.func.jvp(grad, tuple(p.detach() for p in params), tuple(vec))
+            out = list(hv) if out is None else [a + h for a, h in zip(out, hv)]
+        return out
+
+    return value_and_grad, value, hvp
+
+
+class LBFGSState(NamedTuple):
+    """The L-BFGS iteration state, host numpy in float32 between
+    iterations, as the reference stores it. The curvature ring holds at
+    most ``history`` (s, y, ρ) pairs — O(history·|params|), independent of
+    n."""
+
+    step: int               # iteration counter
+    flat: np.ndarray        # (P,) f32 current iterate (theta_raw, then lam)
+    loss: np.float32        # objective at ``flat``
+    grad: np.ndarray        # (P,) f32 gradient at ``flat`` (fused-oracle carry)
+    have_grad: bool         # loss/grad are valid (skip the opening sweep)
+    mem_s: np.ndarray       # (history, P) f32 iterate displacements s = x₊ − x
+    mem_y: np.ndarray       # (history, P) f32 curvature responses y = ∇²f(x₊)·s
+    mem_rho: np.ndarray     # (history,) f32 1 / sᵀy
+    count: int              # number of valid pairs (rows [0:count])
+    converged: bool         # further steps are no-ops
+
+
+# Streamed-sweep census of the most recent ``_fit_lbfgs`` call: {"vg": fused
+# value-and-grad sweeps, "hvp": HVP sweeps, "iters": active (non-latched)
+# iterations}. Read it right after the fit returns.
+LAST_LBFGS_SWEEPS: dict[str, int] = {"vg": 0, "hvp": 0, "iters": 0}
+
+
+def _two_loop(g, S, Yv, rho, count: int):
+    """Standard two-loop recursion: approximate H⁻¹·g from the curvature
+    ring (rows [0:count], oldest → newest). All host-side f64 on O(m·P)
+    data — the history is tiny by construction."""
+    q = g.copy()
+    alpha = np.zeros(count)
+    for i in reversed(range(count)):
+        alpha[i] = rho[i] * (S[i] @ q)
+        q -= alpha[i] * Yv[i]
+    if count:
+        gamma = (S[count - 1] @ Yv[count - 1]) / max(
+            Yv[count - 1] @ Yv[count - 1], 1e-30
+        )
+    else:
+        gamma = 1.0
+    r = gamma * q
+    for i in range(count):
+        beta = rho[i] * (Yv[i] @ r)
+        r += S[i] * (alpha[i] - beta)
+    return r
+
+
+def _fit_lbfgs(
+    model,
+    params0: M.MCTMParams,
+    batch: dict,
+    *,
+    steps: int,
+    microbatches: int = 1,
+    history: int = 10,
+    gtol: float = 1e-6,
+    max_linesearch: int = 20,
+    log_every: int = 0,
+    label: str = "lbfgs",
+    device=None,
+):
+    """Streaming-HVP L-BFGS: quasi-Newton over the streamed oracles, the
+    reference's ``_fit_lbfgs`` on one device.
+
+    About 2 streamed sweeps an iteration: the Armijo backtracker evaluates
+    the fused value-and-grad oracle at each candidate, and the accepted
+    candidate's (f, ∇f) are carried into the next iteration; one streamed
+    HVP sweep a step forms the curvature pair y = ∇²f(x₊)·s. The two-loop
+    direction and the ring run on the host in float64 from the float32
+    state. Once ``gtol`` is reached, or no Armijo point exists along a
+    descent direction, ``converged`` latches and the remaining steps are
+    free no-ops that each append the same loss. A non-finite loss or
+    gradient raises ``FloatingPointError``."""
+    dev = resolve_device(device)
+    microbatches = max(1, microbatches)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    batch, _, _ = _pad_batch(batch, microbatches)
+    value_and_grad, _, hvp = make_streamed_oracles(model, microbatches)
+    shapes = [tuple(params0.theta_raw.shape), tuple(params0.lam.shape)]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    P = sum(sizes)
+    m = max(1, int(history))
+    sweeps = {"vg": 0, "hvp": 0, "iters": 0}
+
+    def unravel(flat: np.ndarray) -> list[torch.Tensor]:
+        flat = torch.as_tensor(np.asarray(flat, np.float32), device=dev)
+        parts = torch.split(flat, sizes)
+        return [p.reshape(sh) for p, sh in zip(parts, shapes)]
+
+    def ravel(tensors) -> np.ndarray:
+        return np.concatenate([t.detach().reshape(-1).cpu().numpy() for t in tensors]).astype(
+            np.float64)
+
+    def step_fn(state: LBFGSState) -> tuple[LBFGSState, np.float32]:
+        if state.converged:
+            return state._replace(step=state.step + 1), state.loss
+        sweeps["iters"] += 1
+        x = np.asarray(state.flat, np.float64)
+        if state.have_grad:
+            # the sweep that accepted x in the previous line search computed (f, ∇f)
+            f0 = float(state.loss)
+            g = np.asarray(state.grad, np.float64)
+        else:
+            loss, grads = value_and_grad(unravel(x), batch)
+            sweeps["vg"] += 1
+            g = ravel(grads)
+            f0 = float(loss)
+        gnorm = float(np.linalg.norm(g))
+        if not (np.isfinite(f0) and np.isfinite(gnorm)):
+            raise FloatingPointError(
+                f"[{label}] non-finite loss {f0} or gradient norm {gnorm} at step {state.step}")
+        if gnorm <= gtol:
+            return state._replace(step=state.step + 1, loss=np.float32(f0),
+                                  converged=True), np.float32(f0)
+        count = state.count
+        S = np.asarray(state.mem_s, np.float64)
+        Yv = np.asarray(state.mem_y, np.float64)
+        rho = np.asarray(state.mem_rho, np.float64)
+        d = -_two_loop(g, S, Yv, rho, count)
+        gd = float(g @ d)
+        if not np.isfinite(gd) or gd >= 0.0:  # ring gone stale → steepest descent
+            d, gd = -g, -(gnorm * gnorm)
+        t = min(1.0, 1.0 / max(float(np.abs(g).sum()), 1e-12)) if count == 0 else 1.0
+        f_t, g_t, armijo = f0, None, False
+        for _ in range(max_linesearch):
+            # fused trial: value AND gradient in one streamed sweep — the
+            # accepted trial's gradient seeds the next iteration free
+            loss_t, grads_t = value_and_grad(unravel(x + t * d), batch)
+            sweeps["vg"] += 1
+            f_t = float(loss_t)
+            if np.isfinite(f_t) and f_t <= f0 + 1e-4 * t * gd:
+                g_t = ravel(grads_t)
+                armijo = True
+                break
+            t *= 0.5
+        if not armijo:
+            return state._replace(step=state.step + 1, loss=np.float32(f0),
+                                  converged=True), np.float32(f0)
+        s = t * d
+        x_new = x + s
+        y = ravel(hvp(unravel(x_new), unravel(s), batch))
+        sweeps["hvp"] += 1
+        sy = float(s @ y)
+        # curvature-pair acceptance (skip, don't damp: the HVP y is exact
+        # curvature, so a tiny sᵀy means genuinely indefinite local curvature)
+        if np.isfinite(sy) and sy > 1e-10 * np.linalg.norm(s) * np.linalg.norm(y):
+            if count < m:
+                S[count], Yv[count], rho[count] = s, y, 1.0 / sy
+                count += 1
+            else:
+                S, Yv, rho = np.roll(S, -1, 0), np.roll(Yv, -1, 0), np.roll(rho, -1, 0)
+                S[-1], Yv[-1], rho[-1] = s, y, 1.0 / sy
+        return LBFGSState(
+            step=state.step + 1, flat=x_new.astype(np.float32), loss=np.float32(f_t),
+            grad=g_t.astype(np.float32), have_grad=True, mem_s=S.astype(np.float32),
+            mem_y=Yv.astype(np.float32), mem_rho=rho.astype(np.float32), count=count,
+            converged=False,
+        ), np.float32(f_t)
+
+    state = LBFGSState(
+        step=0, flat=ravel([params0.theta_raw, params0.lam]).astype(np.float32),
+        loss=np.float32(np.inf), grad=np.zeros(P, np.float32), have_grad=False,
+        mem_s=np.zeros((m, P), np.float32), mem_y=np.zeros((m, P), np.float32),
+        mem_rho=np.zeros(m, np.float32), count=0, converged=False,
+    )
+    losses = []
+    for i in range(steps):
+        state, loss = step_fn(state)
+        losses.append(loss)
+        if log_every and (i + 1) % log_every == 0:
+            print(f"[{label}] step {i + 1:5d} loss {float(loss):.4f}", flush=True)
+    LAST_LBFGS_SWEEPS.clear()
+    LAST_LBFGS_SWEEPS.update(sweeps)
+    theta, lam = unravel(state.flat)
+    return M.MCTMParams(theta, lam), np.asarray([float(x) for x in losses], np.float64)
+
+
 def fit_mctm_streaming(
     cfg: M.MCTMConfig,
     scaler,
@@ -226,13 +494,18 @@ def fit_mctm_streaming(
     method: str = "adam",
     chunk_size: int | None = DEFAULT_CHUNK,
     microbatches: int | None = None,
+    history: int = 10,
+    gtol: float = 1e-6,
     featurize: Callable | None = None,
     log_every: int = 0,
     device=None,
 ) -> M.FitResult:
     """Weighted maximum-likelihood MCTM fit (``weights`` None → unweighted),
     inputs beyond ``chunk_size`` rows featurized microbatch by microbatch.
-    ``init`` (or fresh ``init_params`` from ``generator``) is the start."""
+    ``init`` (or fresh ``init_params`` from ``generator``) is the start.
+    ``method``: ``"adam"`` (any first-order ``optimizer``) or ``"lbfgs"``
+    (streaming-HVP quasi-Newton; ``steps`` are iterations, early-stopping
+    at ``gtol``)."""
     _check_method(method)
     dev = resolve_device(device)
     Y = np.asarray(Y, np.float32)
@@ -247,14 +520,16 @@ def fit_mctm_streaming(
     model = MCTMDensityModel(cfg, scaler, norm=norm, featurize=featurize)
     Yt = torch.as_tensor(Y, device=dev)
     batch = {"Y": Yt, "weights": torch.as_tensor(w, device=dev)}
-    if microbatches == 1 and featurize is None:
-        # dense fast path: featurize once instead of once per step
+    if method == "adam" and microbatches == 1 and featurize is None:
+        # dense fast path: featurize once instead of once per step (adam
+        # only: lbfgs holds its batch across many oracle sweeps, where a
+        # cached (n, J, d) basis is what this layer exists to avoid)
         A, Ap = fit_featurize(cfg, scaler)(Yt)
         batch = {"A": A, "Ap": Ap, "weights": batch["weights"]}
     params, losses = fit_density_model(
         model, init, batch,
         optimizer=optimizer or default_fit_optimizer(lr, steps),
-        steps=steps, method=method, microbatches=microbatches,
+        steps=steps, method=method, microbatches=microbatches, history=history, gtol=gtol,
         log_every=log_every, label=f"mctm-{method}", device=dev,
     )
     final = streamed_nll(

@@ -30,17 +30,48 @@
 //    on every run, on every stream. (Compensated sums there cost more than
 //    the rest of the kernel: a single warp's dependent chains.)
 //
-// For 64 < D ≤ 160 (J·(degree+1) at J = 10 and 20) a second body, simple
-// rather than fast, takes the call, also in one launch: G's upper triangle
-// is cut into 32×32 tiles (blockIdx.y), and the rows into C ≤ 16 contiguous
-// spans, one a CTA of a C-CTA cluster (blockIdx.x). A CTA stages 128-row
-// stages of its two 32-column panels of √w·X in shared memory, loading the
-// next stage into registers while it multiplies this one; each of its
-// 256 threads sums a 4×4 block of the tile over a quarter of each stage's
-// rows in plain f32 and adds the stage sums into compensated sums, as the
-// small body does. The four row groups are added in a fixed tree, and rank
-// 0 sums the ranks' tiles in rank order over distributed shared memory,
-// adds acc last and writes both triangles.
+// For 64 < D ≤ 160 (J·(degree+1) at J = 10 and 20: a 16,384-row chunk is
+// 4.6 MB at D 70, 1.4 µs of bytes, and 0.08–0.33 GFLOP, 1.2–4.9 µs of f32
+// CUDA-core work) the tiled body takes the call, in one launch:
+//
+//  - Tensor cores at f32 accuracy: each √w·x is split into hi = tf32(x) and
+//    lo = x − hi (read as TF32 by the tensor core), and every 16×8×8 tile
+//    product sums lo·hi + hi·lo + hi·hi (mma.sync m16n8k8 TF32, f32
+//    accumulators): x·y to O(2⁻²¹) relative, the missing lo·lo included
+//    (ssd's mma body splits its f32 operands the same way, in bf16). The
+//    split is three integer/float ops a value: cvt.rna.tf32 issues at a
+//    fraction of their rate. mma.sync rather than wgmma: here K is the row
+//    axis of a row-major X, and mma.sync reads its fragments from a
+//    row-major stage as it lies (A(i) of G's rows 16i.. is B(2i) and
+//    B(2i + 1) of its columns, so a lane loads and splits each value once
+//    for both operands), while wgmma's TF32 operands must be K-major in
+//    shared memory (every stage transposed on its way in), and its 64-row
+//    tiles cover the triangle with more waste than 16×8 tiles do. On this
+//    card mma.sync TF32 peaks near 300 TFLOP/s (about 100 of f32 work at
+//    three products), against 60 for f32 FMA.
+//  - The rows split over one wave: ⌈n/64⌉ CTAs at most, in clusters of 8,
+//    as many clusters as the card holds at once (15 at one CTA an SM: 120
+//    CTAs of 160 rows at n = 16,384). A CTA streams its contiguous span in
+//    32-row stages through a 4-deep cp.async ring (a warp a row, 16-, 8- or
+//    4-byte copies as D allows), rows padded to a stride ≡ 8 (mod 32) words
+//    so the fragment loads hit 32 banks.
+//  - Only the upper triangle: G's 16×8 tiles (i, j ≥ 2i), listed strip by
+//    strip, are cut into runs of W tiles, one warp a run (≤ 16 warps;
+//    make_tiled_plan on the host, a pure function of D; W is the template
+//    argument): 25 tiles in 13 runs of 2 at D 70, 90 in 15 of 6 at D 140.
+//    With few tiles a warp, the three products go to three accumulator
+//    chains, so the mma's latency does not bound them.
+//  - Fixed-order sums, no float atomics: the mma sums one stage; stage sums
+//    add in registers for ≤ 16 stages and then into compensated (Kahan)
+//    sums in shared memory, a slot per fragment value. Rank r of a cluster
+//    sums its slice of the slots over the cluster's CTAs in rank order over
+//    distributed shared memory, compensated, and stores the (sum,
+//    compensation) pair to the cluster's row of a scratch buffer
+//    (torch.empty in ops.py); the last cluster to store slice r (an integer
+//    ticket) sums the slice over the clusters in cluster order, compensated,
+//    adds acc last and writes both triangles, so the result has the bits of
+//    acc + gram(X) on every call, within ~4e-8 of float64 relative to
+//    max|G| at the path's chunk.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -279,147 +310,456 @@ __global__ void __launch_bounds__(kThreadsTarget)
 
 
 constexpr int kWideMaxD = 160;
-constexpr int kWideTile = 32;       // columns of a panel; G tiles are 32×32
-constexpr int kWideRows = 128;      // rows of a stage
-constexpr int kWideThreads = 256;   // 64 4×4 blocks × 4 row groups
-constexpr int kWideMaxCluster = 16; // as the small body: needs the non-portable size
-constexpr int kWideMinRows = 1024;  // rows a rank before another rank joins
+constexpr int kWideCluster = 8;        // CTAs of a cluster (the portable size)
+constexpr int kWideMaxGroups = 16;     // warps of a CTA, one a run of tiles
+constexpr int kWideMinRunTiles = 2;    // 16×8 tiles a warp: the kernel's template argument
+constexpr int kWideMaxRunTiles = 7;
+constexpr int kWideStageRows = 32;     // rows of a stage: four k-steps of eight
+constexpr int kWideStages = 4;         // cp.async ring
+constexpr int kWideSegStages = 16;     // stage sums added in registers before a compensated add
+constexpr int kWideMinRows = 64;       // rows a CTA before another CTA joins
+constexpr int kWideMaxClusters = 16;   // clusters at most: rows of the scratch (the card holds 15)
+// the scratch a call: a (sum, compensation) pair of each fragment slot of a
+// CTA (4 values × W tiles × 32 lanes × runs, at most) for each cluster
+constexpr int kWideScratchFloats = kWideMaxClusters * 2 * 4 * kWideMaxRunTiles * 32 * kWideMaxGroups;
 
-__global__ void __launch_bounds__(kWideThreads)
-    gram_wide_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
-                     int span, const float* __restrict__ acc, float* __restrict__ G) {
-  __shared__ __align__(16) float xa[kWideRows * kWideTile];
-  __shared__ __align__(16) float xb[kWideRows * kWideTile];
-  __shared__ float tp[kWideTile * kWideTile];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  int ta, tb;
-  block_of(blockIdx.y, (D + kWideTile - 1) / kWideTile, ta, tb);
-  const int ca0 = ta * kWideTile, cb0 = tb * kWideTile;
-  const bool diag = ta == tb;
-  const float* xbs = diag ? xa : xb;
-  const int tid = threadIdx.x;
-  const int blk = tid & 63, grp = tid >> 6;
-  const int bi = blk >> 3, bj = blk & 7;
-  const int row0 = min(n, rank * span);
-  const int row_end = min(n, row0 + span);
+// The warps' runs of tiles. G's upper triangle is covered by 16×8 tiles
+// (i, j ≥ 2i) of G's rows 16i.. and columns 8j..; run k has `tiles` of
+// them: q < split[k] are (i0, j0 + q), the rest (i0 + 1, 2(i0 + 1) + q −
+// split) (the next strip from its diagonal), and q ≥ cnt[k] pad the run
+// (computed, never written).
+struct TiledPlan {
+  int runs, tiles;
+  unsigned char i0[kWideMaxGroups], j0[kWideMaxGroups], split[kWideMaxGroups],
+      cnt[kWideMaxGroups];
+};
 
-  // each thread's elements of a stage: i = tid + 256·q, row i / 32, column
-  // i % 32 of each panel; the next stage's are loaded while this one is
-  // multiplied
-  constexpr int kPer = kWideRows * kWideTile / kWideThreads;
-  float na[kPer], nb[kPer], nw[kPer];
-  auto fetch = [&](int r0) {
-    const int cnt = min(kWideRows, row_end - r0);
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int i = tid + kWideThreads * q, r = i / kWideTile, cc = i % kWideTile;
-      const long long o = (long long)(r0 + r) * D;
-      const bool ok = r < cnt;
-      nw[q] = ok && sw != nullptr ? sw[r0 + r] : 1.f;
-      na[q] = ok && ca0 + cc < D ? X[o + ca0 + cc] : 0.f;
-      nb[q] = ok && !diag && cb0 + cc < D ? X[o + cb0 + cc] : 0.f;
+// The plan of D: the tiles listed strip by strip (i, then j) are cut into
+// runs of W, one a warp. A run touches at most two strips: it ends early
+// (cnt < W) rather than reach a third, as the last run may. W is the least
+// in [kWideMinRunTiles, kWideMaxRunTiles] that needs at most kWideMaxGroups
+// runs: as many warps as fit, for latency. runs = 0: no plan (D out of range).
+inline TiledPlan make_tiled_plan(int D) {
+  TiledPlan plan = {};
+  if (D <= kMaxD || D > kWideMaxD) return plan;
+  const int M = (D + 15) / 16, N = (D + 7) / 8;  // strip i holds tiles j = 2i .. N − 1
+  for (int W = kWideMinRunTiles; W <= kWideMaxRunTiles; ++W) {
+    int runs = 0, i = 0, j = 0;
+    for (; i < M && runs < kWideMaxGroups; ++runs) {
+      const int i0 = i, j0 = j;
+      int cnt = 0, split = 0;
+      for (; i < M && i <= i0 + 1 && cnt < W; ++cnt) {
+        split += i == i0;
+        if (++j == N) j = 2 * ++i;
+      }
+      plan.i0[runs] = (unsigned char)i0;
+      plan.j0[runs] = (unsigned char)j0;
+      plan.split[runs] = (unsigned char)split;
+      plan.cnt[runs] = (unsigned char)cnt;
     }
-  };
-  KahanSum run[16];
-  if (row0 < row_end) fetch(row0);
-  for (int r0 = row0; r0 < row_end; r0 += kWideRows) {
-    const int cnt = min(kWideRows, row_end - r0);
-    __syncthreads();  // the previous stage is read
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      xa[tid + kWideThreads * q] = na[q] * nw[q];
-      if (!diag) xb[tid + kWideThreads * q] = nb[q] * nw[q];
-    }
-    __syncthreads();
-    if (r0 + kWideRows < row_end) fetch(r0 + kWideRows);
-    float part[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) part[i] = 0.f;
-    for (int r = grp; r < cnt; r += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(xa + r * kWideTile + 4 * bi);
-      const float4 b = *reinterpret_cast<const float4*>(xbs + r * kWideTile + 4 * bj);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[4 * i + j] = fmaf(av[i], bv[j], part[4 * i + j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) run[i].add(part[i]);
-  }
-
-  // row groups → red[grp · 1024 + e] (aliasing xa), then a fixed tree
-  __syncthreads();
-  float* red = xa;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      red[grp * kWideTile * kWideTile + (4 * bi + i) * kWideTile + 4 * bj + j] = run[4 * i + j].s;
-  __syncthreads();
-  constexpr int kT2 = kWideTile * kWideTile;
-  for (int e = tid; e < kT2; e += kWideThreads)
-    tp[e] = (red[e] + red[kT2 + e]) + (red[2 * kT2 + e] + red[3 * kT2 + e]);
-
-  // rank 0 sums the ranks' tiles in rank order, adds acc, writes G
-  cluster.sync();
-  if (rank == 0) {
-    const int C = (int)cluster.num_blocks();
-    for (int e = tid; e < kT2; e += kWideThreads) {
-      const int a = ca0 + e / kWideTile, b = cb0 + e % kWideTile;
-      if (a >= D || b >= D || (diag && a > b)) continue;
-      float v[kWideMaxCluster];  // all ranks' values in flight, then summed in rank order
-#pragma unroll
-      for (int c = 0; c < kWideMaxCluster; ++c)
-        v[c] = c < C ? cluster.map_shared_rank(tp, c)[e] : 0.f;
-      float s = v[0];
-#pragma unroll
-      for (int c = 1; c < kWideMaxCluster; ++c)
-        if (c < C) s += v[c];
-      G[a * D + b] = acc != nullptr ? acc[a * D + b] + s : s;
-      if (a != b) G[b * D + a] = acc != nullptr ? acc[b * D + a] + s : s;
+    if (i == M) {
+      plan.runs = runs;
+      plan.tiles = W;
+      return plan;
     }
   }
-  cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
+  plan.runs = 0;
+  return plan;
 }
 
-int launch_wide(const float* X, const float* sw, int n, int D, const float* acc, float* G,
-                cudaStream_t st) {
+// A stage row holds columns 0..Dm−1 (Dm = D rounded up to 16, as the
+// fragments of the last m-tile read) and 8 more: a row stride ≡ 8 or 24
+// (mod 32) words puts the 32 lanes of a fragment load (rows t, columns g)
+// on 32 banks.
+__host__ __device__ inline int tiled_ld(int D) { return (D + 15) / 16 * 16 + 8; }
+
+// Fragment slots of a CTA: 4 values × W tiles × 32 lanes × runs.
+__host__ __device__ inline int tiled_slots(int W, int runs) { return 4 * W * 32 * runs; }
+
+__host__ __device__ inline size_t tiled_smem_bytes(int D, int slots) {
+  return 4 * ((size_t)kWideStages * kWideStageRows * (tiled_ld(D) + 1) + 2 * (size_t)slots);
+}
+
+// x = hi + lo exactly: hi = x rounded to TF32 (nearest, ties away from
+// zero, as cvt.rna.tf32.f32 — by integer ops: the conversion instruction
+// issues at a fraction of their rate), lo = x − hi, which the tensor core
+// reads as TF32 by dropping its low 13 bits: x·y to O(2⁻²¹) relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D += A·B for one 16×8×8 tile: A row-major 16×8 TF32 (4 regs), B
+// column-major 8×8 TF32 (2 regs), D 16×8 f32 (4 regs).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Compensated (Kahan) f32 sum of a few terms in a fixed order.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// Accumulator chains a tile: the three products of a k-step go to separate
+// chains where a warp has few tiles (the mma's latency, not its rate, would
+// bound a lone chain), to one where it has many.
+template <int W>
+struct Chains {
+  static constexpr int kCount = W <= 3 ? 3 : (W <= 5 ? 2 : 1);
+  // chain of product p (0: lo·hi, 1: hi·lo, 2: hi·hi)
+  __host__ __device__ static constexpr int of(int p) {
+    return kCount == 3 ? p : (kCount == 2 ? p / 2 : 0);
+  }
+};
+
+// First column of tile q of a run (padding tiles repeat the first tile).
+__device__ __forceinline__ int tile_col(int q, int i0, int j0, int split, int cnt) {
+  return 8 * (q >= cnt ? j0 : (q < split ? j0 + q : 2 * (i0 + 1) + q - split));
+}
+
+// One stage's products (four k-steps) of a warp's run into its chains.
+// kTwo: the run reaches the next strip, whose A fragment (ca1) serves the
+// tiles q ≥ split.
+template <int W, bool kTwo>
+__device__ __forceinline__ void stage_products(const float* __restrict__ xs,
+                                               const float* __restrict__ ws, bool weighted,
+                                               int LD, int ca0, int ca1, int i0, int j0,
+                                               int split, int cnt, int g, int t,
+                                               float (&acc)[Chains<W>::kCount][W][4]) {
+#pragma unroll
+  for (int k0 = 0; k0 < kWideStageRows; k0 += 8) {
+    // this lane's fragment elements: rows k0 + t and k0 + t + 4, column g
+    // of an 8-column block; A(i) is B(2i) and B(2i + 1) side by side
+    const float* x0 = xs + (k0 + t) * LD + g;
+    const float* x1 = x0 + 4 * LD;
+    const float w0 = weighted ? ws[k0 + t] : 1.f, w1 = weighted ? ws[k0 + t + 4] : 1.f;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < (kTwo ? 2 : 1); ++m) {
+      const int ca = m == 0 ? ca0 : ca1;
+      split_tf32(x0[ca] * w0, ah[m][0], al[m][0]);
+      split_tf32(x0[ca + 8] * w0, ah[m][1], al[m][1]);
+      split_tf32(x1[ca] * w1, ah[m][2], al[m][2]);
+      split_tf32(x1[ca + 8] * w1, ah[m][3], al[m][3]);
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const int cb = tile_col(q, i0, j0, split, cnt);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(x0[cb] * w0, bh0, bl0);
+      split_tf32(x1[cb] * w1, bh1, bl1);
+      const int m = kTwo && q >= split ? 1 : 0;
+      uint32_t a_h[4], a_l[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        a_h[v] = kTwo ? (m ? ah[1][v] : ah[0][v]) : ah[0][v];
+        a_l[v] = kTwo ? (m ? al[1][v] : al[0][v]) : al[0][v];
+      }
+      // the two small products first, then the large one
+      mma_tf32(acc[Chains<W>::of(0)][q], a_l, bh0, bh1);
+      mma_tf32(acc[Chains<W>::of(1)][q], a_h, bl0, bl1);
+      mma_tf32(acc[Chains<W>::of(2)][q], a_h, bh0, bh1);
+    }
+  }
+}
+
+// G's entry (a, b) of fragment slot `slot` of a CTA of T threads, false for
+// padding and for entries below the diagonal or past D.
+__device__ __forceinline__ bool slot_entry(int slot, int T, int D, const TiledPlan& plan,
+                                           int& a, int& b) {
+  const int tid = slot % T, qv = slot / T, q = qv >> 2, v = qv & 3;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int i0 = plan.i0[warp], j0 = plan.j0[warp], split = plan.split[warp];
+  const int cnt = plan.cnt[warp];
+  if (q >= cnt) return false;
+  a = 16 * (q < split ? i0 : i0 + 1) + g + 8 * (v >> 1);
+  b = tile_col(q, i0, j0, split, cnt) + 2 * t + (v & 1);
+  return a <= b && b < D;
+}
+
+// The tiled body, 64 < D ≤ 160. Grid: ncl clusters of C CTAs; CTA x takes
+// rows [x·span, (x+1)·span). vec: floats a cp.async (D % vec == 0). W:
+// tiles a warp (plan.tiles).
+template <int W>
+__global__ void __launch_bounds__(kWideMaxGroups * 32, 1)
+    gram_tiled_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
+                      int span, int vec, const __grid_constant__ TiledPlan plan,
+                      const float* __restrict__ acc_in, float* __restrict__ G,
+                      float* __restrict__ scratch, int* __restrict__ tickets) {
+  constexpr int CH = Chains<W>::kCount;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last;
+  const int LD = tiled_ld(D);
+  const int tid = threadIdx.x, T = blockDim.x, nw = T / 32;
+  const int slots = tiled_slots(W, nw);
+  float* ring = smem;                                         // stages × rows × LD
+  float* wring = ring + kWideStages * kWideStageRows * LD;    // stages × rows (√w)
+  float* part = wring + kWideStages * kWideStageRows;         // slots: this CTA's sums
+  float* comp = part + slots;                                 // slots: their compensations
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int cl = (int)blockIdx.x / C, ncl = (int)gridDim.x / C;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = min(n, (int)blockIdx.x * span), row_end = min(n, row0 + span);
+  const int nst = (row_end - row0 + kWideStageRows - 1) / kWideStageRows;
+  const bool weighted = sw != nullptr;
+
+  // stage s: a warp a row, its lanes along it (no divisions: this runs every
+  // stage); rows past the span zeroed; √w by the last warp, 16 bytes a lane
+  // (the stage starts at a multiple of 32 rows)
+  auto issue = [&](int s) {
+    if (s < nst) {
+      const int r0 = row0 + s * kWideStageRows;
+      const int cnt = min(kWideStageRows, row_end - r0);
+      float* dst = ring + (s % kWideStages) * kWideStageRows * LD;
+      for (int r = warp; r < kWideStageRows; r += nw) {
+        float* d = dst + r * LD;
+        if (r < cnt) {
+          const float* src = X + (long long)(r0 + r) * D;
+          for (int c = vec * lane; c < D; c += 32 * vec) {
+            if (vec == 4)
+              cp_async16(d + c, src + c);
+            else if (vec == 2)
+              cp_async8(d + c, src + c);
+            else
+              cp_async4(d + c, src + c);
+          }
+        } else {
+          for (int c = lane; c < D; c += 32) d[c] = 0.f;
+        }
+      }
+      if (weighted && warp == nw - 1 && 4 * lane < kWideStageRows) {
+        // rows past the span get √w = 0: stale shared memory may hold a NaN,
+        // and 0·NaN would reach every product of the stage
+        float* wdst = wring + (s % kWideStages) * kWideStageRows;
+        if (4 * lane + 3 < cnt) {
+          cp_async16(wdst + 4 * lane, sw + r0 + 4 * lane);
+        } else {
+          for (int r = 4 * lane; r < 4 * lane + 4; ++r) {
+            if (r < cnt)
+              cp_async4(wdst + r, sw + r0 + r);
+            else
+              wdst[r] = 0.f;
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) issue(s);
+  // while they land: pad columns [D, LD) of every ring row are zero and stay
+  // so (the copies never touch them)
+  for (int r = warp; r < kWideStages * kWideStageRows; r += nw)
+    for (int c = D + lane; c < LD; c += 32) ring[r * LD + c] = 0.f;
+
+  const int i0 = plan.i0[warp], j0 = plan.j0[warp], split = plan.split[warp];
+  const int cnt = plan.cnt[warp];
+  const int ca0 = 16 * i0, ca1 = 16 * min(i0 + 1, (D + 15) / 16 - 1);
+  const bool two = split < cnt;
+  float acc[CH][W][4], seg[W][4];
+#pragma unroll
+  for (int q = 0; q < W; ++q)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      seg[q][v] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc[c][q][v] = 0.f;
+    }
+
+  // the segment sums into part/comp, slot (q·4 + v)·T + tid: compensated
+  // (Kahan) after the first segment, which stores (comp 0). `more`: some CTA
+  // has a second segment, so the rank reduce reads the compensations; it is
+  // decided by the span, the same for every CTA, as any rank reads them all
+  const bool more = (span + kWideStageRows - 1) / kWideStageRows > kWideSegStages;
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int e = (q * 4 + v) * T + tid;
+        if (first) {
+          part[e] = seg[q][v];
+          comp[e] = 0.f;
+        } else {
+          float sum = part[e], c = comp[e];
+          kahan_add(sum, c, seg[q][v]);
+          part[e] = sum;
+          comp[e] = c;
+        }
+        seg[q][v] = 0.f;
+      }
+  };
+
+  for (int s = 0; s < nst; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kWideStages - 2) : "memory");
+    __syncthreads();  // stage s landed for every thread; stage s − 1 is read
+    issue(s + kWideStages - 1);
+    const float* xs = ring + (s % kWideStages) * kWideStageRows * LD;
+    const float* ws = wring + (s % kWideStages) * kWideStageRows;
+    if (two)
+      stage_products<W, true>(xs, ws, weighted, LD, ca0, ca1, i0, j0, split, cnt, g, t, acc);
+    else
+      stage_products<W, false>(xs, ws, weighted, LD, ca0, ca1, i0, j0, split, cnt, g, t, acc);
+    // the stage's chains (small products first) into the segment sums
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float x = acc[0][q][v];
+#pragma unroll
+        for (int c = 1; c < CH; ++c) x += acc[c][q][v];
+        seg[q][v] += x;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) acc[c][q][v] = 0.f;
+      }
+    if ((s + 1) % kWideSegStages == 0 || s + 1 == nst) flush(s < kWideSegStages);
+  }
+  if (nst == 0) flush(true);  // an empty span: zeros
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // rank r sums slots [r·per, (r+1)·per) over the cluster's CTAs in rank
+  // order (every rank's load in flight first) into a compensated pair
+  // (s, c), value s − c: the cluster's rows of scratch (s plane, c plane)
+  cluster.sync();
+  const int per = (slots + C - 1) / C;
+  const int e0 = min(slots, rank * per), e1 = min(slots, e0 + per);
+  for (int e = e0 + tid; e < e1; e += T) {
+    float ps[kWideCluster], pc[kWideCluster];
+#pragma unroll
+    for (int c = 0; c < kWideCluster; ++c) {
+      const int r = c < C ? c : 0;
+      ps[c] = cluster.map_shared_rank(part, r)[e];
+      pc[c] = more ? cluster.map_shared_rank(comp, r)[e] : 0.f;
+    }
+    float sum = 0.f, cmp = 0.f;
+#pragma unroll
+    for (int c = 0; c < kWideCluster; ++c) {
+      if (c >= C) break;
+      kahan_add(sum, cmp, ps[c]);
+      kahan_add(sum, cmp, -pc[c]);
+    }
+    float* row = scratch + (long long)cl * 2 * slots;
+    row[e] = sum;
+    row[slots + e] = cmp;
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+
+  // the last cluster to finish its slots of slice `rank` (an integer ticket)
+  // sums the slice over the clusters in cluster order (compensated, every
+  // cluster's loads in flight first), adds acc last and writes both
+  // triangles; it then resets the ticket for the next call
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + rank, 1) == ncl - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = e0 + tid; e < e1; e += T) {
+    float vs[kWideMaxClusters], vc[kWideMaxClusters];
+#pragma unroll
+    for (int c = 0; c < kWideMaxClusters; ++c) {  // the loads first, the slot's decoding under them
+      const float* row = scratch + (long long)min(c, ncl - 1) * 2 * slots;
+      vs[c] = c < ncl ? __ldcg(row + e) : 0.f;
+      vc[c] = c < ncl ? __ldcg(row + slots + e) : 0.f;
+    }
+    int a, b;
+    if (!slot_entry(e, T, D, plan, a, b)) continue;
+    const float lo = acc_in != nullptr ? acc_in[a * D + b] : 0.f;
+    const float hi = acc_in != nullptr ? acc_in[b * D + a] : 0.f;
+    float sum = 0.f, cmp = 0.f;
+#pragma unroll
+    for (int c = 0; c < kWideMaxClusters; ++c) {
+      if (c >= ncl) break;
+      kahan_add(sum, cmp, vs[c]);
+      kahan_add(sum, cmp, -vc[c]);
+    }
+    const float total = sum - cmp;
+    G[a * D + b] = acc_in != nullptr ? lo + total : total;
+    if (a != b) G[b * D + a] = acc_in != nullptr ? hi + total : total;
+  }
+  if (tid == 0) tickets[rank] = 0;
+}
+
+template <int W>
+int launch_tiled_as(const float* X, const float* sw, int n, int D, const TiledPlan& plan,
+                    const float* acc, float* G, float* scratch, int* tickets, cudaStream_t st) {
+  auto kernel = gram_tiled_kernel<W>;
+  const int slots = tiled_slots(W, plan.runs);
+  const size_t smem = tiled_smem_bytes(D, slots);
   static bool attr_set = false;
+  static int max_clusters[kWideMaxD + 1] = {};  // by D: co-resident clusters of kWideCluster
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gram_wide_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tiled_smem_bytes(kWideMaxD, tiled_slots(kWideMaxRunTiles, kWideMaxGroups)));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int nt = (D + kWideTile - 1) / kWideTile;
-  // ranks: one wave of CTAs (one an SM at this body's registers), and at
-  // least kWideMinRows rows a rank
-  int C = (n + kWideMinRows - 1) / kWideMinRows;
-  const int fit = sms / (nt * (nt + 1) / 2);
-  C = C > fit ? fit : C;
-  C = C < 1 ? 1 : (C > kWideMaxCluster ? kWideMaxCluster : C);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, nt * (nt + 1) / 2);
-  cfg.blockDim = dim3(kWideThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(32 * plan.runs);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, gram_wide_kernel, X, sw, n, D, (n + C - 1) / C, acc, G);
+  if (max_clusters[D] == 0) {
+    cfg.gridDim = dim3(kWideCluster);
+    attr[0].val.clusterDim.x = kWideCluster;
+    int m = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&m, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (m < 1) return (int)cudaErrorInvalidConfiguration;
+    max_clusters[D] = m;
+  }
+  // CTAs: one a kWideMinRows rows, in one wave of whole clusters
+  const int want = max(1, (n + kWideMinRows - 1) / kWideMinRows);
+  int C = want, ncl = 1;
+  if (want >= kWideCluster) {
+    C = kWideCluster;
+    ncl = min(min(want / kWideCluster, max_clusters[D]), kWideMaxClusters);
+  }
+  const int ctas = C * ncl;
+  // a span of whole stages, so every stage starts 16-byte aligned for √w
+  const int span = ((n + ctas - 1) / ctas + kWideStageRows - 1) / kWideStageRows * kWideStageRows;
+  const int vec = D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1);
+  cfg.gridDim = dim3(ctas);
+  attr[0].val.clusterDim.x = C;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, X, sw, n, D, span, vec, plan, acc, G, scratch,
+                                 tickets);
+}
+
+int launch_tiled(const float* X, const float* sw, int n, int D, const float* acc, float* G,
+                 float* scratch, int* tickets, cudaStream_t st) {
+  const TiledPlan plan = make_tiled_plan(D);
+  if (plan.runs == 0 || scratch == nullptr || tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (plan.tiles) {
+    case 2: return launch_tiled_as<2>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+    case 3: return launch_tiled_as<3>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+    case 4: return launch_tiled_as<4>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+    case 5: return launch_tiled_as<5>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+    case 6: return launch_tiled_as<6>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+    default: return launch_tiled_as<7>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
+  }
 }
 
 }  // namespace
@@ -427,13 +767,15 @@ int launch_wide(const float* X, const float* sw, int n, int D, const float* acc,
 // X (n, D) f32, D ≤ 160, and sw (n,) f32 or null (all ones), both with
 // 16-byte aligned bases,
 // acc (D, D) f32 or null (zeros) → G = acc + (√w·X)ᵀ(√w·X), (D, D) f32. G
-// must not alias X, sw or acc.
+// must not alias X, sw or acc. For D > 64 (the tiled body): scratch
+// kWideScratchFloats f32 of device memory, tickets kWideCluster int32 that
+// are 0 (the kernel leaves them 0); the D ≤ 64 body reads neither.
 REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const void* acc,
-                            void* G, void* stream) {
+                            void* G, void* scratch, void* tickets, void* stream) {
   if (D <= 0 || D > kWideMaxD || n < 0) return (int)cudaErrorInvalidValue;
   if (D > kMaxD)
-    return launch_wide((const float*)X, (const float*)sw, n, D, (const float*)acc, (float*)G,
-                       (cudaStream_t)stream);
+    return launch_tiled((const float*)X, (const float*)sw, n, D, (const float*)acc, (float*)G,
+                        (float*)scratch, (int*)tickets, (cudaStream_t)stream);
   const Shape sh = make_shape(D);
   if (sh.groups * sh.ntri > kRedFloats || sh.nblk * sh.groups < kMinThreads)
     return (int)cudaErrorInvalidValue;
@@ -465,4 +807,22 @@ REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const v
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, gram_cluster_kernel, (const float*)X, (const float*)sw, n,
                                  D, span, (const float*)acc, (float*)G);
+}
+
+// The tiled body's plan of D (64 < D ≤ 160), as make_tiled_plan builds it:
+// out (2 + 4·kWideMaxGroups int32) gets runs, the run width W, then (i0, j0,
+// split, cnt) of each run. Host only; for the tests and the logs.
+REPRO_EXPORT int repro_gram_tiled_plan(int D, void* out) {
+  const TiledPlan plan = make_tiled_plan(D);
+  if (plan.runs == 0 || out == nullptr) return (int)cudaErrorInvalidValue;
+  int* o = (int*)out;
+  o[0] = plan.runs;
+  o[1] = plan.tiles;
+  for (int k = 0; k < plan.runs; ++k) {
+    o[2 + 4 * k] = plan.i0[k];
+    o[3 + 4 * k] = plan.j0[k];
+    o[4 + 4 * k] = plan.split[k];
+    o[5 + 4 * k] = plan.cnt[k];
+  }
+  return 0;
 }

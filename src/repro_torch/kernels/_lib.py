@@ -41,7 +41,8 @@ _F = ctypes.c_float
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "repro_bernstein_featurize": (_P, _L, _I, _I, _P, _P, _P, _P),
-    "repro_gram": (_P, _P, _I, _I, _P, _P, _P),
+    "repro_gram": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "repro_gram_tiled_plan": (_I, _P),
     "repro_extremes": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "repro_sweep": (
         _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
@@ -62,7 +63,8 @@ _SIGNATURES = {
 CUDA_CONSTANTS = {
     "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
-    "gram.cu": {"kWideMaxD": 160},
+    "gram.cu": {"kMaxD": 64, "kWideMaxD": 160, "kWideCluster": 8, "kWideMaxGroups": 16,
+                "kWideScratchFloats": 458_752},
     "sweep.cu": {"kMaxD": 160},
 }
 

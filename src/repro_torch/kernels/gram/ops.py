@@ -3,13 +3,38 @@
 up to MAX_D) for a CUDA tensor, on ``ref.py`` for a CPU tensor."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gram.ref import gram_ref
 
-MAX_D = _lib.CUDA_CONSTANTS["gram.cu"]["kWideMaxD"]  # J·(degree+1) to J = 20 at degree 6
+_C = _lib.CUDA_CONSTANTS["gram.cu"]
+MAX_D = _C["kWideMaxD"]  # J·(degree+1) to J = 20 at degree 6
+SMALL_MAX_D = _C["kMaxD"]  # the cluster body's limit; above it the tiled body
 LAUNCHES = 0
+PATH_LAUNCHES = {"cluster": 0, "tiled": 0}
+_TICKETS: dict = {}  # (device index, stream) → the tiled body's kWideCluster int32 tickets
+
+
+def tiled_plan(D: int) -> tuple[int, list[tuple[int, int, int, int]]]:
+    """The tiled body's warps for D (64 < D ≤ MAX_D), as ``csrc/gram.cu``'s
+    ``make_tiled_plan`` builds them on the host: ``(W, runs)``, each run
+    (i0, j0, split, cnt) of W tiles of 16×8 (tiles q < split are (i0, j0 +
+    q), the rest (i0 + 1, 2(i0 + 1) + q − split); q ≥ cnt pad the run). It
+    reads the built library, so it needs the CUDA toolkit."""
+    out = np.zeros(2 + 4 * _C["kWideMaxGroups"], dtype=np.int32)
+    _lib.check(_lib.lib().repro_gram_tiled_plan(D, out.ctypes.data), "repro_gram_tiled_plan")
+    runs, W = int(out[0]), int(out[1])
+    return W, [tuple(int(v) for v in out[2 + 4 * k:6 + 4 * k]) for k in range(runs)]
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(_C["kWideCluster"], dtype=torch.int32, device=device)
+    return t
 
 
 def gram_matrix(
@@ -40,12 +65,19 @@ def gram_matrix(
     X = X if X.data_ptr() % 16 == 0 else X.clone()
     sw = sw if sw is None or sw.data_ptr() % 16 == 0 else sw.clone()
     G = torch.empty((D, D), dtype=torch.float32, device=X.device)
+    stream = _lib.stream_ptr(X.device)
+    tiled = D > SMALL_MAX_D
+    scratch = tickets = None
+    if tiled:
+        scratch = torch.empty(_C["kWideScratchFloats"], dtype=torch.float32, device=X.device)
+        tickets = _tickets(X.device, stream)
     _lib.check(
         _lib.lib().repro_gram(
-            _lib.ptr(X), _lib.ptr(sw), n, D, _lib.ptr(acc), _lib.ptr(G),
-            _lib.stream_ptr(X.device),
+            _lib.ptr(X), _lib.ptr(sw), n, D, _lib.ptr(acc), _lib.ptr(G), _lib.ptr(scratch),
+            _lib.ptr(tickets), stream,
         ),
         "repro_gram",
     )
     LAUNCHES += 1
+    PATH_LAUNCHES["tiled" if tiled else "cluster"] += 1
     return G

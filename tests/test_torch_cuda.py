@@ -132,6 +132,82 @@ def test_gram_kernel_accumulator_equals_the_separate_add(dev, n, D, weighted):
         ops.gram_matrix(X, sw, acc=acc[:-1])
 
 
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 127, 16_384, 20_001, 100_000])
+@pytest.mark.parametrize("D", [65, 70, 72, 97, 128, 140, 160])
+def test_gram_tiled_body(dev, monkeypatch, D, n, weighted, with_acc):
+    """The tiled body (64 < D ≤ 160): D of every copy width (4-, 8- and
+    16-byte rows) and of 1 to 10 tiles a warp, n from none to a ragged wave
+    of CTAs, and past n ≈ 61,440, where a span's segment sums carry
+    compensations while the wave's trailing CTAs are short or empty (every
+    rank of a cluster reads every CTA's compensations). Within
+    1e-5·max|G| of float64; the same bits on repeated calls and, with acc=,
+    those of the separate add; one launch a call, on the tiled body;
+    torch.mm and the plain version are never reached."""
+    from repro_torch.kernels.gram import ops, ref
+
+    X = torch.randn(n, D, generator=_g(D + n)).to(dev)
+    sw = torch.rand(n, generator=_g(n + 1)).to(dev) if weighted else None
+    acc = torch.randn(D, D, generator=_g(D)).to(dev) * 1e2 if with_acc else None
+    Gr = ref.gram_ref(X.double(), None if sw is None else sw.double(),
+                      acc=None if acc is None else acc.double())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("gram_matrix on a CUDA tensor left the kernel")
+
+    monkeypatch.setattr(ops, "gram_ref", refuse)
+    monkeypatch.setattr(torch, "mm", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    before, tiled = ops.LAUNCHES, ops.PATH_LAUNCHES["tiled"]
+    G = ops.gram_matrix(X, sw, acc=acc)
+    assert ops.LAUNCHES == before + 1 and ops.PATH_LAUNCHES["tiled"] == tiled + 1
+    again = [ops.gram_matrix(X, sw, acc=acc) for _ in range(3)]
+    plain = ops.gram_matrix(X, sw)
+    monkeypatch.undo()
+    scale = max(float(Gr.abs().max()), 1e-30)
+    assert float((G.double() - Gr).abs().max()) <= 1e-5 * scale
+    for a in again:
+        assert torch.equal(a, G)
+    assert torch.equal(G, plain if acc is None else acc + plain)
+    assert torch.equal(plain, plain.T)
+
+
+@pytest.mark.parametrize("D", [65, 70, 72, 80, 81, 96, 97, 112, 113, 128, 129, 140, 144, 145, 160])
+def test_gram_tiled_plan_is_the_model(dev, D):
+    """The tiled body's plan as ``csrc/gram.cu`` builds it on the host is
+    the CPU model's (tests/gram_tiled_plan_model.py, whose coverage of the
+    triangle tests/test_torch_kernels_ref.py checks) run for run; D outside
+    (64, 160] has none."""
+    from gram_tiled_plan_model import tiled_plan_model
+
+    from repro_torch.kernels.gram import ops
+
+    assert ops.tiled_plan(D) == tiled_plan_model(D)
+    for bad in (ops.SMALL_MAX_D, ops.MAX_D + 1):
+        with pytest.raises(RuntimeError):
+            ops.tiled_plan(bad)
+
+
+@pytest.mark.parametrize("D", [70, 97, 140])
+def test_gram_tiled_body_ignores_stale_shared_memory(dev, D):
+    """A call over NaN rows and weights leaves NaN in every SM's shared
+    memory; the next weighted call with a ragged last stage (n = 20,001)
+    must not read it: the rows past a span carry √w = 0 and zero values."""
+    from repro_torch.kernels.gram import ops, ref
+
+    nan_X = torch.full((16_384, D), float("nan"), device=dev)
+    nan_w = torch.full((16_384,), float("nan"), device=dev)
+    X = torch.randn(20_001, D, generator=_g(D)).to(dev)
+    sw = torch.rand(20_001, generator=_g(D + 1)).to(dev)
+    Gr = ref.gram_ref(X.double(), sw.double())
+    for _ in range(3):
+        ops.gram_matrix(nan_X, nan_w)
+        G = ops.gram_matrix(X, sw)
+        assert bool(torch.isfinite(G).all())
+        assert float((G.double() - Gr).abs().max()) <= 1e-5 * float(Gr.abs().max())
+
+
 @pytest.mark.parametrize("rows,m,d,n_valid", [(64, 8, 5, 64), (1030, 130, 7, 517),
                                               (3000, 300, 16, 3000)])
 def test_extremes_kernel(dev, rows, m, d, n_valid):

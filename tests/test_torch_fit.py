@@ -84,8 +84,9 @@ def test_optimizer_schedule_and_methods(data):
         tu, ts = topt.update([torch.from_numpy(g * (step + 1))], ts, [torch.zeros(3, 4)], step)
         np.testing.assert_allclose(tu[0].numpy(), np.asarray(ru["a"]), rtol=1e-6)
     Y, _, tscaler, _ = data
-    for method in ("lbfgs", "minibatch", "scipy-lbfgs"):
-        with pytest.raises(NotImplementedError):
-            TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], method=method, device="cpu")
+    # lbfgs and scipy-lbfgs are ported (tests/test_torch_lbfgs.py); minibatch
+    # waits for data/pipeline.py
+    with pytest.raises(NotImplementedError):
+        TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], method="minibatch", device="cpu")
     with pytest.raises(ValueError):
         TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], method="sgd", device="cpu")

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from gram_tiled_plan_model import gram_constants, tiled_plan_model  # noqa: E402
 
 from repro.core.scoring import sketch_plan  # noqa: E402
 from repro.kernels.bernstein.ops import bernstein_basis_deriv  # noqa: E402
@@ -80,6 +81,72 @@ def test_gram_ref_accumulator_equals_the_separate_add(n, D, weighted):
     # the Pallas kernel takes no empty chunk: there the sum is acc itself
     ref = acc + np.asarray(gram_matrix(jnp.asarray(Xw), interpret=True)) if n else acc
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("D", [65, 70, 72, 80, 81, 96, 97, 112, 113, 128, 129, 140, 144, 145, 160])
+def test_gram_tiled_plan_covers_the_upper_triangle_once(D):
+    """gram's tiled body (64 < D ≤ 160) takes its warps' tile runs from
+    ``csrc/gram.cu``'s ``make_tiled_plan``, modelled here
+    (``tests/gram_tiled_plan_model.py``; the card test
+    ``test_gram_tiled_plan_is_the_model`` holds the C plan to the model):
+    every 16×8 tile (i, j ≥ 2i) of the triangle in exactly one run, each run
+    within two strips, no more runs than warps, the run width one the kernel
+    is built for, and the counts the kernel's header gives at D 70 and 140."""
+    C = gram_constants()
+    W, runs = tiled_plan_model(D)
+    M, N = -(-D // 16), -(-D // 8)
+    assert C["kWideMinRunTiles"] <= W <= C["kWideMaxRunTiles"]
+    assert 1 <= len(runs) <= C["kWideMaxGroups"]
+    seen = []
+    for i0, j0, split, cnt in runs:
+        assert 1 <= split <= cnt <= W and 0 <= i0 < M and 2 * i0 <= j0
+        seen += [(i0, j0 + q) for q in range(split)]
+        seen += [(i0 + 1, 2 * (i0 + 1) + q) for q in range(cnt - split)]
+    want = [(i, j) for i in range(M) for j in range(2 * i, N)]
+    assert sorted(seen) == want
+    assert all(8 * j < D and 16 * i < D for i, j in seen)
+    # every entry a ≤ b < D of G lies in one of the tiles
+    cover = np.zeros((D, D), bool)
+    for i, j in seen:
+        cover[16 * i:16 * i + 16, 8 * j:8 * j + 8] = True
+    assert cover[np.triu_indices(D)].all()
+    header = {70: (2, 25, 13), 140: (6, 90, 15)}  # W, tiles, runs
+    if D in header:
+        assert (W, len(seen), len(runs)) == header[D]
+    # the scratch holds a (sum, compensation) pair of every fragment slot of
+    # every cluster at the widest plan
+    slots = 4 * W * 32 * len(runs)
+    assert C["kWideMaxClusters"] * 2 * slots <= tgram._C["kWideScratchFloats"]
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """f32 → TF32 as ``cvt.rna.tf32.f32``: nearest, ties away from zero."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("D", [70, 140])
+def test_gram_tiled_split_products_hold_f32_accuracy(D):
+    """The tiled body's arithmetic on the CPU: each √w·x split into hi =
+    tf32(x) and lo = x − hi, which the tensor core reads with its low 13
+    bits dropped, and every product taken as lo·hi + hi·lo + hi·hi (exact
+    in the tensor cores; float64 here). Over a
+    16,384-row chunk of Bernstein-like features the Gram lies within
+    1e-6·max|G| of float64 — 10× inside the kernel's 1e-5 — while one TF32
+    product (hi·hi alone, what a TF32 flag would give) lies outside 1e-5."""
+    rng = np.random.default_rng(D)
+    X = rng.beta(0.5, 0.5, (16_384, D)).astype(np.float32)
+    sw = np.sqrt(rng.uniform(0.2, 2.0, 16_384)).astype(np.float32)
+    Xw = X * sw[:, None]  # rounded to f32 as the kernel and the plain version do
+    hi = _tf32(Xw)
+    lo = ((Xw - hi).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    hi64, lo64 = hi.astype(np.float64), lo.astype(np.float64)
+    exact = Xw.astype(np.float64).T @ Xw.astype(np.float64)
+    split3 = lo64.T @ hi64 + hi64.T @ lo64 + hi64.T @ hi64
+    one = hi64.T @ hi64
+    scale = np.abs(exact).max()
+    assert np.abs(split3 - exact).max() <= 1e-6 * scale
+    assert np.abs(one - exact).max() > 1e-5 * scale
 
 
 def _extremes_case(rows, m, d, seed, tie):
