@@ -55,7 +55,28 @@ Phases (any failure exits nonzero):
      8 batched decode ticks; tinyllama's prefills must all take
      flash_attention's wgmma body and mamba2's all take ssd's mma body (their
      own launch counters);
-  5. launch census: each kernel counted over its own path's run.
+  6. the paper's core beyond Algorithm 1's path (it runs after phase 4,
+     but for gram and the sweep at the conditional width D = 16, the sweep
+     held to its plain version, which run beside phase 2): the conditional Algorithm 1 at n = 250,001 (J = 2,
+     degree 6, F = 2 features, so D = 16: tests/test_conditional.py's
+     linear shift), the
+     adam full fit and both builds at k = 500 and 2000 with adam coreset
+     fits, gated on exactly k ids, distinct hull ids, the reference test's
+     cNLL bound and β's direction; on its 4,000-point fixture the card
+     against the CPU (scores on identical features and on own featurize,
+     each against float64 of its features, with a TF32-Gram control; the
+     build's hull overlap; adam and lbfgs fits); the paper's Table 1
+     workflow through ``evaluate_coreset`` (normal_mixture, n = 10,000,
+     700-step adam fits, k = 30 and 100, five methods; l2-hull at k = 100
+     held against the CPU); and the standalone API at the path's width:
+     the five leverage variants against float64 (relative, each beside a
+     TF32-Gram or bf16 control the limit must reject),
+     ``epsilon_kernel_indices`` (k = 400) and ``greedy_hull_projection``
+     against their plain versions on the card, ``sample`` against the CPU
+     on the same normals, and ``gram_dtype="float64"`` scoring card against
+     CPU;
+  5. launch census: each kernel counted over its own path's run, and over
+     each of phase 6's paths (``launches_phase6``).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
 numbers are also written to ``results/chip_smoke.json``.
@@ -591,25 +612,66 @@ def check_sweep(tag, SX0, X, P, sw, rows, signs, dirs, omega, n_valid, mom, errs
 # ---------------------------------------------------------------- phase 3
 
 
+def mctm_kernel_modules() -> dict:
+    """The MCTM kernels' ops modules, each holding its launch count."""
+    from repro_torch.kernels.bernstein import ops as bern
+    from repro_torch.kernels.extremes import ops as ext
+    from repro_torch.kernels.gram import ops as gram
+    from repro_torch.kernels.sweep import ops as sweep
+
+    return {"bernstein": bern, "gram": gram, "extremes": ext, "sweep": sweep}
+
+
+def reset_counts() -> None:
+    for mod in mctm_kernel_modules().values():
+        mod.LAUNCHES = 0
+        for k in getattr(mod, "PATH_LAUNCHES", {}):
+            mod.PATH_LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    """Each MCTM kernel's launches since ``reset_counts``, and gram's cluster
+    body's as ``gram_cluster``."""
+    mods = mctm_kernel_modules()
+    out = {k: mod.LAUNCHES for k, mod in mods.items()}
+    out["gram_cluster"] = mods["gram"].PATH_LAUNCHES["cluster"]
+    return out
+
+
+def lookup_featurizer(X, P, where, dtype=None):
+    """A featurize that returns rows of the fixed features (X (n, D), P (n·r,
+    d)) for the point indices in column 0 of its input, so engines on the
+    card and the CPU score identical features; ``dtype`` first rounds them
+    to that type (a control)."""
+    import torch
+
+    r = P.shape[0] // X.shape[0]
+    Xt, Pt = ((t if dtype is None else t.to(dtype).float()).to(where) for t in (X, P))
+
+    def featurize(Yc):
+        idx = Yc[:, 0].long()
+        return Xt[idx], Pt[(r * idx[:, None] + torch.arange(r, device=idx.device)).reshape(-1)]
+
+    return featurize
+
+
 def phase_path(dev):
-    """The Algorithm 1 path, both strategies; returns launches per kernel.
+    """The Algorithm 1 path, both strategies; returns launches per kernel
+    and the two-pass run's full-fit parameters (phase 6 samples from them).
     Two-pass takes the driver's default full-data fit (the streaming lbfgs),
     one-pass an adam full-data fit, so both fit methods run at full size;
     each full fit's time, steps, lbfgs sweeps and bernstein launches are
     read around the driver's own calls of ``fit_mctm_streaming``."""
     from repro_torch.core import mctm_fit
-    from repro_torch.kernels.bernstein import ops as bern
-    from repro_torch.kernels.extremes import ops as ext
-    from repro_torch.kernels.gram import ops as gram
-    from repro_torch.kernels.sweep import ops as sweep
     from repro_torch.launch import train_mctm
 
     import torch
 
-    mods = {"bernstein": bern, "gram": gram, "extremes": ext, "sweep": sweep}
+    mods = mctm_kernel_modules()
+    bern = mods["bernstein"]
     need = {"two-pass": ("bernstein", "gram", "extremes"), "one-pass": ("bernstein", "sweep")}
     total = dict.fromkeys(mods, 0)
-    fits = []
+    fits, full_params = [], []
     real_fit = train_mctm.fit_mctm_streaming
 
     def counted_fit(*args, **kwargs):
@@ -621,6 +683,7 @@ def phase_path(dev):
                "bernstein_launches": bern.LAUNCHES - b0, "final_nll": out.final_nll}
         if rec["method"] == "lbfgs":
             rec["lbfgs_sweeps"] = dict(mctm_fit.LAST_LBFGS_SWEEPS)
+            full_params.append(out.params)
         fits.append(rec)
         return out
 
@@ -635,11 +698,10 @@ def phase_path(dev):
             ]
             if strategy == "one-pass":
                 argv += ["--ref-method", "adam", "--sketch-size", str(SKETCH)]
-            for mod in mods.values():
-                mod.LAUNCHES = 0
+            reset_counts()
             del fits[:]
             rec = train_mctm.main(argv)  # exits nonzero when a ratio leaves its band
-            counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+            counts = read_counts()
             full = fits[0]
             log(f"path {strategy}: full fit ({rec['ref_method']}) {rec['full_fit_s']:.3f}s  "
                 f"NLL/pt {rec['full_nll_per_point']:.5f}  launches {counts}")
@@ -661,7 +723,7 @@ def phase_path(dev):
                 total[k] += counts[k]
     finally:
         train_mctm.fit_mctm_streaming = real_fit
-    return total
+    return total, full_params[0]
 
 
 def phase_small_agreement(dev):
@@ -803,18 +865,9 @@ def phase_wide_scoring(dev):
     Y, scaler, X, P, exact, exact_card, net = covertype(0)
     Yidx = np.stack([np.arange(n), np.zeros(n)], axis=1).astype(np.float32)
 
-    def lookup(where, dtype=torch.float32):
-        Xt, Pt = (t.to(dtype).float().to(where) for t in (X, P))
-
-        def featurize(Yc):
-            idx = Yc[:, 0].long()
-            return Xt[idx], Pt[(J * idx[:, None] + torch.arange(J, device=idx.device)).reshape(-1)]
-
-        return featurize
-
-    def score(where, layer, kw, dtype=torch.float32, data=None):
+    def score(where, layer, kw, dtype=None, data=None):
         if layer == "identical features":
-            eng = ScoringEngine(featurize=lookup(where, dtype), rows_per_point=J,
+            eng = ScoringEngine(featurize=lookup_featurizer(X, P, where, dtype), rows_per_point=J,
                                 chunk_size=CHUNK, device=where)
             Yw = Yidx
         else:
@@ -888,7 +941,7 @@ def phase_wide_scoring(dev):
         scoring.gram_matrix = _tf32_gram if control == "TF32 Gram" else gram_kernel
         try:
             a = score("cuda", "identical features", {"hull_dirs": net},
-                      torch.bfloat16 if control == "bf16 features" else torch.float32)
+                      torch.bfloat16 if control == "bf16 features" else None)
         finally:
             scoring.gram_matrix = gram_kernel
         rec = {"card_vs_cpu": rel(a.scores, two_pass_cpu), "card_vs_float64": rel(a.scores, exact)}
@@ -897,6 +950,565 @@ def phase_wide_scoring(dev):
         log(f"J=10 covertype n={n:,} control, two-pass, {control}: " + json.dumps(rec))
         if rec["over_limit"] <= 1.0:
             fail(f"WIDE_SCORING_RTOL does not separate the {control} control: {rec}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+# the conditional model of tests/test_conditional.py: F = 2 features, the
+# linear shift β, ε correlated at 0.6; at J = 2, degree 6 the leverage rows
+# (b_i, x_i) have D = dJ + F = 16, and the one-pass sketch is 4·D²
+COND_F = 2
+COND_BETA = ((1.5, -0.5), (0.3, 0.8))
+COND_SKETCH = 4 * 16 ** 2
+COND_SMALL_N = 4000            # the reference test's fixture
+# the 4,000-point fixture's l2-only scores, each side against float64 of its
+# own features: the CPU path reads 4.28e-4, the card 3.30e-4 (identical
+# features) and 3.14e-4 (own featurize), 1.9× and 2.4× inside the limit;
+# the TF32-Gram control reads 1.26e-3, 1.6× beyond it (NVIDIA H100 80GB
+# HBM3, PERF.md §6). Card vs CPU is held to twice the limit (two f32 sums,
+# each within it; 4.1e-4 measured)
+COND_SCORE_RTOL = 8e-4
+# the build's hull points in common, card vs CPU on the same plans: the
+# card's bernstein bits differ from the plain version's in the last bit and
+# the argmax moves between near-ties (38 of 40 here; 35 of 40 on the card
+# test's fixture)
+COND_HULL_COMMON_FLOOR = 0.8
+FIT_RTOL = 1e-4                # phase 3's card-vs-CPU fit gate
+TABLE1_N, TABLE1_STEPS, TABLE1_KS = 10_000, 700, (30, 100)   # benchmarks/table1_dgp.py
+TABLE1_METHODS = ("l2-hull", "l2-only", "uniform", "ridge-lss", "root-l2")
+# evaluate_coreset card vs CPU (l2-hull, k = 100, the same plans and start):
+# the hull tail follows each side's own featurize and the weights each
+# side's scores, so the 700-step refits differ a little: measured 1.1e-3
+# (param ℓ2, relative), 3.2e-2 (λ error, relative) and 6.6e-6 (likelihood
+# ratio, absolute), 9×, 3× and 15× inside the limits
+TABLE1_GATE = {"param_l2": 1e-2, "lambda_err": 1e-1, "likelihood_ratio": 1e-4}
+# the standalone leverage API at (250,001, 14): each variant's largest
+# relative error against float64 of the same X (max |u − u64| / u64), held to
+# LEVERAGE_RTOL and beside a control that the limit must reject: gram, ridge
+# and root with their Gram in TF32 (``_tf32_gram`` in place of the gram
+# kernel), qr and the sketch with X rounded to bf16 (the sketch then sums
+# bf16 rows). Read on an NVIDIA H100 80GB HBM3 (PERF.md §6), each limit's
+# margin inside / the control's over it: qr 1.52e-3 (3.3×) / 1.43 (285×),
+# gram 3.52e-3 (2.8×) / 1.07e-1 (10.7×), ridge 1.24e-4 (8.1×) / 8.40e-3
+# (8.4×), root 1.76e-3 (5.7×) / 5.52e-2 (5.5×), sketched 1.22e-2 (4.1×) /
+# 1.36 (27×); the l2 forms' pseudo-inverse is ill conditioned (ROADMAP
+# Queue C 2)
+LEVERAGE_RTOL = {"qr": 5e-3, "gram": 1e-2, "ridge": 1e-3, "root": 1e-2, "sketched": 5e-2}
+LEVERAGE_CONTROL = {"qr": "bf16 X", "gram": "TF32 Gram", "ridge": "TF32 Gram",
+                    "root": "TF32 Gram", "sketched": "bf16 X"}
+SAMPLE_SPAN_ATOL = 1e-5        # sample card vs CPU, share of the scaler's span (1.8e-7 measured)
+# float64 two-pass scores card vs CPU on identical features: 3.5e-7 measured,
+# far inside Queue C 2's 3e-3 (float32 against float64 reads 3.0e-3)
+F64_SCORE_RTOL = 1e-5
+
+
+def conditional_data(n: int, seed: int = 0):
+    """tests/test_conditional.py's generator at n points: (Y (n, 2), X (n, F))."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, COND_F))
+    eps = rng.standard_normal((n, 2)) @ np.linalg.cholesky(np.array([[1, 0.6], [0.6, 1]])).T
+    Y = X @ np.array(COND_BETA).T + eps
+    return Y.astype(np.float32), X.astype(np.float32)
+
+
+def l2_float64(F) -> "np.ndarray":
+    """Exact l2-only scores of features F in float64: the pseudo-inverse with
+    the engine's rcond 1e-6 of max|w|, plus 1/n."""
+    import numpy as np
+
+    Xd = F.double().cpu().numpy()
+    w, V = np.linalg.eigh(Xd.T @ Xd)
+    inv = np.where(w > 1e-6 * np.abs(w).max(), 1.0 / np.maximum(w, 1e-30), 0.0)
+    return np.einsum("ij,j->i", (Xd @ V) ** 2, inv) + 1.0 / Xd.shape[0]
+
+
+def rel_err(a, b) -> float:
+    import numpy as np
+
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+
+def phase_core(dev, two_pass_params, kernels_at_d16):
+    """Phase 6: the paper's core beyond Algorithm 1's path, with the kernel
+    times ``phase_kernels_d16`` took earlier. Returns (census of each new
+    path's kernel launches, records)."""
+    errs: list[str] = []
+    census: dict = {}
+    rec: dict = {"kernels_at_d16": kernels_at_d16}
+    rec["conditional"] = _core_conditional(dev, census, errs)
+    rec["conditional_small"] = _core_conditional_small(dev, errs)
+    rec["table1"] = _core_table1(dev, census, errs)
+    rec["standalone"] = _core_standalone(dev, census, errs, two_pass_params)
+    need = {
+        "conditional full fit (adam)": ("bernstein",),
+        "conditional two-pass": ("bernstein", "gram", "gram_cluster", "extremes"),
+        "conditional one-pass": ("bernstein", "sweep"),
+        "table 1 (evaluate_coreset)": ("bernstein", "gram", "extremes"),
+        "standalone leverage": ("gram", "sweep"),
+        "epsilon_kernel_indices": ("extremes",),
+        "greedy_hull_projection (m = 1)": ("extremes",),
+    }
+    for path, names in need.items():
+        counts = census.get(path, {})
+        log(f"census {path}: {json.dumps(counts)}")
+        for name in names:
+            if counts.get(name, 0) <= 0:
+                errs.append(f"{name} was not launched on the {path} path")
+    if errs:
+        fail("phase 6: " + "; ".join(errs))
+    return census, rec
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def phase_kernels_d16(dev) -> dict:
+    """Phase 6's kernels at the conditional width, run beside phase 2 (the
+    profiler windows after phase 4's serve profiles drop and gain kernel
+    records): gram (cluster body) and the sweep on one 16,384-point chunk of
+    rows (b_i, x_i), D = 16, r = 2; gram against float64 and in turns with
+    torch.mm, the sweep at the one-pass sketch 4·D² = 1,024 against k =
+    2000's upfront net (1,614 directions) held to its plain version
+    (``check_sweep``) from a nonzero carry, each beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import conditional as C
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import sketch_plan, upfront_directions
+    from repro_torch.kernels.gram import gram_matrix
+    from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.sweep import fused_sweep_update
+
+    errs: list[str] = []
+    cfg = C.CMCTMConfig(J=2, n_features=COND_F, degree=6)
+    Y, X = conditional_data(CHUNK)
+    YX = torch.as_tensor(np.concatenate([Y, X], axis=1), device=dev)
+    F, P = C._conditional_featurize(cfg, DataScaler.fit(Y))(YX)
+    D, d = F.shape[1], P.shape[1]
+    gen = torch.Generator().manual_seed(12)
+    sw = torch.ones(CHUNK, device=dev)
+    G0 = torch.randn((D, D), generator=gen).to(dev)
+    G = gram_matrix(F, sw, acc=G0)
+    Gr = gram_ref(F.double(), sw.double(), acc=G0.double())
+    err = max_err(G, Gr)
+    if err > 1e-5 * float(Gr.abs().max()):
+        errs.append(f"gram D={D} lies {err} from float64")
+    t = in_turns(lambda: gram_matrix(F, sw, acc=G0), lambda: torch.mm(F.T, F))
+    b, by = bound_ms(4 * (CHUNK * D + CHUNK + 2 * D * D), CHUNK * (D + D * (D + 1)))
+    out = {"gram_D16": dict(t, bound_ms=b, bound_by=by, max_abs_err=err)}
+    log(f"gram ({CHUNK:,}, {D}) cluster body: max abs err {err:.3e} of max|G| "
+        f"{float(Gr.abs().max()):.3e}; device {t['device_ms']:.5f} ms vs torch.mm "
+        f"{t['library_device_ms']:.5f} ms (ratio {t['device_ratio']:.3f}, in turns "
+        f"{[round(x, 5) for x in t['turns_device_ms']]}); events {t['ms']:.5f} vs "
+        f"{t['library_ms']:.5f} ms; bound {b:.5f} ms ({by}), {b / t['device_ms']:.3f} of it")
+    up = torch.as_tensor(upfront_directions(d, 400, generator=gen), device=dev)
+    rows, signs = sketch_plan(CHUNK, COND_SKETCH, generator=gen, device=dev)
+    SX0 = torch.randn((COND_SKETCH, D), generator=gen).to(dev)
+    mom = (torch.zeros(d, device=dev), torch.zeros((d, d), device=dev))
+    tag = f"({CHUNK:,}, {D}) r=2 sketch={COND_SKETCH:,} m={up.shape[0]}"
+    out_err = check_sweep(tag, SX0, F, P, sw, rows, signs, up, None, CHUNK, mom, errs)
+    call = lambda: fused_sweep_update(SX0, F, P, sw, rows, signs, dirs=up)  # noqa: E731
+    dms, ems = device_ms(call), cuda_ms(call)
+    mu = up.shape[0]
+    b, by = bound_ms(4 * (2 * CHUNK * D + P.numel() + 3 * CHUNK + up.numel()
+                          + 2 * COND_SKETCH * D + 4 * mu), CHUNK * 2 * D + 2 * mu * P.shape[0] * d)
+    out["sweep_D16"] = {"device_ms": dms, "ms": ems, "bound_ms": b, "bound_by": by,
+                        "sketch": COND_SKETCH, "directions": mu, "max_abs_err": out_err}
+    log(f"sweep {tag}: device {dms:.5f} ms, events {ems:.5f} ms, bound {b:.5f} ms ({by}), "
+        f"{b / dms:.3f} of it")
+    if errs:
+        fail("phase 6 kernels at D 16: " + "; ".join(errs))
+    return out
+
+
+def _core_conditional(dev, census, errs) -> dict:
+    """Conditional Algorithm 1 at n = 250,001 (J = 2, degree 6, F = 2): the
+    adam full fit, then both builds at each k with an adam coreset fit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import conditional as C
+    from repro_torch.core.bernstein import DataScaler
+
+    cfg = C.CMCTMConfig(J=2, n_features=COND_F, degree=6)
+    Y, X = conditional_data(MAIN_N)
+    scaler = DataScaler.fit(Y)
+    model = C.CMCTMDensityModel(cfg, scaler)
+    YX = torch.as_tensor(np.concatenate([Y, X], axis=1), device=dev)
+
+    def cnll_full(params) -> float:
+        total = 0.0
+        with torch.no_grad():
+            for lo in range(0, MAIN_N, CHUNK):
+                total += float(C.cnll(cfg, params, *model.features({"YX": YX[lo:lo + CHUNK]})))
+        return total
+
+    out = {"n": MAIN_N, "D": cfg.J * cfg.d + COND_F, "per_k": []}
+    reset_counts()
+    t0 = time.perf_counter()
+    full = C.fit_cmctm(cfg, scaler, Y, X, steps=250, lr=0.05, chunk_size=CHUNK,
+                       generator=torch.Generator().manual_seed(0), device=dev)
+    _sync()
+    out["full_fit_s"] = time.perf_counter() - t0
+    census["conditional full fit (adam)"] = read_counts()
+    nll_full = cnll_full(full.params)
+    beta = full.params.beta.cpu().numpy()
+    out["full_cnll_per_point"] = nll_full / MAIN_N
+    out["beta_row0"] = beta[0].tolist()
+    out["beta_row0_corr"] = float(np.corrcoef(beta[0], np.array(COND_BETA)[0])[0, 1])
+    log(f"conditional n={MAIN_N:,} D={out['D']}: full fit (adam, 250 steps) "
+        f"{out['full_fit_s']:.3f}s, cNLL/pt {out['full_cnll_per_point']:.5f}, β row 0 "
+        f"{[round(b, 4) for b in beta[0]]} (corr {out['beta_row0_corr']:.4f} with the true row)")
+    if not (np.isfinite(nll_full) and abs(out["beta_row0_corr"]) > 0.9):
+        errs.append(f"the conditional full fit missed the shift: {out['beta_row0_corr']}")
+    for strategy, sketch in (("two-pass", 0), ("one-pass", COND_SKETCH)):
+        reset_counts()
+        for k in KS:
+            k1 = int(np.floor(0.8 * k))
+            t0 = time.perf_counter()
+            idx, w = C.build_conditional_coreset(
+                cfg, scaler, Y, X, k, generator=torch.Generator().manual_seed(k), alpha=0.8,
+                chunk_size=CHUNK, sketch_size=sketch, device=dev)
+            _sync()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cs = C.fit_cmctm(cfg, scaler, Y[idx], X[idx], weights=w, steps=250, lr=0.05,
+                             chunk_size=CHUNK, generator=torch.Generator().manual_seed(1),
+                             device=dev)
+            _sync()
+            fit_s = time.perf_counter() - t0
+            nll_cs = cnll_full(cs.params)
+            r = {"strategy": strategy, "k": k, "build_s": build_s, "fit_s": fit_s,
+                 "full_fit_s": out["full_fit_s"], "cnll_ratio": nll_cs / nll_full,
+                 "cnll_cs_per_point": nll_cs / MAIN_N, "ids": int(idx.size),
+                 "hull_ids_distinct": len(set(idx[k1:].tolist()))}
+            out["per_k"].append(r)
+            log(f"  conditional {strategy} k={k}: build_s {build_s:.4f} fit_s {fit_s:.4f} "
+                f"full_fit_s {out['full_fit_s']:.3f} cNLL/pt {r['cnll_cs_per_point']:.5f} "
+                f"ratio {r['cnll_ratio']:.5f}")
+            if (idx.shape != (k,) or r["hull_ids_distinct"] != k - k1 or not np.all(w > 0)
+                    or not nll_cs <= nll_full + 0.1 * abs(nll_full)):
+                errs.append(f"conditional {strategy} k={k} failed its gates: {r}")
+        census[f"conditional {strategy}"] = read_counts()
+    return out
+
+
+def _core_conditional_small(dev, errs) -> dict:
+    """The 4,000-point fixture, card against CPU: l2-only scores on identical
+    features and on each side's own featurize, each side against float64 of
+    its own features, with a TF32-Gram control; the hull overlap of the
+    build on the same plans; adam and lbfgs fits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import conditional as C
+    from repro_torch.core import scoring
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.hull import hull_normals
+    from repro_torch.core.scoring import ScoringEngine
+
+    n = COND_SMALL_N
+    cfg = C.CMCTMConfig(J=2, n_features=COND_F, degree=6)
+    Y, X = conditional_data(n)
+    scaler = DataScaler.fit(Y)
+    YX = np.concatenate([Y, X], axis=1)
+    feat = C._conditional_featurize(cfg, scaler)
+    F_cpu, P_cpu = feat(torch.as_tensor(YX))
+    F_card = feat(torch.as_tensor(YX, device=dev))[0]
+    exact_cpu, exact_card = l2_float64(F_cpu), l2_float64(F_card)
+    Yidx = np.stack([np.arange(n), np.zeros(n)], axis=1).astype(np.float32)
+
+    def scores(where, layer):
+        if layer == "identical features":
+            eng = ScoringEngine(featurize=lookup_featurizer(F_cpu, P_cpu, where), rows_per_point=2,
+                                chunk_size=CHUNK, device=where)
+            return eng.score(Yidx, method="l2-only").scores
+        return C.conditional_coreset_scores(cfg, scaler, Y, X, chunk_size=CHUNK, device=where)
+
+    out = {}
+    for layer in ("identical features", "own featurize"):
+        a, b = scores(dev, layer), scores("cpu", layer)
+        own = layer == "own featurize"
+        r = {"card_vs_cpu": rel_err(a, b),
+             "card_vs_float64": rel_err(a, exact_card if own else exact_cpu),
+             "cpu_vs_float64": rel_err(b, exact_cpu)}
+        out[layer] = r
+        log(f"conditional n={n:,} scores, {layer}: " + json.dumps(r))
+        if (r["card_vs_float64"] > COND_SCORE_RTOL or r["cpu_vs_float64"] > COND_SCORE_RTOL
+                or r["card_vs_cpu"] > 2 * COND_SCORE_RTOL or not np.all(np.isfinite(a))):
+            errs.append(f"conditional scores, {layer}, beyond {COND_SCORE_RTOL}: {r}")
+    gram_kernel = scoring.gram_matrix
+    scoring.gram_matrix = _tf32_gram
+    try:
+        a = scores(dev, "identical features")
+    finally:
+        scoring.gram_matrix = gram_kernel
+    r = {"card_vs_float64": rel_err(a, exact_cpu)}
+    r["over_limit"] = r["card_vs_float64"] / COND_SCORE_RTOL
+    out["control, TF32 Gram"] = r
+    log(f"conditional n={n:,} control, TF32 Gram: " + json.dumps(r))
+    if r["over_limit"] <= 1.0:
+        errs.append(f"COND_SCORE_RTOL does not separate the TF32-Gram control: {r}")
+
+    k, k1 = 200, 160
+    gen = torch.Generator().manual_seed(11)
+    probs = torch.as_tensor(exact_cpu / exact_cpu.sum())
+    plans = {"draw": torch.multinomial(probs, k1, replacement=True, generator=gen).numpy(),
+             "hull_normals": hull_normals(4 * (k - k1), cfg.d, gen)}
+    built = {where: C.build_conditional_coreset(cfg, scaler, Y, X, k, chunk_size=CHUNK,
+                                                device=where, **plans)
+             for where in ("cpu", dev)}
+    (ic, wc), (ig, wg) = built["cpu"], built[dev]
+    common = int(np.intersect1d(ig[k1:], ic[k1:]).size)
+    out["build"] = {"hull_points_common": common, "hull_points": k - k1,
+                    "sampled_equal": bool(np.array_equal(ig[:k1], ic[:k1])),
+                    "max_weight_rel_err": rel_err(wg, wc)}
+    log(f"conditional n={n:,} build k={k}: " + json.dumps(out["build"]))
+    if (not out["build"]["sampled_equal"] or common < COND_HULL_COMMON_FLOOR * (k - k1)
+            or len(set(ig[k1:].tolist())) != k - k1):
+        errs.append(f"the conditional build on the card disagrees with the CPU: {out['build']}")
+
+    for method, kw in (("adam", {"steps": 60}), ("lbfgs", {"steps": 100, "gtol": 1e-5})):
+        fits = {}
+        for where in ("cpu", dev):
+            init = C.init_cparams(cfg, normals=np.zeros((2, cfg.d), np.float32), device=where)
+            fits[where] = C.fit_cmctm(cfg, scaler, Y, X, init=init, method=method,
+                                      chunk_size=1000, device=where, **kw)
+        a, b = fits[dev].final_nll, fits["cpu"].final_nll
+        out[f"{method} fit"] = {"card": a, "cpu": b, "rel": abs(a - b) / abs(b),
+                                "steps": int(fits[dev].losses.size)}
+        log(f"conditional n={n:,} {method} fit: final cNLL {a:.6f} (card) vs {b:.6f} (CPU), "
+            f"rel {abs(a - b) / abs(b):.2e}")
+        if not np.isfinite(a) or abs(a - b) > FIT_RTOL * abs(b):
+            errs.append(f"the conditional {method} fit on the card disagrees with the CPU")
+    return out
+
+
+def _core_table1(dev, census, errs) -> dict:
+    """benchmarks/table1_dgp.py's workflow through evaluate_coreset on the
+    card (normal_mixture, n = 10,000, J = 2, degree 6, adam fits of 700
+    steps, one repetition), with Table 2's baselines; l2-hull at k = 100
+    held against the CPU port on the same plans and start."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.coreset import coreset_scores, evaluate_coreset
+    from repro_torch.core.hull import hull_normals
+    from repro_torch.data.dgp import generate
+
+    cfg = M.MCTMConfig(J=2, degree=6)
+    Y = generate("normal_mixture", TABLE1_N, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Y)
+    reset_counts()
+    t0 = time.perf_counter()
+    full = M.fit_mctm(cfg, scaler, Y, steps=TABLE1_STEPS,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    _sync()
+    out = {"full_fit_s": time.perf_counter() - t0, "rows": []}
+    for k in TABLE1_KS:
+        for method in TABLE1_METHODS:
+            ev = evaluate_coreset(cfg, scaler, Y, full, k, method,
+                                  generator=torch.Generator().manual_seed(1000 * k),
+                                  steps=TABLE1_STEPS, device=dev)
+            r = {"method": method, "k": ev.k, "param_l2": ev.param_l2,
+                 "lambda_err": ev.lambda_err, "likelihood_ratio": ev.likelihood_ratio,
+                 "fit_s": ev.fit_seconds, "sample_s": ev.sample_seconds}
+            out["rows"].append(r)
+            log(f"table 1 normal_mixture k={k} {method}: param_l2 {ev.param_l2:.4f} "
+                f"lambda_err {ev.lambda_err:.4f} LR {ev.likelihood_ratio:.5f} fit_s "
+                f"{ev.fit_seconds:.3f} sample_s {ev.sample_seconds:.4f}")
+            if ev.k != k or not all(np.isfinite(v) for v in (ev.param_l2, ev.lambda_err,
+                                                               ev.likelihood_ratio)):
+                errs.append(f"table 1 {method} k={k}: {r}")
+    census["table 1 (evaluate_coreset)"] = read_counts()
+    log(f"table 1: full fit (adam, {TABLE1_STEPS} steps) {out['full_fit_s']:.3f}s")
+
+    k, k1 = 100, 80
+    gen = torch.Generator().manual_seed(5)
+    s = coreset_scores(cfg, scaler, Y, "l2-hull", device="cpu")
+    plans = {"draw": torch.multinomial(torch.as_tensor(s / s.sum()), k1, replacement=True,
+                                       generator=gen).numpy(),
+             "hull_normals": hull_normals(4 * (k - k1), cfg.d, gen)}
+    full_cpu = M.FitResult(params=M.params_from_numpy(*M.params_to_numpy(full.params),
+                                                      device="cpu"),
+                           losses=full.losses, final_nll=full.final_nll)
+    evs = {}
+    for where, ff in ((dev, full), ("cpu", full_cpu)):
+        init = M.init_params(cfg, normals=np.zeros((cfg.J, cfg.d), np.float32), device=where)
+        evs[where] = evaluate_coreset(cfg, scaler, Y, ff, k, "l2-hull", build_plans=plans,
+                                      init=init, steps=TABLE1_STEPS, device=where)
+    g = {key: abs(getattr(evs[dev], key) - getattr(evs["cpu"], key))
+         for key in TABLE1_GATE}
+    g["param_l2"] /= abs(evs["cpu"].param_l2)
+    g["lambda_err"] /= max(abs(evs["cpu"].lambda_err), 1e-2)
+    out["card_vs_cpu_l2_hull_k100"] = {"card": dataclasses.asdict(evs[dev]),
+                                       "cpu": dataclasses.asdict(evs["cpu"]), "diff": g}
+    log(f"table 1 l2-hull k=100 card vs CPU (param_l2, lambda_err relative; LR absolute): "
+        f"{json.dumps(g)}")
+    for key, lim in TABLE1_GATE.items():
+        if not g[key] <= lim:
+            errs.append(f"table 1 l2-hull k=100 card vs CPU {key}: {g[key]} > {lim}")
+    return out
+
+
+def _core_leverage(dev, census, errs, X) -> dict:
+    """The five leverage variants on the card at X's width, each against
+    float64 of the same X within LEVERAGE_RTOL, then each variant's control
+    (LEVERAGE_CONTROL), which must lie beyond it; the census counts the
+    variants' runs, not the float64 or the controls."""
+    import torch
+
+    from repro_torch.core import leverage as L
+    from repro_torch.core.scoring import sketch_plan
+
+    reset_counts()
+    plan = sketch_plan(X.shape[0], SKETCH, generator=torch.Generator().manual_seed(7), device=dev)
+    calls = {
+        # the full basis is rank deficient (each block a partition of unity),
+        # where QR leverage is ill-defined: QR scores the basis less one column
+        "qr": lambda Z: L.leverage_scores_qr(Z[:, 1:], device=dev),
+        "gram": lambda Z: L.leverage_scores_gram(Z, device=dev),
+        "ridge": lambda Z: L.ridge_leverage_scores(Z, device=dev),
+        "root": lambda Z: L.root_leverage_scores(Z, device=dev),
+        "sketched": lambda Z: L.sketched_leverage(Z, SKETCH, plan=plan, device=dev),
+    }
+    out, exact = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        got = fn(X)
+        _sync()
+        secs = time.perf_counter() - t0
+        exact[name] = fn(X.double())
+        out[name] = {"max_rel_err": rel_err(got.double().cpu(), exact[name].cpu()), "s": secs,
+                     "sum": float(got.double().sum()), "finite": bool(torch.isfinite(got).all())}
+    census["standalone leverage"] = read_counts()
+    gram_kernel = L.gram_matrix
+    for name, fn in calls.items():
+        control = LEVERAGE_CONTROL[name]
+        L.gram_matrix = _tf32_gram if control == "TF32 Gram" else gram_kernel
+        try:
+            got = fn(X.bfloat16().float() if control == "bf16 X" else X)
+        finally:
+            L.gram_matrix = gram_kernel
+        r = out[name]
+        r["control"] = control
+        r["control_rel_err"] = rel_err(got.double().cpu(), exact[name].cpu())
+        lim = LEVERAGE_RTOL[name]
+        log(f"standalone {name} leverage ({X.shape[0]:,} × {X.shape[1]}): max rel err "
+            f"{r['max_rel_err']:.3e} against float64 (limit {lim:g}, "
+            f"{lim / r['max_rel_err']:.1f}× inside), Σu {r['sum']:.4f}, {r['s']:.4f}s; control ({control}) "
+            f"{r['control_rel_err']:.3e}, {r['control_rel_err'] / lim:.2f}× the limit")
+        if not (r["max_rel_err"] <= lim and r["finite"]):
+            errs.append(f"standalone {name} leverage lies {r['max_rel_err']} from float64")
+        if not r["control_rel_err"] > lim:
+            errs.append(f"LEVERAGE_RTOL[{name!r}] does not separate the {control} control: {r}")
+    return out
+
+
+def _core_standalone(dev, census, errs, params) -> dict:
+    """The standalone API at the path's width: X (250,001, 14) and P
+    (500,002, 7) of normal_mixture seed 0 featurized on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hull as H
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import ScoringEngine, _mctm_featurize
+    from repro_torch.data.dgp import generate
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+
+    cfg = M.MCTMConfig(J=2, degree=6)
+    Yn = generate("normal_mixture", MAIN_N, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Yn)
+    X, P = _mctm_featurize(cfg, scaler)(torch.as_tensor(Yn, device=dev))
+    out = {"leverage": _core_leverage(dev, census, errs, X)}
+
+    normals = H.hull_normals(1600, cfg.d, torch.Generator().manual_seed(8))
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = H.epsilon_kernel_indices(P, 400, normals=normals, device=dev)
+    eps_s = time.perf_counter() - t0
+    census["epsilon_kernel_indices"] = read_counts()
+    reset_counts()
+    q_in, q_out = P.mean(0), P.max(0).values * 1.5
+    greedy = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (q_in, q_out)]
+    dist_in = H.hull_distance(P, q_in, eps=1e-2, max_iter=64, device=dev)
+    census["greedy_hull_projection (m = 1)"] = read_counts()
+    real = H.directional_extremes
+    H.directional_extremes = directional_extremes_ref
+    try:
+        plain_ids = H.epsilon_kernel_indices(P, 400, normals=normals, device=dev)
+        plain = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (q_in, q_out)]
+    finally:
+        H.directional_extremes = real
+    out["epsilon_kernel"] = {"ids": int(ids.size), "same_as_plain": bool(
+        np.array_equal(ids, plain_ids)), "s": eps_s}
+    log(f"standalone epsilon_kernel_indices k=400 (1,614 directions over 500,002 rows): "
+        f"{json.dumps(out['epsilon_kernel'])}")
+    if not out["epsilon_kernel"]["same_as_plain"] or ids.size != 400:
+        errs.append("epsilon_kernel_indices on the kernel differs from its plain version")
+    out["greedy"] = {}
+    for tag, (t, s, d), (tp, sp, dp) in zip(("mean", "outside"), greedy, plain):
+        r = {"same_support": bool(torch.equal(s, sp)),
+             "t_max_abs_err": float((t - tp).abs().max()),
+             "dist": float(d[-1]), "support_points": int((s >= 0).sum())}
+        out["greedy"][tag] = r
+        log(f"standalone greedy_hull_projection from the {tag} (max_iter 64): {json.dumps(r)}")
+        if not r["same_support"] or r["t_max_abs_err"] > 1e-6:
+            errs.append(f"greedy_hull_projection from the {tag} differs from its plain version")
+    out["greedy"]["hull_distance_mean"] = dist_in
+    log(f"standalone hull_distance(mean) {dist_in:.3e} (eps 1e-2, max_iter 64)")
+    if not dist_in < 1e-2:
+        errs.append(f"hull_distance of the cloud's mean is {dist_in}")
+
+    normals_s = torch.randn((MAIN_N, cfg.J), generator=torch.Generator().manual_seed(9))
+    t0 = time.perf_counter()
+    got = M.sample(cfg, params, scaler, MAIN_N, normals=normals_s, device=dev)
+    _sync()
+    sample_s = time.perf_counter() - t0
+    p_cpu = M.params_from_numpy(*M.params_to_numpy(params), device="cpu")
+    want = M.sample(cfg, p_cpu, scaler, MAIN_N, normals=normals_s, device="cpu")
+    span = torch.as_tensor(scaler.high - scaler.low, dtype=torch.float32)
+    g = got.cpu()
+    low = torch.as_tensor(scaler.low, dtype=torch.float32)
+    high = torch.as_tensor(scaler.high, dtype=torch.float32)
+    out["sample"] = {"max_err_of_span": float(((g - want) / span).abs().max()), "s": sample_s,
+                     "finite": bool(torch.isfinite(g).all()),
+                     "in_range": bool(((g >= low) & (g <= high)).all())}
+    log(f"standalone sample n={MAIN_N:,}: {json.dumps(out['sample'])}")
+    if (out["sample"]["max_err_of_span"] > SAMPLE_SPAN_ATOL or not out["sample"]["finite"]
+            or not out["sample"]["in_range"]):
+        errs.append(f"sample on the card: {out['sample']}")
+
+    Xc, Pc = X.cpu(), P.cpu()
+    Yidx = np.stack([np.arange(MAIN_N), np.zeros(MAIN_N)], axis=1).astype(np.float32)
+    res = {}
+    for where, dtype in ((dev, "float64"), ("cpu", "float64"), (dev, "float32")):
+        t0 = time.perf_counter()
+        res[(str(where), dtype)] = ScoringEngine(
+            featurize=lookup_featurizer(Xc, Pc, where), rows_per_point=2, chunk_size=CHUNK,
+            gram_dtype=dtype, device=where).score(Yidx, method="l2-only").scores
+        res[(str(where), dtype, "s")] = time.perf_counter() - t0
+    a, b, c = res[(str(dev), "float64")], res[("cpu", "float64")], res[(str(dev), "float32")]
+    out["float64_two_pass"] = {"card_vs_cpu": rel_err(a, b), "float32_vs_float64": rel_err(c, a),
+                               "card_s": res[(str(dev), "float64", "s")],
+                               "card_float32_s": res[(str(dev), "float32", "s")]}
+    log(f"standalone TwoPassExact gram_dtype=float64 n={MAIN_N:,} (identical features): "
+        f"{json.dumps(out['float64_two_pass'])}")
+    if out["float64_two_pass"]["card_vs_cpu"] > F64_SCORE_RTOL or not np.all(np.isfinite(a)):
+        errs.append(f"float64 two-pass card vs CPU: {out['float64_two_pass']}")
     return out
 
 
@@ -1294,22 +1906,30 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_environment()
     mctm_kernels, wide = phase_kernels(dev)
+    kernels_at_d16 = phase_kernels_d16(dev)
     kernels = mctm_kernels + phase_lm_kernels(dev)
     phase_small_agreement(dev)
     wide["scoring_j10"] = phase_wide_scoring(dev)
-    launches = phase_path(dev)
+    launches, two_pass_params = phase_path(dev)
     launches["gram_tiled"] = wide["scoring_j10"]["gram_tiled_launches"]
     phase_lm_small_agreement(dev)
     serve_launches, serve = phase_serve(dev)
     launches.update(serve_launches)
+    t0 = time.perf_counter()
+    core_census, core = phase_core(dev, two_pass_params, kernels_at_d16)
+    log(f"phase 6 took {time.perf_counter() - t0:.1f}s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on its path")
+        name = "gram_cluster" if row["name"] == "gram" else row["name"]
+        row["launches_phase6"] = {path: counts[name] for path, counts in core_census.items()
+                                  if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve, "core": core,
+                   "core_census": core_census}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.bernstein import DataScaler, monotone_theta, monotone_theta_inverse
+from repro_torch.core.bernstein import (
+    DataScaler, bernstein_design, monotone_theta, monotone_theta_inverse,
+)
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.bernstein import bernstein_featurize
 
@@ -45,7 +47,11 @@ class MCTMConfig:
 
 
 class MCTMParams(nn.Module):
-    """Unconstrained parameters: ϑ via cumulative softplus, λ strict-lower."""
+    """Unconstrained parameters: ϑ via cumulative softplus, λ strict-lower.
+    ``_fields`` names the leaves in order, as a NamedTuple's do, so the fit
+    layer flattens and rebuilds this type like any parameter tuple."""
+
+    _fields = ("theta_raw", "lam")
 
     def __init__(self, theta_raw: torch.Tensor, lam: torch.Tensor):
         super().__init__()
@@ -255,3 +261,45 @@ def _scipy_lbfgs_fit(loss_fn, params0: MCTMParams):
 def log_density(cfg: MCTMConfig, params, scaler: DataScaler, Y: torch.Tensor) -> torch.Tensor:
     A, Ap = basis_features(cfg, scaler, Y)
     return -nll_terms(cfg, params, A, Ap)
+
+
+def sample(
+    cfg: MCTMConfig,
+    params,
+    scaler: DataScaler,
+    n: int,
+    *,
+    normals=None,
+    generator: torch.Generator | None = None,
+    n_grid: int = 512,
+    device=None,
+) -> torch.Tensor:
+    """Draw n samples (n, J) by inverting h̃ on a grid of ``n_grid`` points
+    (h is triangular: solve per dimension). ``normals`` (n, J) is the
+    standard-normal draw z (the reference's ``jax.random.normal`` draw in
+    parity tests); without it z comes from ``generator``."""
+    dev = resolve_device(device)
+    if normals is None:
+        normals = torch.randn((n, cfg.J), generator=generator, dtype=torch.float32)
+    z = to_tensor(normals, torch.float32, dev)
+    if z.shape != (n, cfg.J):
+        raise ValueError(f"normals must be ({n}, {cfg.J}), got {tuple(z.shape)}")
+    theta_raw = params.theta_raw.detach().to(dev, torch.float32)
+    lam = params.lam.detach().to(dev, torch.float32)
+    Lam = lambda_matrix(cfg, lam)
+    # h̃(Y) = Λ⁻¹ z → invert each monotone marginal on the grid
+    target = torch.linalg.solve_triangular(Lam, z.T, upper=False).T
+    theta = monotone_theta(theta_raw, cfg.min_slope)
+    t_grid = torch.linspace(0.0, 1.0, n_grid, dtype=torch.float32, device=dev)
+    vals = bernstein_design(t_grid, cfg.degree) @ theta.T  # (G, J), monotone in G
+    low = torch.as_tensor(np.asarray(scaler.low, np.float32), device=dev)
+    high = torch.as_tensor(np.asarray(scaler.high, np.float32), device=dev)
+    cols = []
+    for j in range(cfg.J):
+        col, tgt = vals[:, j].contiguous(), target[:, j].contiguous()
+        idx = torch.clamp(torch.searchsorted(col, tgt, right=False), 1, n_grid - 1)
+        v0, v1 = col[idx - 1], col[idx]
+        t0, t1 = t_grid[idx - 1], t_grid[idx]
+        frac = torch.clamp((tgt - v0) / torch.clamp(v1 - v0, min=1e-12), 0.0, 1.0)
+        cols.append(low[j] + (t0 + frac * (t1 - t0)) * (high[j] - low[j]))
+    return torch.stack(cols, dim=1)

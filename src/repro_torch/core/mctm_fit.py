@@ -111,7 +111,12 @@ class MCTMDensityModel:
 
     batch is ``{"Y": (b, J), "weights": (b,)}`` — featurized inside the loss
     — or ``{"A", "Ap", "weights"}`` when the caller featurized already (the
-    dense fast path). ``norm`` is the constant objective normalizer."""
+    dense fast path). ``norm`` is the constant objective normalizer.
+    ``features`` returns the batch entries named by ``feature_keys``;
+    ``leaf_type`` is the plain-tensor tuple ``loss_fn`` takes as params."""
+
+    feature_keys = ("A", "Ap")
+    leaf_type = M.ParamLeaves
 
     def __init__(self, cfg: M.MCTMConfig, scaler=None, *, norm: float = 1.0,
                  featurize: Callable | None = None):
@@ -183,7 +188,7 @@ def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
 
 def fit_density_model(
     model,
-    params0: M.MCTMParams,
+    params0,
     batch: dict,
     *,
     optimizer: Optimizer | None = None,
@@ -204,7 +209,11 @@ def fit_density_model(
     update. ``lbfgs`` ignores ``optimizer`` and runs ``_fit_lbfgs``
     (``history`` curvature pairs, Armijo backtracking capped at
     ``max_linesearch`` halvings, convergence at ``gtol`` gradient norm).
-    Returns ``(params, losses)`` with one float per step."""
+    ``params0`` is any parameter tuple (``MCTMParams``, the conditional
+    model's three-leaf ``CMCTMParams``): its leaves are optimized in the
+    order of its ``_fields`` (the order ``ravel_pytree`` flattens a
+    NamedTuple in) and the result is of its own type. Returns ``(params,
+    losses)`` with one float per step."""
     if method == "lbfgs":
         return _fit_lbfgs(
             model, params0, batch, steps=steps, microbatches=microbatches,
@@ -218,10 +227,10 @@ def fit_density_model(
     mb = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     mbatches = _microbatches(_pad_batch(batch, mb)[0], mb)
-    params = M.MCTMParams(
-        params0.theta_raw.detach().to(dev).clone(), params0.lam.detach().to(dev).clone()
-    )
-    leaves = [params.theta_raw, params.lam]
+    fields = params0._fields
+    params = type(params0)(*(
+        getattr(params0, f).detach().to(dev).clone().requires_grad_(True) for f in fields))
+    leaves = [getattr(params, f) for f in fields]
     opt_state = optimizer.init(leaves)
     losses = []
     scale = 1.0 / mb
@@ -258,7 +267,7 @@ def fit_density_model(
 def make_streamed_oracles(model, microbatches: int):
     """``(value_and_grad, value, hvp)`` over a padded batch (tensors whose
     rows are a multiple of ``microbatches``); ``params`` and ``vec`` are
-    (theta_raw, lam) pairs of tensors.
+    sequences of tensors in the field order of ``model.leaf_type``.
 
     Each streams the batch microbatch by microbatch through
     ``model.loss_fn``, which featurizes its rows, so the basis exists one
@@ -278,7 +287,7 @@ def make_streamed_oracles(model, microbatches: int):
         loss, grads = None, None
         for mbatch in _microbatches(batch, microbatches):
             leaves = _leaves(params, True)
-            li = model.loss_fn(M.ParamLeaves(*leaves), mbatch)
+            li = model.loss_fn(model.leaf_type(*leaves), mbatch)
             gi = torch.autograd.grad(li, leaves)
             loss = li.detach() if loss is None else loss + li.detach()
             grads = list(gi) if grads is None else [a + g for a, g in zip(grads, gi)]
@@ -286,17 +295,16 @@ def make_streamed_oracles(model, microbatches: int):
 
     def value(params, batch):
         with torch.no_grad():
-            leaves = M.ParamLeaves(*_leaves(params, False))
+            leaves = model.leaf_type(*_leaves(params, False))
             return sum(model.loss_fn(leaves, mb) for mb in _microbatches(batch, microbatches))
 
     def hvp(params, vec, batch):
         out = None
         for mbatch in _microbatches(batch, microbatches):
             # features first, outside the transforms: constants of the fit
-            A, Ap = model.features(mbatch)
-            fixed = dict(mbatch, A=A, Ap=Ap)
-            grad = torch.func.grad(lambda th, lam: model.loss_fn(M.ParamLeaves(th, lam), fixed),
-                                   argnums=(0, 1))
+            fixed = dict(mbatch, **dict(zip(model.feature_keys, model.features(mbatch))))
+            grad = torch.func.grad(lambda *lv: model.loss_fn(model.leaf_type(*lv), fixed),
+                                   argnums=tuple(range(len(params))))
             _, hv = torch.func.jvp(grad, tuple(p.detach() for p in params), tuple(vec))
             out = list(hv) if out is None else [a + h for a, h in zip(out, hv)]
         return out
@@ -311,7 +319,7 @@ class LBFGSState(NamedTuple):
     n."""
 
     step: int               # iteration counter
-    flat: np.ndarray        # (P,) f32 current iterate (theta_raw, then lam)
+    flat: np.ndarray        # (P,) f32 current iterate (the leaves in field order)
     loss: np.float32        # objective at ``flat``
     grad: np.ndarray        # (P,) f32 gradient at ``flat`` (fused-oracle carry)
     have_grad: bool         # loss/grad are valid (skip the opening sweep)
@@ -352,7 +360,7 @@ def _two_loop(g, S, Yv, rho, count: int):
 
 def _fit_lbfgs(
     model,
-    params0: M.MCTMParams,
+    params0,
     batch: dict,
     *,
     steps: int,
@@ -381,7 +389,8 @@ def _fit_lbfgs(
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     batch, _, _ = _pad_batch(batch, microbatches)
     value_and_grad, _, hvp = make_streamed_oracles(model, microbatches)
-    shapes = [tuple(params0.theta_raw.shape), tuple(params0.lam.shape)]
+    fields = params0._fields
+    shapes = [tuple(getattr(params0, f).shape) for f in fields]
     sizes = [int(np.prod(sh)) for sh in shapes]
     P = sum(sizes)
     m = max(1, int(history))
@@ -463,7 +472,7 @@ def _fit_lbfgs(
         ), np.float32(f_t)
 
     state = LBFGSState(
-        step=0, flat=ravel([params0.theta_raw, params0.lam]).astype(np.float32),
+        step=0, flat=ravel([getattr(params0, f) for f in fields]).astype(np.float32),
         loss=np.float32(np.inf), grad=np.zeros(P, np.float32), have_grad=False,
         mem_s=np.zeros((m, P), np.float32), mem_y=np.zeros((m, P), np.float32),
         mem_rho=np.zeros(m, np.float32), count=0, converged=False,
@@ -476,8 +485,7 @@ def _fit_lbfgs(
             print(f"[{label}] step {i + 1:5d} loss {float(loss):.4f}", flush=True)
     LAST_LBFGS_SWEEPS.clear()
     LAST_LBFGS_SWEEPS.update(sweeps)
-    theta, lam = unravel(state.flat)
-    return M.MCTMParams(theta, lam), np.asarray([float(x) for x in losses], np.float64)
+    return type(params0)(*unravel(state.flat)), np.asarray([float(x) for x in losses], np.float64)
 
 
 def fit_mctm_streaming(

@@ -23,8 +23,17 @@ CountSketch rows/signs (and Ω) come in as ``plan=`` and the hull net's
 normal draws as ``hull_normals=`` (or the whole net as ``hull_dirs=``);
 without them they are drawn from ``generator``.
 
+``gram_dtype="float64"`` carries the accumulator in float64, as the
+reference does: ``TwoPassExact`` adds each chunk's (√w·X)ᵀ(√w·X) as a
+float64 product (the gram kernel is float32 only; the reference forms this
+product outside its Pallas kernel too), and the sketched strategies carry
+SX in float64 through ``countsketch_add`` — an explicit path of this
+module, in a fixed order (each bucket's rows added in ascending row order
+from the carry, no ``index_add_``), since the sweep kernel is float32 only.
+Their moments, z rows and extremes stay float32, as in the reference.
+
 Not ported yet (they raise ``NotImplementedError``): ``sweep_ckpt=`` /
-``resume=`` checkpointed sweeps and ``gram_dtype="float64"``.
+``resume=`` checkpointed sweeps (ROADMAP Queue A 5).
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ __all__ = [
     "projection_from_gram",
     "directions_from_moments",
     "finalize_scoring",
+    "countsketch_add",
     "DEFAULT_CHUNK",
     "SCORE_METHODS",
 ]
@@ -72,8 +82,6 @@ GRAM_DTYPES = ("float32", "float64")
 def _check_gram_dtype(gram_dtype: str) -> None:
     if gram_dtype not in GRAM_DTYPES:
         raise ValueError(f"gram_dtype must be one of {GRAM_DTYPES}")
-    if gram_dtype == "float64":
-        raise NotImplementedError("gram_dtype='float64' is not ported yet")
 
 
 def _spectrum_inverse(w: np.ndarray, *, ridge_reg: float, rcond: float) -> np.ndarray:
@@ -156,6 +164,34 @@ def _sketch_update(SX, s1, s2, X, P, sw, rows, signs):
     if P is not None:
         s1, s2 = _moments_update(s1, s2, P)
     return SX, s1, s2
+
+
+def countsketch_add(SX: torch.Tensor, V: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """SX + S·V in SX's dtype, S the CountSketch that adds row i of V (signs
+    already applied) into bucket rows[i]: a new tensor. Each bucket's rows
+    are added in ascending row order from the carry, as the reference's
+    sequential scatter-add and the sweep kernel add them, without atomics:
+    the rows are ranked within their bucket, and rank by rank every bucket
+    takes at most one row (an index write with unique indices). One host
+    read a call (the rank sizes)."""
+    c = int(rows.shape[0])
+    out = SX.clone()
+    if c == 0:
+        return out
+    rows = rows.long()
+    order = torch.argsort(rows, stable=True)
+    sorted_rows = rows[order]
+    counts = torch.bincount(sorted_rows, minlength=SX.shape[0])
+    rank = torch.arange(c, device=rows.device) - (torch.cumsum(counts, 0) - counts)[sorted_rows]
+    by_rank = order[torch.argsort(rank, stable=True)]
+    V = V.to(SX.dtype)
+    lo = 0
+    for size in torch.bincount(rank).tolist():
+        e = by_rank[lo:lo + size]
+        r = rows[e]
+        out[r] = out[r] + V[e]
+        lo += size
+    return out
 
 
 def _weighted_project(X, sw, omega):
@@ -298,10 +334,15 @@ def _moment_state(p, device):
     return torch.zeros((p,), **f32), torch.zeros((p, p), **f32)
 
 
+def _acc_dtype(gram_dtype: str) -> torch.dtype:
+    return torch.float64 if gram_dtype == "float64" else torch.float32
+
+
 @dataclasses.dataclass(frozen=True)
 class TwoPassExact(PassStrategy):
-    """Exact f32 Gram in pass 1 (gram kernel); pass 2 re-streams the chunks
-    for leverage and the extremes."""
+    """Exact Gram in pass 1 — float32 on the gram kernel, or float64 as a
+    float64 product (``gram_dtype="float64"``, moments still float32);
+    pass 2 re-streams the chunks for leverage and the extremes."""
 
     gram_dtype: str = "float32"
 
@@ -309,12 +350,19 @@ class TwoPassExact(PassStrategy):
         _check_gram_dtype(self.gram_dtype)
 
     def init_state(self, D: int, p: int | None, device):
-        G = torch.zeros((D, D), dtype=torch.float32, device=device)
+        G = torch.zeros((D, D), dtype=_acc_dtype(self.gram_dtype), device=device)
         if p is None:
             return (G, None, None)
         return (G, *_moment_state(p, device))
 
     def update(self, state, X, P, sw, plan_slice=()):
+        if self.gram_dtype == "float64":
+            G, s1, s2 = state
+            Xw = (X * sw[:, None]).to(torch.float64)
+            G = G + Xw.T @ Xw
+            if P is not None:
+                s1, s2 = _moments_update(s1, s2, P)
+            return (G, s1, s2), None
         return pass1_update(*state, X, P, sw), None
 
     def gram(self, state, plan=None):
@@ -323,7 +371,9 @@ class TwoPassExact(PassStrategy):
 
 @dataclasses.dataclass(frozen=True)
 class _SketchedBase(PassStrategy):
-    """Shared CountSketch plan/state of the sketched strategies."""
+    """Shared CountSketch plan/state of the sketched strategies. With
+    ``gram_dtype="float64"`` SX is carried in float64 through
+    ``_f64_update`` (see the module doc)."""
 
     sketch_size: int = 0
     gram_dtype: str = "float32"
@@ -353,13 +403,28 @@ class _SketchedBase(PassStrategy):
         return (plan[0][lo:hi], plan[1][lo:hi])
 
     def init_state(self, D: int, p: int | None, device):
-        SX = torch.zeros((self.sketch_size, D), dtype=torch.float32, device=device)
+        SX = torch.zeros((self.sketch_size, D), dtype=_acc_dtype(self.gram_dtype), device=device)
         if p is None:
             return (SX, None, None)
         return (SX, *_moment_state(p, device))
 
     def gram(self, state, plan=None):
         return state[0].T @ state[0]
+
+    def _f64_update(self, state, X, P, sw, rows, signs, *, dirs=None, omega=None,
+                    want_z=False):
+        """The float64-sketch step, unfused: SX += S·(√w·X) in float64
+        (``countsketch_add``), the moments when carried, z = (√w·X)Ω in
+        float32 when ``want_z``, and the extremes against ``dirs`` on the
+        extremes kernel. Returns ``(state, z, ext)``."""
+        Xw = X * sw[:, None]
+        SX = countsketch_add(state[0], signs[:, None] * Xw, rows)
+        s1, s2 = state[1], state[2]
+        if s1 is not None and P is not None:
+            s1, s2 = _moments_update(s1, s2, P)
+        z = (Xw if omega is None else Xw @ omega) if want_z else None
+        ext = hull_chunk_extremes(P, dirs) if dirs is not None else None
+        return (SX, s1, s2), z, ext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,6 +434,8 @@ class TwoPassSketched(_SketchedBase):
 
     def update(self, state, X, P, sw, plan_slice=()):
         rows, signs = plan_slice
+        if self.gram_dtype == "float64":
+            return self._f64_update(state, X, P, sw, rows, signs)[0], None
         moments = (state[1], state[2]) if P is not None else None
         SX, _, _, mom = fused_sweep_update(
             state[0], X, P, sw, rows, signs, moments=moments, want_z=False
@@ -410,7 +477,7 @@ class OnePassSketched(_SketchedBase):
         return (plan[0][lo:hi], plan[1][lo:hi], plan[2])
 
     def init_state(self, D: int, p: int | None, device):
-        SX = torch.zeros((self.sketch_size, D), dtype=torch.float32, device=device)
+        SX = torch.zeros((self.sketch_size, D), dtype=_acc_dtype(self.gram_dtype), device=device)
         if self.track_moments and p is not None:
             return (SX, *_moment_state(p, device))
         return (SX, None, None)
@@ -423,6 +490,9 @@ class OnePassSketched(_SketchedBase):
         """CountSketch + z + extremes (+ moments) in one sweep-kernel call;
         ``ext`` carries chunk-local row ids."""
         rows, signs, omega = plan_slice
+        if self.gram_dtype == "float64":
+            return self._f64_update(state, X, P, sw, rows, signs, dirs=dirs, omega=omega,
+                                    want_z=True)
         moments = (state[1], state[2]) if state[1] is not None and P is not None else None
         keep_P = dirs is not None or moments is not None
         SX, z, ext, mom = fused_sweep_update(
@@ -436,7 +506,7 @@ class OnePassSketched(_SketchedBase):
         """Projection Gram (SXΩ)ᵀ(SXΩ), the Gram of the retained z rows."""
         SX = state[0]
         if plan is not None and plan[2] is not None:
-            SX = SX @ plan[2]
+            SX = SX @ plan[2].to(SX.dtype)
         return SX.T @ SX
 
     def result_gram(self, state, plan=None):

@@ -96,3 +96,73 @@ def test_random_draws_come_from_the_generator(scored):
     assert a.size == 100 and np.all(a.weights > 0)
     with pytest.raises(ValueError):
         TC.build_coreset(cfg, tscaler, Y, 100, device="cpu")  # no generator, no plans
+
+
+@pytest.fixture(scope="module")
+def full_fit(scored):
+    Y, scaler, _ = scored
+    return RM.fit_mctm(RM.MCTMConfig(J=2, degree=6), scaler, jnp.asarray(Y), steps=150,
+                       key=jax.random.PRNGKey(1))
+
+
+@pytest.mark.parametrize("method", ["uniform", "l2-only", "l2-hull"])
+def test_evaluate_coreset_matches_reference(scored, full_fit, method):
+    """evaluate_coreset on the reference's plans: its build draw (the
+    sampled prefix of its own coreset) and hull normals, and its fit's
+    start from the fit key; the full fit's parameters carried over. The
+    coresets share their sampled points; the hull tail and the weights
+    follow each side's own scores (rtol 5e-3, see test_torch_scoring), so
+    the refits agree to 2e-2 in param ℓ2 and λ error and 1e-3 in the
+    likelihood ratio; 5e-2 in λ error for ``l2-hull``, whose hull tail
+    shares ≥ 90% of its points (2.4% measured)."""
+    Y, scaler, _ = scored
+    cfg, k, steps = RM.MCTMConfig(J=2, degree=6), 150, 150
+    key = jax.random.PRNGKey(7)
+    ref = RC.evaluate_coreset(cfg, scaler, Y, full_fit, k, method, key, steps=steps)
+    k_build, k_fit = jax.random.split(key)
+    ref_cs = RC.build_coreset(cfg, scaler, Y, k, method, key=k_build)
+    k_sample = 120 if method == "l2-hull" else k
+    plans = {"draw": ref_cs.indices[:k_sample]}
+    if method == "l2-hull":
+        plans["hull_normals"] = np.asarray(
+            jax.random.normal(jax.random.split(k_build, 3)[1], (4 * 30, 7), jnp.float32))
+    normals = np.asarray(jax.random.normal(jax.random.split(k_fit)[0], (2, 7), jnp.float32))
+    tcfg = TM.MCTMConfig(J=2, degree=6)
+    tfull = TM.FitResult(
+        params=TM.params_from_numpy(np.asarray(full_fit.params.theta_raw),
+                                    np.asarray(full_fit.params.lam), device="cpu"),
+        losses=np.asarray(full_fit.losses), final_nll=full_fit.final_nll)
+    got = TC.evaluate_coreset(
+        tcfg, TB.DataScaler(low=scaler.low, high=scaler.high), Y, tfull, k, method,
+        build_plans=plans, init=TM.init_params(tcfg, normals=normals, device="cpu"),
+        steps=steps, device="cpu")
+    assert isinstance(got, TC.CoresetEvaluation)
+    assert got.method == ref.method and got.k == ref.k == k
+    assert got.param_l2 == pytest.approx(ref.param_l2, rel=2e-2)
+    rel = 5e-2 if method == "l2-hull" else 2e-2
+    assert got.lambda_err == pytest.approx(ref.lambda_err, rel=rel, abs=1e-4)
+    assert got.likelihood_ratio == pytest.approx(ref.likelihood_ratio, abs=1e-3)
+    assert got.fit_seconds > 0 and got.sample_seconds > 0
+
+
+def test_sensitivity_sample_matches_reference(scored):
+    from repro.core import sensitivity as RSe
+    from repro_torch.core import sensitivity as TSe
+
+    _, _, res = scored
+    base = np.random.default_rng(0).uniform(0.5, 2.0, N)
+    for bw in (None, base):
+        key = jax.random.PRNGKey(3)
+        ref = RSe.sensitivity_sample(key, res.scores, 200, bw)
+        got = TSe.sensitivity_sample(res.scores, 200, bw, draw=ref.indices)
+        np.testing.assert_array_equal(got.indices, ref.indices)
+        np.testing.assert_allclose(got.weights, ref.weights, rtol=1e-12)
+        np.testing.assert_allclose(got.probs, ref.probs, rtol=1e-12)
+    a = TSe.sensitivity_sample(res.scores, 50, generator=torch.Generator().manual_seed(0))
+    b = TSe.sensitivity_sample(res.scores, 50, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(a.indices, b.indices)
+    assert a.indices.shape == (50,) and np.all(a.weights > 0)
+    with pytest.raises(ValueError):
+        TSe.sensitivity_sample(res.scores, 50)  # no draw, no generator
+    for args in ((12.5, 30, 0.1), (0.5, 5, 0.2, 0.05), (1e4, 100, 0.01)):
+        assert TSe.sample_size_bound(*args) == RSe.sample_size_bound(*args)

@@ -75,12 +75,14 @@ def test_bernstein_kernel_ragged_tiles(dev, n, J, degree):
     (0, 14, True), (1, 14, False), (777, 14, True), (300, 64, True), (5, 3, True),
     (16_384, 14, True), (16_387, 14, False), (40_000, 37, True), (250_001, 14, True),
     (0, 70, True), (1, 65, False), (16_384, 70, True), (16_384, 140, True), (20_001, 160, False),
-    (777, 99, True),
+    (777, 99, True), (16_384, 15, True), (16_384, 16, True), (250_001, 16, True),
+    (40_000, 23, False),
 ])
 def test_gram_kernel(dev, n, D, weighted):
     """n from none to many rows per CTA of a 16-CTA cluster, ragged n, D
-    that is no multiple of 4, and the path's (16,384, 14) chunk; the tiled
-    body for 64 < D ≤ 160 at J = 10 and 20's D = 70 and 140."""
+    that is no multiple of 4, and the path's (16,384, 14) chunk; the
+    conditional path's D = dJ + F (15, 16, 23: J = 2, degree 6, F = 1, 2,
+    9); the tiled body for 64 < D ≤ 160 at J = 10 and 20's D = 70 and 140."""
     from repro_torch.kernels.gram import ops, ref
 
     X = torch.randn(n, D, generator=_g(D)).to(dev)
@@ -95,7 +97,8 @@ def test_gram_kernel(dev, n, D, weighted):
         ops.gram_matrix(torch.zeros(4, ops.MAX_D + 1, device=dev))
 
 
-@pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64), (16_384, 140)])
+@pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64), (16_384, 140),
+                                 (16_384, 15), (16_384, 16)])
 def test_gram_kernel_is_bit_identical_across_calls_and_streams(dev, n, D):
     """The fixed-order reduction: the same bits on every call, on the
     default stream and on a second one."""
@@ -209,7 +212,8 @@ def test_gram_tiled_body_ignores_stale_shared_memory(dev, D):
 
 
 @pytest.mark.parametrize("rows,m,d,n_valid", [(64, 8, 5, 64), (1030, 130, 7, 517),
-                                              (3000, 300, 16, 3000)])
+                                              (3000, 300, 16, 3000), (1030, 1, 16, 517),
+                                              (32_768, 1, 7, 32_768), (500_002, 1, 7, 500_002)])
 def test_extremes_kernel(dev, rows, m, d, n_valid):
     from repro_torch.kernels.extremes import ops, ref
 
@@ -354,6 +358,198 @@ def test_sweep_kernel_at_the_default_sketch(dev, J, m, q):
     assert _device_kernels(lambda: ops.fused_sweep_update(
         SX, X, P, sw, rows, signs, moments=mom, want_z=False)) == 2
     assert _device_kernels(lambda: ops.fused_sweep_update(SX, X, None, sw, rows, signs)) == 1
+
+
+@pytest.mark.parametrize("m", [0, 1614])
+def test_sweep_kernel_at_the_conditional_width(dev, m):
+    """The conditional one-pass chunk: rows (b_i, x_i) of D = 16 (J = 2,
+    degree 6, F = 2), r = 2 P rows a point, sketch 4·D² = 1,024: SX' and z
+    have the bits of the plain version on the CPU, the extremes those of the
+    plain version on the card, the moments within rtol 1e-6 / atol 1e-4 of
+    float64; the same bits on a repeated call."""
+    from repro_torch.kernels.sweep import ops, ref
+
+    c, D, d, sk = 16_384, 16, 7, 1024
+    g = _g(16 + m)
+    Xc = torch.cat([torch.rand(c, 14, generator=g), torch.randn(c, 2, generator=g)], dim=1)
+    Pc = torch.randn(2 * c, d, generator=g)
+    swc = torch.ones(c)
+    rowsc = torch.randint(0, sk, (c,), generator=g).int()
+    signsc = (torch.randint(0, 2, (c,), generator=g) * 2 - 1).float()
+    SXc = torch.randn(sk, D, generator=g)
+    dirs = torch.randn(m, d, generator=g).to(dev) if m else None
+    mom = (torch.zeros(d, device=dev), torch.zeros(d, d, device=dev))
+    SX, X, P, sw, rows, signs = (t.to(dev) for t in (SXc, Xc, Pc, swc, rowsc, signsc))
+    got = ops.fused_sweep_update(SX, X, P, sw, rows, signs, dirs=dirs, moments=mom)
+    exp = ref.fused_sweep_ref(SXc, Xc, Pc, swc, rowsc, signsc)
+    assert _same_bits(got[0], exp[0]) and _same_bits(got[1], exp[1])
+    if m:
+        ext = ref.fused_sweep_ref(SX, X, P, sw, rows, signs, dirs=dirs, want_z=False)[2]
+        for a, b in zip(got[2], ext):
+            assert _same_bits(a, b)
+    e64 = ref.fused_sweep_ref(SX.double(), X.double(), P.double(), sw.double(), rows,
+                              signs.double(), moments=tuple(t.double() for t in mom),
+                              want_z=False)[3]
+    for a, b in zip(got[3], e64):
+        torch.testing.assert_close(a.double(), b, rtol=1e-6, atol=1e-4)
+    again = ops.fused_sweep_update(SX, X, P, sw, rows, signs, dirs=dirs, moments=mom)
+    for a, b in zip((again[0], again[1], *(again[2] or ()), *again[3]),
+                    (got[0], got[1], *(got[2] or ()), *got[3])):
+        assert torch.equal(a, b)
+
+
+def test_float64_countsketch_gives_the_same_bits(dev):
+    """``scoring.countsketch_add`` (float64) on the card: the bits of the CPU's
+    (the same float64 additions in the same order), on every call; and the
+    sketched strategies with ``gram_dtype="float64"`` give the same scores
+    on repeated calls."""
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import ScoringEngine, countsketch_add
+    from repro_torch.data.dgp import generate
+
+    g = _g(64)
+    SX = torch.randn(1024, 16, generator=g, dtype=torch.float64)
+    V = torch.randn(16_384, 16, generator=g) * torch.logspace(-5, 2, 16_384)[:, None]
+    rows = torch.randint(0, 1024, (16_384,), generator=g)
+    want = countsketch_add(SX, V, rows)
+    for _ in range(3):
+        assert torch.equal(countsketch_add(SX.to(dev), V.to(dev), rows.to(dev)).cpu(), want)
+    Y = generate("normal_mixture", 5001, seed=2).astype(np.float32)
+    cfg, scaler = M.MCTMConfig(J=2), DataScaler.fit(Y)
+    for strategy in ("two-pass-sketched", "one-pass"):
+        eng = ScoringEngine(cfg, scaler, chunk_size=2000, gram_dtype="float64", device=dev)
+        out = [eng.score(Y, method="l2-hull", generator=_g(1), hull_k=20, sketch_size=196,
+                         strategy=strategy) for _ in range(3)]
+        assert out[0].gram.dtype == np.float64
+        for o in out[1:]:
+            np.testing.assert_array_equal(o.scores, out[0].scores)
+            np.testing.assert_array_equal(o.gram, out[0].gram)
+            np.testing.assert_array_equal(o.hull_rows, out[0].hull_rows)
+
+
+def _cond_case(n=4000, F=2, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, F))
+    beta = rng.standard_normal((2, F))
+    Y = X @ beta.T + rng.standard_normal((n, 2)) @ np.linalg.cholesky(
+        np.array([[1, 0.6], [0.6, 1]])).T
+    return Y.astype(np.float32), X.astype(np.float32)
+
+
+@pytest.mark.parametrize("sketch", [0, 1024])
+def test_conditional_scores_and_build_on_the_card_match_the_cpu_path(dev, sketch):
+    """The conditional engine (D = 16) on the card against the CPU path:
+    l2 scores within atol 5e-4 (tests/test_torch_conditional.py's), and the
+    build on the same plans and draw: the same sampled ids, ≥ 80% of the
+    hull points in common (chip_smoke.py's COND_HULL_COMMON_FLOOR: the
+    card's bernstein bits move the argmax between near-ties; 35 of 40 here
+    on an H100), weights rtol 5e-3."""
+    from repro_torch.core import conditional as C
+    from repro_torch.core.bernstein import DataScaler
+
+    Y, X = _cond_case()
+    cfg, scaler = C.CMCTMConfig(J=2, n_features=2, degree=6), DataScaler.fit(Y)
+    kw = dict(chunk_size=1500, sketch_size=sketch)
+    plan = None
+    if sketch:
+        plan = tuple(t.numpy() for t in (torch.randint(0, sketch, (4000,), generator=_g(5)),
+                                         torch.randint(0, 2, (4000,), generator=_g(6)) * 2. - 1))
+    s = [C.conditional_coreset_scores(cfg, scaler, Y, X, plan=plan, device=where, **kw)
+         for where in ("cpu", dev)]
+    np.testing.assert_allclose(s[1], s[0], rtol=0, atol=5e-4)
+    k, k1 = 200, 160
+    draw = torch.randint(0, 4000, (k1,), generator=_g(7)).numpy()
+    normals = torch.randn(4 * (k - k1), 7, generator=_g(8)).numpy()
+    out = [C.build_conditional_coreset(cfg, scaler, Y, X, k, plan=plan, hull_normals=normals,
+                                       draw=draw, device=where, **kw) for where in ("cpu", dev)]
+    (ic, wc), (ig, wg) = out
+    assert ig.shape == (k,) and len(set(ig[k1:].tolist())) == k - k1
+    np.testing.assert_array_equal(ig[:k1], ic[:k1])
+    assert np.intersect1d(ig[k1:], ic[k1:]).size >= 0.8 * (k - k1)
+    np.testing.assert_allclose(wg, wc, rtol=5e-3)
+
+
+def test_hull_api_on_the_card_matches_its_plain_version(dev, monkeypatch):
+    """greedy_hull_projection and epsilon_kernel_indices on the extremes
+    kernel against the same functions on the kernel's plain version, both
+    on the card: the same support and ids, t within 1e-6; a d > 16 cloud
+    raises."""
+    from repro_torch.core import hull as H
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+
+    rng = np.random.default_rng(3)
+    P = (rng.standard_normal((20_000, 7)) * rng.uniform(0.5, 2, 7)).astype(np.float32)
+    normals = rng.standard_normal((160, 7)).astype(np.float32)
+    q_out = P.max(0) * 1.5
+    kernel = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (P.mean(0), q_out)]
+    ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
+    with monkeypatch.context() as mp:
+        mp.setattr(H, "directional_extremes", directional_extremes_ref)
+        plain = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (P.mean(0), q_out)]
+        plain_ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
+    for (t, s, d), (tp, sp, dp) in zip(kernel, plain):
+        assert torch.equal(s, sp)
+        assert float((t - tp).abs().max()) <= 1e-6 and float((d - dp).abs().max()) <= 1e-6
+    np.testing.assert_array_equal(ids, plain_ids)
+    assert H.hull_distance(P, P.mean(0), device=dev) < 1e-2
+    with pytest.raises(ValueError, match="Queue C"):
+        H.greedy_hull_projection(np.zeros((10, 17), np.float32), np.ones(17), device=dev)
+    with pytest.raises(ValueError, match="Queue C"):
+        H.epsilon_kernel_indices(np.zeros((100, 17), np.float32), 5, generator=_g(0), device=dev)
+
+
+def test_leverage_and_sample_on_the_card(dev):
+    """The standalone leverage API on the card against float64 of the same
+    X (the gram kernel's float32 Gram: ridge rtol 1e-4; the l2 forms atol
+    2e-3, the ill-conditioned degree-6 pseudo-inverse); the CountSketch
+    estimate on the sweep kernel against float64 of the same plan and
+    against the CPU's within atol 5e-3 (the sweep gives the CPU's SX bits,
+    and the float32 products SXᵀSX on the two devices move the
+    pseudo-inverse by up to 3.6e-3 here on an H100); above the sweep's D
+    limit, the CountSketch by ``countsketch_add`` gives the CPU's SX bits,
+    so the well-conditioned Gaussian case agrees to rtol 1e-4;
+    ``sample`` on the CPU's normals within 1e-4 of the scaler's span of the
+    CPU's."""
+    from repro_torch.core import leverage as L
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import _mctm_featurize
+    from repro_torch.data.dgp import generate
+
+    Y = generate("normal_mixture", 20_001, seed=3).astype(np.float32)
+    cfg, scaler = M.MCTMConfig(J=2), DataScaler.fit(Y)
+    X = _mctm_featurize(cfg, scaler)(torch.as_tensor(Y, device=dev))[0]
+    X64 = X.double()
+    ridge = L.ridge_leverage_scores(X, device=dev)
+    torch.testing.assert_close(ridge.double(), L.ridge_leverage_scores(X64, device=dev),
+                               rtol=1e-4, atol=0)
+    for fn in (L.leverage_scores_gram, L.root_leverage_scores):
+        torch.testing.assert_close(fn(X, device=dev).double(), fn(X64, device=dev),
+                                   rtol=0, atol=2e-3)
+    plan = (torch.randint(0, 784, (20_001,), generator=_g(1)),
+            torch.randint(0, 2, (20_001,), generator=_g(2)) * 2.0 - 1)
+    a = L.sketched_leverage(X, 784, plan=plan, chunk_size=8192, device=dev)
+    b = L.sketched_leverage(X.cpu(), 784, plan=plan, chunk_size=8192, device="cpu")
+    a64 = L.sketched_leverage(X64, 784, plan=plan, chunk_size=8192, device=dev)
+    torch.testing.assert_close(a.double(), a64, rtol=0, atol=5e-3)
+    torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-3)
+    from repro_torch.kernels.sweep.ops import MAX_D
+
+    Xg = torch.randn(3000, MAX_D + 1, generator=_g(6))
+    plan = (torch.randint(0, 2000, (3000,), generator=_g(7)),
+            torch.randint(0, 2, (3000,), generator=_g(8)) * 2.0 - 1)
+    a = L.sketched_leverage(Xg.to(dev), 2000, plan=plan, chunk_size=1024, device=dev)
+    b = L.sketched_leverage(Xg, 2000, plan=plan, chunk_size=1024, device="cpu")
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-7)
+    params = M.init_params(cfg, generator=_g(4), device="cpu")
+    normals = torch.randn(20_001, 2, generator=_g(5))
+    got = M.sample(cfg, M.params_from_numpy(*M.params_to_numpy(params), device=dev), scaler,
+                   20_001, normals=normals, device=dev).cpu()
+    want = M.sample(cfg, params, scaler, 20_001, normals=normals, device="cpu")
+    span = torch.as_tensor(scaler.high - scaler.low, dtype=torch.float32)
+    assert float(((got - want) / span).abs().max()) <= 1e-4
+    assert bool(torch.isfinite(got).all())
 
 
 def test_sweep_kernel_with_every_point_in_one_bucket(dev):

@@ -76,3 +76,30 @@ def test_params_roundtrip_and_init_match_reference():
     back = TM.params_to_numpy(TM.params_from_numpy(th, lam, device="cpu"))
     np.testing.assert_array_equal(back[0], th)
     np.testing.assert_array_equal(back[1], lam)
+
+
+@pytest.mark.parametrize("J,n_grid", [(1, 512), (3, 512), (2, 64)])
+def test_sample_matches_reference(J, n_grid):
+    """sample on the reference's own normal draw: the same grid inversion,
+    within 1e-5 of the scaler's span (the grid and the triangular solve
+    round in other orders; the clips make the map continuous), all draws
+    finite and inside [low, high]."""
+    Y, scaler, theta, lam, _ = _case(J, seed=10 + J)
+    cfg, tcfg = RM.MCTMConfig(J=J, degree=6), TM.MCTMConfig(J=J, degree=6)
+    params = RM.MCTMParams(jnp.asarray(theta, jnp.float32), jnp.asarray(lam, jnp.float32))
+    key = jax.random.PRNGKey(J)
+    ref = np.asarray(RM.sample(cfg, params, scaler, key, 500, n_grid=n_grid))
+    normals = np.asarray(jax.random.normal(key, (500, J)))
+    tscaler = TB.DataScaler(low=scaler.low, high=scaler.high)
+    tp = TM.params_from_numpy(theta, lam, device="cpu")
+    got = TM.sample(tcfg, tp, tscaler, 500, normals=normals, n_grid=n_grid, device="cpu")
+    assert got.shape == (500, J) and got.dtype == torch.float32
+    span = np.asarray(scaler.high - scaler.low, np.float32)
+    np.testing.assert_allclose(got.numpy() / span, ref / span, rtol=0, atol=1e-5)
+    g = got.numpy()
+    assert np.all(np.isfinite(g))
+    assert np.all(g >= np.float32(scaler.low) - 1e-6)
+    assert np.all(g <= np.float32(scaler.high) + 1e-6)
+    a = TM.sample(tcfg, tp, tscaler, 50, generator=torch.Generator().manual_seed(0), device="cpu")
+    b = TM.sample(tcfg, tp, tscaler, 50, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(a, b)

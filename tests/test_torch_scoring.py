@@ -184,8 +184,6 @@ def test_waiting_features_raise(data):
     eng = TS.ScoringEngine(TM.MCTMConfig(J=2, degree=6), tscaler, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.score(Y, sweep_ckpt="/nonexistent")
-    with pytest.raises(NotImplementedError):
-        eng.score(Y, gram_dtype="float64")
     with pytest.raises(ValueError):
         eng.score(Y, strategy="three-pass")
     with pytest.raises(ValueError):
@@ -282,3 +280,66 @@ def test_engine_matches_reference_at_j10(covertype10, name, chunk):
     np.testing.assert_allclose(got.scores, ref.scores, rtol=2e-5)
     common = np.intersect1d(got.hull_points, ref.hull_points).size
     assert common >= 0.9 * ref.hull_points.size
+
+
+def _strategies64(name, q):
+    if name == "two-pass":
+        return RS.TwoPassExact("float64"), TS.TwoPassExact("float64")
+    if name == "two-pass-sketched":
+        return RS.TwoPassSketched(SK, "float64"), TS.TwoPassSketched(SK, "float64")
+    return (RS.OnePassSketched(SK, "float64", proj_size=q),
+            TS.OnePassSketched(SK, "float64", proj_size=q))
+
+
+@pytest.mark.parametrize("name,q", STRATEGIES)
+@pytest.mark.parametrize("chunk", [0, 500])
+def test_float64_gram_matches_reference(data, name, q, chunk):
+    """``gram_dtype="float64"`` for every strategy, the sketched ones under
+    x64 as the reference requires, on identical features: the float64 Gram
+    (or SX) to 1e-12 of its largest entry, and l2 scores (the ill-conditioned
+    pseudo-inverse, which a float64 Gram no longer blurs) to rtol 2e-5 —
+    the float32 leverage of the same (V, w⁺) on both sides; the hull rows
+    exactly."""
+    _, _, _, X, P = data
+    rfeat, tfeat = _lookup_featurizers(X, P)
+    Yidx = np.stack([np.arange(N), np.zeros(N)], axis=1).astype(np.float32)
+    rstrat, tstrat = _strategies64(name, q)
+    key, hull_key = jax.random.split(jax.random.PRNGKey(12))
+    kw, rkw = {}, {}
+    if rstrat.one_pass:
+        kw["hull_normals"] = np.asarray(jax.random.normal(hull_key, (4 * HULL_K, 7)))
+    else:
+        s1, s2 = P.sum(0), P.T.astype(np.float64) @ P
+        rkw["hull_dirs"] = kw["hull_dirs"] = RS.directions_from_moments(
+            hull_key, s1, s2, 2 * N, HULL_K)
+    with jax.enable_x64(name != "two-pass"):
+        plan = _plan(rstrat, key)
+        ref = RS.ScoringEngine(featurize=rfeat, rows_per_point=2, chunk_size=chunk).score(
+            jnp.asarray(Yidx), method="l2-hull", key=key, hull_k=HULL_K, hull_key=hull_key,
+            strategy=rstrat, **rkw)
+    got = TS.ScoringEngine(featurize=tfeat, rows_per_point=2, chunk_size=chunk,
+                           device="cpu").score(
+        Yidx, method="l2-hull", plan=plan, hull_k=HULL_K, strategy=tstrat, **kw)
+    assert got.gram.dtype == np.float64
+    np.testing.assert_allclose(got.gram, ref.gram, rtol=0,
+                               atol=1e-12 * np.abs(ref.gram).max())
+    np.testing.assert_allclose(got.scores, ref.scores, rtol=2e-5)
+    np.testing.assert_array_equal(got.hull_rows, ref.hull_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_countsketch_add_adds_in_row_order(dtype):
+    """The CountSketch in the carry's dtype against a sequential row-by-row
+    loop from the carry, to the bit, with buckets that take none, one and
+    many rows."""
+    gen = torch.Generator().manual_seed(0)
+    SX = torch.randn(9, 5, generator=gen, dtype=torch.float64).to(dtype)
+    V = torch.randn(300, 5, generator=gen) * torch.logspace(-6, 3, 300)[:, None]
+    rows = torch.randint(0, 7, (300,), generator=gen)
+    rows[:40] = 3
+    want = SX.clone()
+    for i in range(300):
+        want[rows[i]] += V[i].to(dtype)
+    got = TS.countsketch_add(SX, V, rows)
+    assert torch.equal(got, want) and got.dtype == dtype
+    assert torch.equal(TS.countsketch_add(SX, V[:0], rows[:0]), SX)

@@ -55,7 +55,30 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     cfg = TM.MCTMConfig(J=2)
     Y = np.random.default_rng(0).normal(size=(50, 2)).astype(np.float32)
     scaler = TB.DataScaler.fit(Y)
+    from repro_torch.core import conditional as TCo
+    from repro_torch.core import hull as TH
+    from repro_torch.core import leverage as TL
+
+    ccfg = TCo.CMCTMConfig(J=2, n_features=1)
+    Xc = Y[:, :1]
+    full = TM.FitResult(params=TM.init_params(cfg, device="cpu"), losses=np.zeros(0),
+                        final_nll=0.0)
     calls = [
+        lambda: TCo.fit_cmctm(ccfg, scaler, Y, Xc, steps=1),
+        lambda: TCo.conditional_coreset_scores(ccfg, scaler, Y, Xc),
+        lambda: TCo.build_conditional_coreset(ccfg, scaler, Y, Xc, 10,
+                                              generator=torch.Generator()),
+        lambda: TCo.init_cparams(ccfg),
+        lambda: TL.leverage_scores_gram(Y),
+        lambda: TL.leverage_scores_qr(Y),
+        lambda: TL.ridge_leverage_scores(Y),
+        lambda: TL.root_leverage_scores(Y),
+        lambda: TL.sketched_leverage(Y, 8, generator=torch.Generator()),
+        lambda: TH.greedy_hull_projection(Y, Y[0]),
+        lambda: TH.epsilon_kernel_indices(Y, 10, generator=torch.Generator()),
+        lambda: TM.sample(cfg, full.params, scaler, 5, generator=torch.Generator()),
+        lambda: TC.evaluate_coreset(cfg, scaler, Y, full, 10, "uniform",
+                                    generator=torch.Generator()),
         lambda: TS.ScoringEngine(cfg, scaler),
         lambda: TC.build_coreset(cfg, scaler, Y, 10, generator=torch.Generator()),
         lambda: TF.fit_mctm_streaming(cfg, scaler, Y, steps=1),
