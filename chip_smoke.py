@@ -30,7 +30,12 @@ Phases (any failure exits nonzero):
      body (D 70, 140) against float64 and in turns with torch.mm (its parent
      design's device times in brackets; its bound also from three TF32
      tensor-core products a product), the sweep at the default one-pass
-     sketch 4·D² (19,600 and 78,400);
+     sketch 4·D² (19,600 and 78,400); beside them the extremes kernel's wide
+     body (d > 16) at d = 70 and 140 on the J = 10 and J = 20 feature chunks
+     (1,614 directions) and at d = 1,024 (128 directions), bit-identical to its
+     plain version (whole and ragged), timed in turns with ``dirs @ P.T`` +
+     ``max``/``min``, and its own path, the hull API on the J = 10 feature rows
+     (ε-kernel k = 400, a 64-step greedy projection: 65 wide launches);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, 250 steps at lr 0.05): two-pass with the
      driver's default full-data fit, the streaming lbfgs (gtol 1e-5; its time,
@@ -75,8 +80,33 @@ Phases (any failure exits nonzero):
      against their plain versions on the card, ``sample`` against the CPU
      on the same normals, and ``gram_dtype="float64"`` scoring card against
      CPU;
+  7. fault tolerance at the path's width (n = 250,001, chunk 16,384, a sweep
+     checkpoint every 4 chunks): two-pass and one-pass builds crashed in
+     sweep 1 (chunk 6) and sweep 2 (two-pass, chunk 11) and driven to
+     completion through ``RunSupervisor`` with ``resume=ctx.resume``: scores,
+     hull rows and Gram equal to the uninterrupted build's bits, with the
+     checkpointed build's time and bytes beside the plain build's; adam (250
+     steps, a checkpoint every 50, crashes at step 120 and at the step-200
+     save) and lbfgs (a crash at step 30) on the k = 2,000 coreset recovered
+     to the straight run's bits, two straight runs first held to each
+     other; the finiteness read's cost in turns; a NaN-weighted fit aborting
+     with the supervisor's diagnostic; and the driver's drill
+     (``train_mctm --inject-failures --n 50001 --ks 500 --steps 250``: three
+     injections recovered, the ratio in its band);
+  8. streaming: 16 windows × 65,536 rows of normal_mixture (1,048,576
+     points, J = 2, degree 6, k = 2,000, α = 0.8) through four maintainers
+     (insertion with sketch 784 and exact, sliding W = 4, decayed γ = 0.9):
+     push and result() times, live buckets, the sliding window's births and
+     mass and the decayed closed form exact, result() idempotent; the
+     insertion stream killed at window 9, resumed from its checkpoint and
+     re-pushed to the uninterrupted result's bits; one batch build over the
+     whole prefix against a maintained window; result()'s weighted NLL at
+     fixed parameters within rel 0.3 of the full data's
+     (tests/test_streaming.py's bound), an adam refit on it against the full
+     fit (reported); the drift detector silent over 6 clean windows and
+     firing within 6 shifted ones (rows·1.6 + 2·std);
   5. launch census: each kernel counted over its own path's run, and over
-     each of phase 6's paths (``launches_phase6``).
+     each of phases 6–8's paths (``launches_phase6`` to ``launches_phase8``).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
 numbers are also written to ``results/chip_smoke.json``.
@@ -86,6 +116,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -158,7 +189,8 @@ REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
               "gram_tiled_kernel": ("2", "6"),
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
               "bernstein_featurize_kernel": ("6", "15"), "extremes_score_kernel": ("7",),
-              "extremes_fold_kernel": ("7",), "sweep_main_kernel": ("7",),
+              "extremes_fold_kernel": ("7", "0"), "extremes_wide_kernel": None,
+              "sweep_main_kernel": ("7",),
               "sweep_fold_kernel": ("7",)}
 
 
@@ -556,6 +588,115 @@ def phase_kernels(dev):
     return rows_all, extra
 
 
+# the wide extremes body (d > 16): the J = 10 and J = 20 feature chunks (the
+# hull queries data/pipeline.py's CoresetSelector runs on feature rows) with
+# the path's 1,614 directions, and d = 1,024 with 128 directions
+WIDE_EXTREMES = ((70, 1614), (140, 1614), (1024, 128))
+
+
+def phase_wide_extremes(dev):
+    """The extremes kernel's wide body beside phase 2 (profiler windows
+    after phase 4 drop records): each case held to its plain version to the
+    bit (whole, ragged validity, repeated), timed in turns with ``dirs @
+    P.T`` + ``max``/``min``; then its own path, the hull API on the J = 10
+    feature rows (ε-kernel k = 400 and a 64-step greedy projection), counted
+    and held to the plain version. Returns (the ``extremes_wide`` row of the
+    kernels line, records)."""
+    import torch
+
+    from repro_torch.core import hull as H
+    from repro_torch.kernels.extremes import ops as ext
+    from repro_torch.kernels.extremes.ops import directional_extremes
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+
+    errs: list[str] = []
+    gen = torch.Generator().manual_seed(17)
+    feats = {70: featurized_chunk(dev, 10)[0].contiguous(),
+             140: featurized_chunk(dev, 20)[0].contiguous(),
+             1024: torch.randn((CHUNK, 1024), generator=gen).to(dev)}
+    rec, row = {}, None
+    for d, m in WIDE_EXTREMES:
+        P = feats[d]
+        dirs = torch.randn((m, d), generator=gen).to(dev)
+        w0 = ext.PATH_LAUNCHES["wide"]
+        bits, err = {}, 0.0
+        for tag, nv in (("whole", CHUNK), ("ragged", CHUNK - 1001)):
+            got = directional_extremes(P, dirs, nv)
+            ref = directional_extremes_ref(P, dirs, nv)
+            again = directional_extremes(P, dirs, nv)
+            torch.cuda.synchronize()
+            err = max(err, max_err(got[0], ref[0]), max_err(got[2], ref[2]))
+            bits[tag] = (all(same_bits(g, r) for g, r in zip(got, ref))
+                         and all(same_bits(g, a) for g, a in zip(got, again)))
+            if not bits[tag]:
+                mism = int((got[1] != ref[1]).sum()) + int((got[3] != ref[3]).sum())
+                errs.append(f"wide extremes d={d} m={m} {tag}: not its plain version's bits "
+                            f"({mism} index mismatches)")
+        if ext.PATH_LAUNCHES["wide"] - w0 != 4:
+            errs.append(f"wide extremes d={d} did not take the wide body")
+
+        def library(P=P, dirs=dirs):
+            S = dirs @ P.T
+            return S.max(dim=1), S.min(dim=1)
+
+        nbytes, flops = 4 * (P.numel() + dirs.numel() + 4 * m), 2 * m * CHUNK * d
+        kernel = lambda P=P, dirs=dirs: directional_extremes(P, dirs)  # noqa: E731
+        plain = lambda P=P, dirs=dirs: directional_extremes_ref(P, dirs)  # noqa: E731
+        if d == 70:
+            row = kernel_row("extremes_wide", "src/repro_torch/csrc/extremes.cu",
+                             "src/repro/kernels/extremes/kernel.py:66", err, kernel, plain,
+                             library, nbytes=nbytes, flops=flops)
+            t = {k: row[k] for k in ("ms", "library_ms", "device_ms", "library_device_ms",
+                                     "bound_ms", "bound_by", "plain_ms")}
+            t["turns_device_ms"] = row["turns_device_ms"]
+            row["device_kernels_per_call"] = kernels_per_call(kernel, errs, "wide extremes", 2)
+        else:
+            t = in_turns(kernel, library)
+            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+            t["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        t["same_bits"] = bits
+        rec[f"d{d}_m{m}"] = t
+        log(f"  extremes wide body d={d} ({CHUNK:,} rows, {m:,} directions): bit-identical "
+            f"{bits}; device {t['device_ms']:.5f} ms vs dirs @ P.T + max/min "
+            f"{t['library_device_ms']:.5f} ms (in turns {[round(x, 5) for x in t['turns_device_ms']]}); "
+            f"events {t['ms']:.5f} vs {t['library_ms']:.5f} ms; plain {t['plain_ms']:.3f} ms; "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), {t['bound_ms'] / t['device_ms']:.3f} "
+            f"of it")
+
+    # its own path: the hull API on feature rows (d = 70)
+    X = feats[70]
+    normals = H.hull_normals(1600, 70, torch.Generator().manual_seed(18))
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = H.epsilon_kernel_indices(X, 400, normals=normals, device=dev)
+    eps_s = time.perf_counter() - t0
+    greedy = H.greedy_hull_projection(X, X.mean(0), 1e-2, 64, device=dev)
+    _sync()
+    census = read_counts()
+    real = H.directional_extremes
+    H.directional_extremes = directional_extremes_ref
+    try:
+        plain_ids = H.epsilon_kernel_indices(X, 400, normals=normals, device=dev)
+        plain_greedy = H.greedy_hull_projection(X, X.mean(0), 1e-2, 64, device=dev)
+    finally:
+        H.directional_extremes = real
+    rec["hull_api_d70"] = {
+        "ids": int(ids.size), "same_ids": bool((ids == plain_ids).all()),
+        "same_support": bool(torch.equal(greedy[1], plain_greedy[1])),
+        "t_max_abs_err": float((greedy[0] - plain_greedy[0]).abs().max()),
+        "epsilon_kernel_s": eps_s, "launches": census}
+    log(f"  hull API at d = 70 (ε-kernel k = 400, greedy 64 steps): {json.dumps(rec['hull_api_d70'])}")
+    if (not rec["hull_api_d70"]["same_ids"] or not rec["hull_api_d70"]["same_support"]
+            or rec["hull_api_d70"]["t_max_abs_err"] > 1e-6 or ids.size != 400):
+        errs.append(f"the hull API at d = 70 differs from its plain version: {rec['hull_api_d70']}")
+    if census["extremes_wide"] != 65:
+        errs.append(f"the hull API at d = 70 launched the wide body {census['extremes_wide']} "
+                    "times, expected 65")
+    if errs:
+        fail("wide extremes: " + "; ".join(errs))
+    return row, rec
+
+
 def kernels_per_call(fn, errs, name, want, calls=20):
     """Device kernels a call of ``fn`` launches (torch.profiler)."""
     n = clean_window(fn, calls)["device_launches"] / calls
@@ -630,11 +771,13 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each MCTM kernel's launches since ``reset_counts``, and gram's cluster
-    body's as ``gram_cluster``."""
+    """Each MCTM kernel's launches since ``reset_counts``, gram's cluster
+    body's as ``gram_cluster`` and the extremes kernel's wide body's as
+    ``extremes_wide``."""
     mods = mctm_kernel_modules()
     out = {k: mod.LAUNCHES for k, mod in mods.items()}
     out["gram_cluster"] = mods["gram"].PATH_LAUNCHES["cluster"]
+    out["extremes_wide"] = mods["extremes"].PATH_LAUNCHES["wide"]
     return out
 
 
@@ -1893,6 +2036,414 @@ def phase_serve(dev):
     return launches, records
 
 
+# ---------------------------------------------------------------- phase 7
+
+FT_EVERY = 4                      # sweep_ckpt_every_chunks: 16 chunks, 4 saves a sweep
+FT_SCORING_CRASHES = (6, 16 + 11)  # sweep 1's chunk 6, sweep 2's chunk 11 (two-pass)
+FT_K = 2000
+FT_STEPS = 250
+DRILL_ARGV = ["--inject-failures", "--n", "50001", "--ks", "500", "--steps", "250"]
+
+
+def _ckpt_bytes(root: str, n_chunks: int, every: int) -> int:
+    """Bytes one uninterrupted checkpointed sweep call wrote: each sweep's
+    payload (fixed shape: its latest step's files) times its saves, plus
+    the generator's entry state."""
+    total = 0
+    for sub in ("entry", "sweep1", "sweep2"):
+        d = os.path.join(root, sub)
+        if not os.path.isdir(d):
+            continue
+        steps = sorted(x for x in os.listdir(d) if re.fullmatch(r"step_\d+", x))
+        if not steps:
+            continue
+        last = os.path.join(d, steps[-1])
+        size = sum(os.path.getsize(os.path.join(last, f)) for f in os.listdir(last))
+        total += size * (1 if sub == "entry" else -(-n_chunks // every))
+    return total
+
+
+def phase_fault_tolerance(dev, scratch: str):
+    """Phase 7 at the path's full width (J = 2, degree 6, n = 250,001,
+    chunk 16,384): resumable builds of both strategies crashed mid-sweep and
+    driven to completion through ``RunSupervisor``, held to the uninterrupted
+    build's bits; adam and lbfgs coreset fits recovered bit-identically
+    (after two straight runs agree), a NaN-weighted fit aborting with the
+    diagnostic; the driver's ``--inject-failures`` drill. Returns (census,
+    records)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.coreset import build_coreset
+    from repro_torch.core.mctm_fit import fit_mctm_streaming
+    from repro_torch.core.scoring import ScoringEngine
+    from repro_torch.data.dgp import generate
+    from repro_torch.ft import FailureSimulator, RunSupervisor, get_ft_config
+    from repro_torch.ft.config import ft_overrides
+    from repro_torch.launch import train_mctm
+
+    errs: list[str] = []
+    census: dict = {}
+    rec: dict = {}
+    ft = get_ft_config()
+    cfg = M.MCTMConfig(J=2, degree=6)
+    Yn = generate("normal_mixture", MAIN_N, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Yn)
+    eng = ScoringEngine(cfg, scaler, chunk_size=CHUNK, device=dev)
+    n_chunks = -(-MAIN_N // CHUNK)
+    k2 = FT_K - int(0.8 * FT_K)
+
+    # ---- resumable builds
+    for strategy, kw in (("two-pass", {}), ("one-pass", {"sketch_size": SKETCH})):
+        args = dict(method="l2-hull", hull_k=k2, strategy=strategy, **kw)
+
+        def score(ckpt=None, resume=False, gen=None):
+            gen = torch.Generator().manual_seed(21) if gen is None else gen
+            return eng.score(Yn, generator=gen, sweep_ckpt=ckpt, resume=resume, **args)
+
+        score()  # warm
+        _sync()
+        t0 = time.perf_counter()
+        plain = score()
+        _sync()
+        plain_s = time.perf_counter() - t0
+        d_clean = os.path.join(scratch, f"build_{strategy}_clean")
+        with ft_overrides(sweep_ckpt_every_chunks=FT_EVERY):
+            t0 = time.perf_counter()
+            clean = score(d_clean)
+            _sync()
+            ckpt_s = time.perf_counter() - t0
+            nbytes = _ckpt_bytes(d_clean, n_chunks, FT_EVERY)
+            d = os.path.join(scratch, f"build_{strategy}")
+            sim = FailureSimulator()
+            for c in FT_SCORING_CRASHES:
+                sim.inject("scoring", c)
+            ft.simulator = sim
+            sup = RunSupervisor(label=f"phase7 {strategy} build")
+            gen = torch.Generator().manual_seed(21)  # one generator across the attempts
+            reset_counts()
+            try:
+                t0 = time.perf_counter()
+                got = sup.run(lambda ctx: score(d, ctx.resume, gen))
+                _sync()
+                resumed_s = time.perf_counter() - t0
+            finally:
+                ft.simulator = None
+            census[f"resumable {strategy} build"] = read_counts()
+        same = {
+            name: bool(torch.equal(torch.as_tensor(getattr(plain, name)),
+                                   torch.as_tensor(getattr(got, name))))
+            for name in ("scores", "gram", "hull_rows")}
+        same_clean = all(np.array_equal(getattr(plain, nm), getattr(clean, nm))
+                         for nm in ("scores", "gram", "hull_rows"))
+        r = {"plain_s": plain_s, "checkpointed_s": ckpt_s, "crashed_and_resumed_s": resumed_s,
+             "checkpoint_bytes": nbytes, "injected": [e["step"] for e in sim.log],
+             "attempts": len(sup.events) + 1, "same_bits_as_uninterrupted": same,
+             "checkpointed_same_bits": same_clean}
+        rec[f"build_{strategy}"] = r
+        log(f"phase 7 resumable {strategy} build (n={MAIN_N:,}, {n_chunks} chunks, save every "
+            f"{FT_EVERY}): {json.dumps(r)}")
+        want = [c for c in FT_SCORING_CRASHES if c <= (2 if strategy == "two-pass" else 1) * n_chunks]
+        if r["injected"] != want or not all(same.values()) or not same_clean:
+            errs.append(f"resumable {strategy} build: {r}")
+
+    # ---- fit recovery on the k = 2,000 coreset
+    cs = build_coreset(cfg, scaler, Yn, FT_K, "l2-hull", generator=torch.Generator().manual_seed(22),
+                       chunk_size=CHUNK, device=dev)
+    Ycs, wcs = Yn[cs.indices], np.asarray(cs.weights, np.float32)
+
+    def fit(method, tag, inject=(), every=50, **kw):
+        mgr = CheckpointManager(os.path.join(scratch, f"fit_{method}_{tag}"), keep=2)
+        sim = FailureSimulator()
+        for phase, step in inject:
+            sim.inject(phase, step)
+        ft.simulator = sim if inject else None
+        try:
+            t0 = time.perf_counter()
+            out = fit_mctm_streaming(cfg, scaler, Ycs, wcs, generator=torch.Generator().manual_seed(23),
+                                     steps=FT_STEPS, lr=0.05, method=method, chunk_size=CHUNK,
+                                     checkpoint=mgr, ckpt_every=every, device=dev, **kw)
+            _sync()
+            return out, time.perf_counter() - t0, [(e["phase"], e["step"]) for e in sim.log]
+        finally:
+            ft.simulator = None
+
+    def same_params(a, b):
+        return all(torch.equal(getattr(a.params, f), getattr(b.params, f))
+                   for f in a.params._fields)
+
+    for method, every, inject in (("adam", 50, (("fit", 120), ("checkpoint", 200))),
+                                  ("lbfgs", 10, (("fit", 30),))):
+        reset_counts()
+        s1, t1, _ = fit(method, "straight1", every=every)
+        s2, t2, _ = fit(method, "straight2", every=every)
+        rec_, tr, log_ = fit(method, "injected", inject, every=every)
+        census[f"fit recovery ({method})"] = read_counts()
+        r = {"straight_s": [t1, t2], "recovered_s": tr, "injected": log_,
+             "straight_runs_agree": same_params(s1, s2),
+             "recovered_same_bits": same_params(s1, rec_),
+             "final_loss": [float(s1.losses[-1]), float(rec_.losses[-1])]}
+        if method == "adam":  # the finiteness read: one host sync a step, in turns
+            turns = []
+            for check in (True, False, False, True):
+                with ft_overrides(nonfinite_rollback=check):
+                    turns.append(fit(method, f"check_{check}", every=0)[1])
+            r["checked_s"], r["unchecked_s"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            r["check_turns_s"] = turns
+        rec[f"fit_{method}"] = r
+        log(f"phase 7 {method} fit recovery (k={FT_K}, {FT_STEPS} steps, ckpt every {every}): "
+            f"{json.dumps(r)}")
+        if not r["straight_runs_agree"]:
+            errs.append(f"two straight {method} fits on the card differ: an op on the fit path "
+                        "is not deterministic")
+        if not r["recovered_same_bits"] or r["injected"] != list(inject):
+            errs.append(f"{method} fit recovery: {r}")
+    # the finiteness read on the full data's adam fit (16 microbatches a
+    # step, one read a step), 50 steps, in turns
+    turns = []
+    for check in (True, False, False, True):
+        with ft_overrides(nonfinite_rollback=check):
+            _sync()
+            t0 = time.perf_counter()
+            fit_mctm_streaming(cfg, scaler, Yn, generator=torch.Generator().manual_seed(24),
+                               steps=50, method="adam", chunk_size=CHUNK, device=dev)
+            _sync()
+            turns.append(time.perf_counter() - t0)
+    rec["full_fit_check_turns_s"] = turns
+    log(f"phase 7 adam full fit (n={MAIN_N:,}, 50 steps) with / without the finiteness read, "
+        f"in turns (checked, unchecked, unchecked, checked): {[round(t, 4) for t in turns]} s")
+    bad = wcs.copy()
+    bad[0] = np.nan
+    with ft_overrides(backoff_base_s=0.0):
+        try:
+            fit_mctm_streaming(cfg, scaler, Ycs, bad, generator=torch.Generator().manual_seed(23),
+                               steps=FT_STEPS, method="adam", chunk_size=CHUNK, device=dev)
+            msg = None
+        except RuntimeError as e:
+            msg = str(e)
+    want = f"retry budget exhausted after {ft.max_retries + 1} attempts"
+    rec["nan_fit_abort"] = (msg or "").splitlines()[0] if msg else None
+    log(f"phase 7 NaN-weighted fit: {rec['nan_fit_abort']}")
+    if msg is None or want not in msg or "non-finite" not in msg:
+        errs.append(f"a NaN-weighted fit did not abort with the diagnostic: {msg}")
+
+    # ---- the driver's drill
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        drill = train_mctm.main(["--device", "cuda", *DRILL_ARGV])
+    except SystemExit as e:
+        fail(f"phase 7: train_mctm {' '.join(DRILL_ARGV)} exited {e.code}")
+    census["driver drill"] = read_counts()
+    r = {"s": time.perf_counter() - t0, "injected": drill["ft"]["injected"],
+         "supervisor_events": len(drill["ft"]["supervisor_events"]),
+         "ratio": drill["per_k"][0]["ratio"], "band": drill["per_k"][0]["band"],
+         "within_band": drill["all_within_band"], "full_fit_s": drill["full_fit_s"]}
+    rec["driver_drill"] = r
+    log(f"phase 7 driver drill (train_mctm {' '.join(DRILL_ARGV)}): {json.dumps(r)}")
+    if len(r["injected"]) != 3 or not r["within_band"]:
+        errs.append(f"the driver drill: {r}")
+    for path, counts in census.items():
+        log(f"census {path}: {json.dumps(counts)}")
+        if counts.get("bernstein", 0) <= 0:
+            errs.append(f"bernstein was not launched on the {path} path")
+    if errs:
+        fail("phase 7: " + "; ".join(errs))
+    return census, rec
+
+
+# ---------------------------------------------------------------- phase 8
+
+STREAM_WINDOWS, STREAM_ROWS = 16, 65_536
+STREAM_K, STREAM_ALPHA = 2000, 0.8
+STREAM_KILL = 9                    # maybe_inject("streaming", 9): window 9's push
+STREAM_MAINTAINERS = {
+    "insertion sketch 784": dict(policy="insertion", sketch_size=SKETCH),
+    "insertion exact": dict(policy="insertion", sketch_size=0),
+    "sliding W=4": dict(policy="sliding", window=4, sketch_size=SKETCH),
+    "decayed gamma=0.9": dict(policy="decayed", decay=0.9, sketch_size=SKETCH),
+}
+STREAM_NLL_REL = 0.3               # tests/test_streaming.py::test_streaming_nll_close_to_full
+DRIFT_CLEAN, DRIFT_SHIFTED = 6, 6
+
+
+def phase_streaming(dev, scratch: str):
+    """Phase 8: Merge & Reduce over a 16 × 65,536-row normal_mixture stream
+    (1,048,576 points, J = 2, degree 6, k = 2,000, α = 0.8) through four
+    maintainers; policy exactness, result() idempotence, a kill at window 9
+    resumed bit-identically, maintain against rebuild, the NLL bound at fixed
+    parameters, a refit reported against the full fit, and drift detection
+    on clean then shifted windows. Returns (census, records)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.coreset import build_coreset
+    from repro_torch.core.mctm_fit import fit_mctm_streaming, streamed_nll
+    from repro_torch.core.streaming import (DriftDetector, StreamingCoresetMaintainer,
+                                            drift_window_nll)
+    from repro_torch.data.dgp import generate
+    from repro_torch.ft import FailureSimulator, InjectedFailure, get_ft_config
+
+    errs: list[str] = []
+    census: dict = {}
+    rec: dict = {}
+    cfg = M.MCTMConfig(J=2, degree=6)
+    n = STREAM_WINDOWS * STREAM_ROWS
+    Yn = generate("normal_mixture", n, seed=1).astype(np.float32)
+    scaler = DataScaler.fit(Yn)
+    windows = [Yn[i * STREAM_ROWS:(i + 1) * STREAM_ROWS] for i in range(STREAM_WINDOWS)]
+
+    def make(kw, **extra):
+        return StreamingCoresetMaintainer(cfg, scaler, STREAM_K, 31, alpha=STREAM_ALPHA,
+                                          device=dev, **kw, **extra)
+
+    results = {}
+    for name, kw in STREAM_MAINTAINERS.items():
+        m = make(kw)
+        reset_counts()
+        push_ms = []
+        for w in windows:
+            t0 = time.perf_counter()
+            m.push(w)
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+        census[f"stream {name}"] = read_counts()
+        t0 = time.perf_counter()
+        r1 = m.result()
+        result_ms = (time.perf_counter() - t0) * 1e3
+        r2 = m.result()
+        results[name] = r1
+        r = {"push_ms_median": float(np.median(push_ms)), "push_ms_max": float(np.max(push_ms)),
+             "push_ms_first": push_ms[0], "result_ms": result_ms,
+             "live_buckets": len(m.live_buckets()), "live_births": m.live_births(),
+             "total_weight": m.total_weight(), "result_size": r1.size,
+             "result_idempotent": bool(np.array_equal(r1.Y, r2.Y)
+                                       and np.array_equal(r1.weights, r2.weights))}
+        if kw["policy"] == "sliding":
+            want = 4 * STREAM_ROWS
+            r["weight_rel_err"] = abs(r["total_weight"] - want) / want
+            if m.live_births() != list(range(STREAM_WINDOWS - 4, STREAM_WINDOWS)) \
+                    or r["weight_rel_err"] > 1e-9:
+                errs.append(f"sliding W=4: births {m.live_births()}, weight {r['total_weight']}")
+        if kw["policy"] == "decayed":
+            g = kw["decay"]
+            want = STREAM_ROWS * (1 - g ** STREAM_WINDOWS) / (1 - g)
+            r["weight_rel_err"] = abs(r["total_weight"] - want) / want
+            if r["weight_rel_err"] > 1e-9:
+                errs.append(f"decayed: weight {r['total_weight']} against {want}")
+        if kw["policy"] == "insertion":
+            r["weight_rel_err"] = abs(r["total_weight"] - n) / n
+        rec[name] = r
+        log(f"phase 8 stream {name}: {json.dumps(r)}")
+        if not r["result_idempotent"] or r1.size != STREAM_K:
+            errs.append(f"{name}: result() is not idempotent or not k points ({r1.size})")
+
+    # ---- kill at window 9, resume from the checkpoint, re-push
+    name = "insertion sketch 784"
+    ft = get_ft_config()
+    d = os.path.join(scratch, "stream")
+    ft.simulator = FailureSimulator().inject("streaming", STREAM_KILL)
+    t0 = time.perf_counter()
+    try:
+        m, done, crashes = make(STREAM_MAINTAINERS[name], ckpt_dir=d), 0, 0
+        while done < STREAM_WINDOWS:
+            try:
+                m.push(windows[done])
+                done = m.windows_done
+            except InjectedFailure:
+                crashes += 1
+                m = make(STREAM_MAINTAINERS[name], ckpt_dir=d)
+                done = m.resume()
+    finally:
+        ft.simulator = None
+    resumed = m.result()
+    r = {"crashes": crashes, "resumed_at": STREAM_KILL - 1, "s": time.perf_counter() - t0,
+         "same_bits": bool(np.array_equal(resumed.Y, results[name].Y)
+                           and np.array_equal(resumed.weights, results[name].weights))}
+    rec["resume"] = r
+    log(f"phase 8 {name} killed at window {STREAM_KILL}, resumed: {json.dumps(r)}")
+    if crashes != 1 or not r["same_bits"]:
+        errs.append(f"the resumed stream differs from the uninterrupted one: {r}")
+
+    # ---- maintain against rebuild
+    rb = {}
+    for tag, sk in (("one-pass sketch 784", SKETCH), ("two-pass", 0)):
+        _sync()
+        t0 = time.perf_counter()
+        cs = build_coreset(cfg, scaler, Yn, STREAM_K, "l2-hull", generator=torch.Generator().manual_seed(32),
+                           sketch_size=sk, chunk_size=STREAM_ROWS, device=dev)
+        _sync()
+        rb[tag] = time.perf_counter() - t0
+    rec["rebuild_s"] = rb
+    log(f"phase 8 one batch build_coreset over the {n:,}-row prefix: {json.dumps(rb)} s; a "
+        f"maintained window costs {rec[name]['push_ms_median']:.1f} ms (median push)")
+
+    # ---- the NLL of result() at fixed parameters, and a refit
+    res = results[name]
+    p0 = M.init_params(cfg, generator=torch.Generator().manual_seed(5), device=dev)
+    full_pp = streamed_nll(cfg, scaler, p0, Yn, chunk=STREAM_ROWS, device=dev) / n
+    wsum = float(res.weights.sum())
+    cs_pp = streamed_nll(cfg, scaler, p0, res.Y, res.weights, chunk=STREAM_ROWS, device=dev) / wsum
+    nll_rel = abs(cs_pp - full_pp) / abs(full_pp)
+    t0 = time.perf_counter()
+    full_fit = fit_mctm_streaming(cfg, scaler, Yn, generator=torch.Generator().manual_seed(33),
+                                  steps=FT_STEPS, method="adam", chunk_size=STREAM_ROWS, device=dev)
+    full_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs_fit = fit_mctm_streaming(cfg, scaler, res.Y.astype(np.float32),
+                                np.asarray(res.weights, np.float32),
+                                generator=torch.Generator().manual_seed(33), steps=FT_STEPS,
+                                method="adam", chunk_size=STREAM_ROWS, device=dev)
+    cs_fit_s = time.perf_counter() - t0
+    at_cs = streamed_nll(cfg, scaler, cs_fit.params, Yn, chunk=STREAM_ROWS, device=dev) / n
+    at_full = streamed_nll(cfg, scaler, full_fit.params, Yn, chunk=STREAM_ROWS, device=dev) / n
+    rec["nll"] = {"full_pp_at_init": full_pp, "coreset_pp_at_init": cs_pp, "rel": nll_rel,
+                  "refit_full_nll_pp": at_cs, "full_fit_nll_pp": at_full,
+                  "ratio": at_cs / at_full, "refit_s": cs_fit_s, "full_fit_s": full_fit_s}
+    log(f"phase 8 NLL of result() at fixed params and a refit: {json.dumps(rec['nll'])}")
+    if not nll_rel <= STREAM_NLL_REL:
+        errs.append(f"result()'s weighted NLL lies {nll_rel} from the full data's")
+
+    # ---- drift: params fit on 2 clean windows, 6 clean then 6 shifted windows
+    fit2 = fit_mctm_streaming(cfg, scaler, np.concatenate(windows[:2]),
+                              generator=torch.Generator().manual_seed(34), steps=FT_STEPS,
+                              method="adam", chunk_size=STREAM_ROWS, device=dev)
+    det = DriftDetector()
+    std = Yn.std(0)
+    fired, log_ = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(DRIFT_CLEAN + DRIFT_SHIFTED):
+        w = windows[2 + i]
+        if i >= DRIFT_CLEAN:
+            w = w * 1.6 + 2 * std
+        nll_pp = drift_window_nll(cfg, scaler, fit2.params, w, chunk=CHUNK, device=dev)
+        fired.append(det.observe(nll_pp))
+        log_.append(round(nll_pp, 5))
+    drift_s = time.perf_counter() - t0
+    census["drift"] = read_counts()
+    rec["drift"] = {"nll_pp": log_, "fired": fired, "ewma": det.ewma, "alerts": det.alerts,
+                    "s": drift_s}
+    log(f"phase 8 drift (6 clean, 6 shifted windows): {json.dumps(rec['drift'])}")
+    if any(fired[:DRIFT_CLEAN]) or not any(fired[DRIFT_CLEAN:]):
+        errs.append(f"the drift detector fired {fired} (clean first)")
+    need = {"stream insertion sketch 784": ("bernstein", "sweep"),
+            "stream insertion exact": ("bernstein", "gram", "extremes"),
+            "drift": ("bernstein",)}
+    for path, counts in census.items():
+        log(f"census {path}: {json.dumps(counts)}")
+        for kname in need.get(path, ()):
+            if counts.get(kname, 0) <= 0:
+                errs.append(f"{kname} was not launched on the {path} path")
+    if errs:
+        fail("phase 8: " + "; ".join(errs))
+    return census, rec
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
@@ -1907,29 +2458,43 @@ def main() -> None:
     card = phase_environment()
     mctm_kernels, wide = phase_kernels(dev)
     kernels_at_d16 = phase_kernels_d16(dev)
-    kernels = mctm_kernels + phase_lm_kernels(dev)
+    wide_row, wide["extremes_wide"] = phase_wide_extremes(dev)
+    kernels = mctm_kernels + [wide_row] + phase_lm_kernels(dev)
     phase_small_agreement(dev)
     wide["scoring_j10"] = phase_wide_scoring(dev)
     launches, two_pass_params = phase_path(dev)
     launches["gram_tiled"] = wide["scoring_j10"]["gram_tiled_launches"]
+    launches["extremes_wide"] = wide["extremes_wide"]["hull_api_d70"]["launches"]["extremes_wide"]
     phase_lm_small_agreement(dev)
     serve_launches, serve = phase_serve(dev)
     launches.update(serve_launches)
     t0 = time.perf_counter()
     core_census, core = phase_core(dev, two_pass_params, kernels_at_d16)
     log(f"phase 6 took {time.perf_counter() - t0:.1f}s")
+    scratch = os.path.join(ROOT, "build", "chip_smoke_ft")
+    shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    ft_census, ft_rec = phase_fault_tolerance(dev, scratch)
+    log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    stream_census, stream_rec = phase_streaming(dev, scratch)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(scratch, ignore_errors=True)
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on its path")
         name = "gram_cluster" if row["name"] == "gram" else row["name"]
-        row["launches_phase6"] = {path: counts[name] for path, counts in core_census.items()
-                                  if counts.get(name)}
+        for key, cen in (("launches_phase6", core_census), ("launches_phase7", ft_census),
+                         ("launches_phase8", stream_census)):
+            row[key] = {path: counts[name] for path, counts in cen.items() if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve, "core": core,
-                   "core_census": core_census}, f, indent=1)
+                   "core_census": core_census, "fault_tolerance": ft_rec,
+                   "ft_census": ft_census, "streaming": stream_rec,
+                   "stream_census": stream_census}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

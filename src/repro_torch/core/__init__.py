@@ -1,7 +1,7 @@
 """The paper's core, ported from ``repro.core``: MCTM models, the fit layer,
 the scoring engine and coreset constructions, leverage scores, hull
-ε-kernels and the conditional model. (``repro.core``'s streaming and
-distributed names wait for ROADMAP Queue A 6 and 9.)
+ε-kernels, the conditional model and streaming maintenance. (``repro.core``'s
+distributed names wait for ROADMAP Queue A 9.)
 
 Public API:
   - MCTMConfig / init_params / nll / fit_mctm / log_density / sample
@@ -11,6 +11,7 @@ Public API:
   - ScoringEngine + pass strategies (TwoPassExact / TwoPassSketched /
     OnePassSketched)
   - the conditional MCTM (CMCTMConfig / fit_cmctm / build_conditional_coreset)
+  - MergeReduceCoreset / StreamingCoresetMaintainer / DriftDetector (streams)
 
 The names resolve on first use (PEP 562): the kernels' plain versions import
 ``repro_torch.core.bernstein``, so importing every module here eagerly would
@@ -53,6 +54,9 @@ _MODULES = {
     ),
     "sensitivity": (
         "sensitivity_sample",
+    ),
+    "streaming": (
+        "DriftDetector", "MergeReduceCoreset", "StreamingCoresetMaintainer",
     ),
 }
 _EXPORTS = {name: mod for mod, names in _MODULES.items() for name in names}

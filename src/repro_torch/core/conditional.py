@@ -16,8 +16,7 @@ not given is drawn from ``generator`` in that order (the reference splits
 its key as (draw, hull[, sketch]) instead).
 
 Not ported yet (they raise ``NotImplementedError``): ``fit_cmctm``'s
-``minibatch`` method (ROADMAP Queue A 1), ``mesh=`` (Queue A 9) and
-``checkpoint=``/``resume=`` (Queue A 5).
+``minibatch`` method (ROADMAP Queue A 1) and ``mesh=`` (Queue A 9).
 """
 from __future__ import annotations
 
@@ -173,6 +172,7 @@ def fit_cmctm(
     gtol: float = 1e-6,
     mesh=None,
     checkpoint=None,
+    ckpt_every: int = 0,
     resume: bool = False,
     device=None,
 ) -> M.FitResult:
@@ -182,16 +182,15 @@ def fit_cmctm(
     ``gtol``); rows beyond ``chunk_size`` are featurized microbatch by
     microbatch. ``init`` (or ``init_cparams`` from ``generator``) is the
     start. The final NLL is summed chunk by chunk, each chunk's float32 sum
-    added to a float total."""
+    added to a float total. ``checkpoint=`` (a ``CheckpointManager``) +
+    ``resume=True`` restart from the latest saved step (``ckpt_every``
+    steps apart), in both modes."""
     from repro_torch.core.mctm_fit import (
         default_fit_optimizer, fit_density_model, fit_featurize, method_batch_plan,
     )
 
     if mesh is not None:
         raise NotImplementedError("fit_cmctm(mesh=) is not ported yet (ROADMAP Queue A 9)")
-    if checkpoint is not None or resume:
-        raise NotImplementedError(
-            "fit_cmctm(checkpoint=, resume=) is not ported yet (ROADMAP Queue A 5)")
     dev = resolve_device(device)
     YX = _stack_yx(cfg, Y, X)
     n = int(YX.shape[0])
@@ -212,6 +211,7 @@ def fit_cmctm(
     params, losses = fit_density_model(
         model, init, batch, optimizer=default_fit_optimizer(lr, steps), steps=steps,
         method=method, microbatches=microbatches, history=history, gtol=gtol,
+        checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
         label=f"cmctm-{method}", device=dev,
     )
     params = CMCTMParams(*(t.detach() for t in params))

@@ -153,13 +153,18 @@ def build_coreset(
     hull_normals=None,
     hull_dirs=None,
     draw=None,
+    sweep_ckpt=None,
+    resume: bool = False,
     device=None,
 ) -> CoresetResult:
     """Paper Algorithm 1 (and its baselines): indices + weights.
 
     Random plans, each drawn from ``generator`` in this order when not
     given: the CountSketch ``plan`` (sketch_size > 0), the hull net's
-    ``hull_normals``, the sample ``draw`` (for ``uniform``: the k ids)."""
+    ``hull_normals``, the sample ``draw`` (for ``uniform``: the k ids).
+    ``sweep_ckpt`` / ``resume``: the scoring sweep's checkpoints
+    (``ScoringEngine.score``); a resumed build draws what the uninterrupted
+    one draws."""
     t0 = time.perf_counter()
     Y = np.asarray(Y)
     n = Y.shape[0]
@@ -179,6 +184,7 @@ def build_coreset(
     res = engine.score(
         Y, method=method, generator=generator, plan=plan, sketch_size=sketch_size,
         hull_k=k_hull, hull_normals=hull_normals, hull_dirs=hull_dirs,
+        sweep_ckpt=sweep_ckpt, resume=resume,
     )
     return coreset_from_scoring(res, n, k, method, alpha, t0, generator=generator, draw=draw)
 

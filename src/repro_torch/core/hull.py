@@ -12,9 +12,8 @@ version for a CPU tensor):
   * ``epsilon_kernel_indices`` — selects k extremal points by directional
     queries argmax_i ⟨p_i, v⟩ over a spread of directions (random + PCA).
 
-The extremes kernel takes d ≤ ``MAX_DP`` (16) coordinates; a wider P on the
-card raises ``ValueError`` (ROADMAP Queue C 5), where the reference takes
-any d.
+The extremes kernel takes points of any d (a template body up to 16
+coordinates, a wide body beyond), as the reference does.
 """
 from __future__ import annotations
 
@@ -23,7 +22,6 @@ import torch
 
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.extremes import directional_extremes
-from repro_torch.kernels.extremes.ops import MAX_DP
 
 __all__ = [
     "greedy_hull_projection",
@@ -33,13 +31,6 @@ __all__ = [
     "hull_normals",
     "stable_first_unique",
 ]
-
-
-def _check_width(P: torch.Tensor) -> None:
-    if P.device.type == "cuda" and P.shape[1] > MAX_DP:
-        raise ValueError(
-            f"the hull on the card takes points of d ≤ {MAX_DP} coordinates (the extremes "
-            f"kernel's limit), got d = {P.shape[1]}; lifting it is ROADMAP Queue C 5")
 
 
 def greedy_hull_projection(P, q, eps: float = 1e-2, max_iter: int = 64, *, device=None):
@@ -54,7 +45,6 @@ def greedy_hull_projection(P, q, eps: float = 1e-2, max_iter: int = 64, *, devic
     tensors ``(t (d,), support (max_iter + 1,) int64 with the start point
     first, dists (max_iter,))``."""
     P = to_tensor(P, torch.float32, resolve_device(device)).contiguous()
-    _check_width(P)
     q = to_tensor(q, P.dtype, P.device)
     n = P.shape[0]
     i0 = torch.argmin(torch.sum(torch.square(P - q), dim=1))
@@ -163,7 +153,6 @@ def epsilon_kernel_indices(
         dirs = _spread_directions(P_np, max(oversample * k, 8), normals=normals,
                                   generator=generator)
     Pt = torch.as_tensor(P_np, device=dev)
-    _check_width(Pt)
     _, imax, _, imin = directional_extremes(Pt, to_tensor(dirs, torch.float32, dev).contiguous())
     cand = torch.cat([imax, imin]).cpu().numpy().astype(np.int64)
     return stable_first_unique(cand, k)

@@ -188,6 +188,9 @@ def fit_mctm(
     chunk_size: int | None = None,
     microbatches: int | None = None,
     optimizer=None,
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
     device=None,
 ) -> FitResult:
     """Weighted maximum-likelihood fit of an MCTM (``weights`` are coreset
@@ -195,7 +198,8 @@ def fit_mctm(
     dispatches to ``mctm_fit.fit_mctm_streaming`` (``"minibatch"`` is not
     ported yet); ``"scipy-lbfgs"`` is the dense small-n oracle kept for
     tests (scipy's L-BFGS-B on the flat float64 vector, featurizing inside
-    the objective)."""
+    the objective). ``checkpoint`` / ``ckpt_every`` / ``resume`` pass to the
+    fit layer (``mctm_fit``)."""
     from repro_torch.core import mctm_fit
     from repro_torch.core.scoring import DEFAULT_CHUNK
 
@@ -205,7 +209,8 @@ def fit_mctm(
             generator=generator, init=init, steps=steps, lr=lr, optimizer=optimizer,
             method=method,
             chunk_size=DEFAULT_CHUNK if chunk_size is None else chunk_size,
-            microbatches=microbatches, device=device,
+            microbatches=microbatches, checkpoint=checkpoint, ckpt_every=ckpt_every,
+            resume=resume, device=device,
         )
     if method != "scipy-lbfgs":
         raise ValueError(f"unknown fit method: {method}")

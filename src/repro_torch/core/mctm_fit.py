@@ -27,10 +27,20 @@ lbfgs is tested against.
 ``coreset_epsilon`` measures the realized ε̂ = max_θ |NLL_C(θ) − NLL(θ)| /
 |NLL(θ)| and ``likelihood_ratio`` the ratio checked against the (1±ε̂) band.
 
+Both fits run their steps through ``train.loop.train_loop`` under an
+``ft.RunSupervisor``, as the reference's do: ``checkpoint`` (a
+``CheckpointManager``) saves the fit state every ``ckpt_every`` steps and at
+the end (adam: ``TrainState`` — step, params, optimizer moments; lbfgs: its
+``LBFGSState``), ``resume=True`` restarts from the latest save, and a
+retryable failure (an injected fault, a non-finite loss or gradient, which
+the loop detects before that state can be saved) rolls back to it — with
+the LR backed off by ``optim.scale_updates`` after a non-finite one. Every
+step is a deterministic function of the state, so a resumed fit lands on the
+straight run's bits. A non-finite objective that repeats on every attempt
+(NaN data) ends in the supervisor's "retry budget exhausted" diagnostic.
+
 Not ported yet (they raise ``NotImplementedError``): the ``minibatch``
-method (it draws through ``data/pipeline.py``, ROADMAP Queue A 8), meshes,
-checkpoints and the fault-tolerance supervisor; a non-finite loss raises
-``FloatingPointError``.
+method (it draws through ``data/pipeline.py``, ROADMAP Queue A 8) and meshes.
 """
 from __future__ import annotations
 
@@ -43,10 +53,15 @@ import torch
 from repro_torch.core import mctm as M
 from repro_torch.core.scoring import DEFAULT_CHUNK, _mctm_featurize
 from repro_torch.device import resolve_device, to_tensor
-from repro_torch.optim import Optimizer, adamw, apply_updates
+from repro_torch.ft import RunSupervisor
+from repro_torch.ft.config import get_ft_config
+from repro_torch.ft.failure import NonFiniteError
+from repro_torch.optim import Optimizer, adamw, apply_updates, scale_updates
+from repro_torch.train.loop import restore_train_state, train_loop
 
 __all__ = [
     "MCTMDensityModel",
+    "TrainState",
     "LBFGSState",
     "LAST_LBFGS_SWEEPS",
     "fit_featurize",
@@ -186,6 +201,17 @@ def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
     return w, total_w, chunk, mb, total_w if method == "lbfgs" else total_w / mb
 
 
+class TrainState(NamedTuple):
+    """The adam fit's state: the step (the schedule and the bias correction
+    read it), the parameters (the caller's tuple type) and the optimizer's
+    moments, each a ``model.leaf_type`` of the parameters' fields — the
+    reference's ``TrainState`` layout, leaf for leaf."""
+
+    step: int
+    params: object
+    opt_state: dict
+
+
 def fit_density_model(
     model,
     params0,
@@ -198,6 +224,9 @@ def fit_density_model(
     history: int = 10,
     gtol: float = 1e-6,
     max_linesearch: int = 20,
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
     log_every: int = 0,
     label: str = "fit",
     device=None,
@@ -212,12 +241,14 @@ def fit_density_model(
     ``params0`` is any parameter tuple (``MCTMParams``, the conditional
     model's three-leaf ``CMCTMParams``): its leaves are optimized in the
     order of its ``_fields`` (the order ``ravel_pytree`` flattens a
-    NamedTuple in) and the result is of its own type. Returns ``(params,
-    losses)`` with one float per step."""
+    NamedTuple in) and the result is of its own type. ``checkpoint``,
+    ``ckpt_every``, ``resume``: see the module doc. Returns ``(params,
+    losses)`` with one float per step of the final attempt."""
     if method == "lbfgs":
         return _fit_lbfgs(
             model, params0, batch, steps=steps, microbatches=microbatches,
             history=history, gtol=gtol, max_linesearch=max_linesearch,
+            checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
             log_every=log_every, label=label, device=device,
         )
     _check_method(method)
@@ -228,35 +259,55 @@ def fit_density_model(
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     mbatches = _microbatches(_pad_batch(batch, mb)[0], mb)
     fields = params0._fields
-    params = type(params0)(*(
-        getattr(params0, f).detach().to(dev).clone().requires_grad_(True) for f in fields))
-    leaves = [getattr(params, f) for f in fields]
-    opt_state = optimizer.init(leaves)
-    losses = []
+    leaf_type = getattr(model, "leaf_type", None) or type(params0)
     scale = 1.0 / mb
-    for step in range(steps):
-        if mb == 1:
-            loss = model.loss_fn(params, mbatches[0])
-            grads = torch.autograd.grad(loss, leaves)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = [torch.zeros_like(p) for p in leaves]
-            for mbatch in mbatches:
-                li = model.loss_fn(params, mbatch)
-                gi = torch.autograd.grad(li, leaves)
-                loss = loss + li.detach()
-                grads = [a + g for a, g in zip(grads, gi)]
-            grads = [g * scale for g in grads]
-            loss = loss * scale
-        updates, opt_state = optimizer.update(grads, opt_state, leaves, step)
-        apply_updates(leaves, updates)
-        losses.append(loss.detach())
-        if log_every and (step + 1) % log_every == 0:
-            print(f"[{label}] step {step + 1:5d} loss {float(loss):.4f}", flush=True)
+
+    def make_step(opt: Optimizer):
+        def step_fn(state: TrainState, mbatches):
+            params = state.params
+            leaves = [getattr(params, f) for f in fields]
+            if mb == 1:
+                loss = model.loss_fn(params, mbatches[0])
+                grads = torch.autograd.grad(loss, leaves)
+            else:
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                grads = [torch.zeros_like(p) for p in leaves]
+                for mbatch in mbatches:
+                    li = model.loss_fn(params, mbatch)
+                    gi = torch.autograd.grad(li, leaves)
+                    loss = loss + li.detach()
+                    grads = [a + g for a, g in zip(grads, gi)]
+                grads = [g * scale for g in grads]
+                loss = loss * scale
+            moments = {k: list(v) for k, v in state.opt_state.items()}
+            updates, moments = opt.update(grads, moments, leaves, state.step)
+            apply_updates(leaves, updates)
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+            new = TrainState(state.step + 1, params,
+                             {k: leaf_type(*v) for k, v in moments.items()})
+            return new, {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+
+        return step_fn
+
+    def attempt(ctx):
+        opt = scale_updates(optimizer, ctx.lr_scale)
+        # fresh leaves every attempt: the steps update them in place
+        params = type(params0)(*(
+            getattr(params0, f).detach().to(dev).clone().requires_grad_(True) for f in fields))
+        init = opt.init([getattr(params, f) for f in fields])
+        state = TrainState(0, params, {k: leaf_type(*v) for k, v in init.items()})
+        start = 0
+        if resume or ctx.resume:
+            state, start = restore_train_state(checkpoint, state)
+            state = state._replace(params=type(params0)(*(
+                getattr(state.params, f).detach().requires_grad_(True) for f in fields)))
+        return train_loop(make_step(opt), state, lambda i: mbatches, steps, start=start,
+                          mgr=checkpoint, ckpt_every=ckpt_every, log_every=log_every,
+                          label=label)
+
+    state, losses = RunSupervisor(label=label).run(attempt)
     out = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(0)
-    if not np.all(np.isfinite(out)):
-        raise FloatingPointError(f"[{label}] non-finite loss during the fit")
-    return params, out
+    return state.params, out
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +419,9 @@ def _fit_lbfgs(
     history: int = 10,
     gtol: float = 1e-6,
     max_linesearch: int = 20,
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
     log_every: int = 0,
     label: str = "lbfgs",
     device=None,
@@ -382,8 +436,11 @@ def _fit_lbfgs(
     direction and the ring run on the host in float64 from the float32
     state. Once ``gtol`` is reached, or no Armijo point exists along a
     descent direction, ``converged`` latches and the remaining steps are
-    free no-ops that each append the same loss. A non-finite loss or
-    gradient raises ``FloatingPointError``."""
+    free no-ops that each append the same loss. Every iteration is a
+    function of (state, batch) alone, so a checkpointed ``LBFGSState``
+    resumes the straight run bit for bit. A non-finite loss raises
+    ``NonFiniteError`` (the supervisor's retry, then its diagnostic), as
+    does a non-finite gradient norm through ``train_loop``'s check."""
     dev = resolve_device(device)
     microbatches = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -405,9 +462,10 @@ def _fit_lbfgs(
         return np.concatenate([t.detach().reshape(-1).cpu().numpy() for t in tensors]).astype(
             np.float64)
 
-    def step_fn(state: LBFGSState) -> tuple[LBFGSState, np.float32]:
+    def step_fn(state: LBFGSState, batch) -> tuple[LBFGSState, dict]:
         if state.converged:
-            return state._replace(step=state.step + 1), state.loss
+            return state._replace(step=state.step + 1), {
+                "loss": state.loss, "grad_norm": np.float32(0.0)}
         sweeps["iters"] += 1
         x = np.asarray(state.flat, np.float64)
         if state.have_grad:
@@ -420,12 +478,17 @@ def _fit_lbfgs(
             g = ravel(grads)
             f0 = float(loss)
         gnorm = float(np.linalg.norm(g))
-        if not (np.isfinite(f0) and np.isfinite(gnorm)):
-            raise FloatingPointError(
-                f"[{label}] non-finite loss {f0} or gradient norm {gnorm} at step {state.step}")
+        metrics = {"loss": np.float32(f0), "grad_norm": np.float32(gnorm)}
+        if not np.isfinite(f0):
+            if get_ft_config().nonfinite_rollback:
+                # a deterministic objective: the same on every retry, so the
+                # supervisor's budget drains to its diagnostic
+                raise NonFiniteError(state.step, loss=f0, grad_norm=gnorm)
+            return state._replace(step=state.step + 1, loss=np.float32(f0),
+                                  converged=True), metrics
         if gnorm <= gtol:
             return state._replace(step=state.step + 1, loss=np.float32(f0),
-                                  converged=True), np.float32(f0)
+                                  converged=True), metrics
         count = state.count
         S = np.asarray(state.mem_s, np.float64)
         Yv = np.asarray(state.mem_y, np.float64)
@@ -449,7 +512,7 @@ def _fit_lbfgs(
             t *= 0.5
         if not armijo:
             return state._replace(step=state.step + 1, loss=np.float32(f0),
-                                  converged=True), np.float32(f0)
+                                  converged=True), metrics
         s = t * d
         x_new = x + s
         y = ravel(hvp(unravel(x_new), unravel(s), batch))
@@ -464,25 +527,31 @@ def _fit_lbfgs(
             else:
                 S, Yv, rho = np.roll(S, -1, 0), np.roll(Yv, -1, 0), np.roll(rho, -1, 0)
                 S[-1], Yv[-1], rho[-1] = s, y, 1.0 / sy
+        metrics["loss"] = np.float32(f_t)
         return LBFGSState(
             step=state.step + 1, flat=x_new.astype(np.float32), loss=np.float32(f_t),
             grad=g_t.astype(np.float32), have_grad=True, mem_s=S.astype(np.float32),
             mem_y=Yv.astype(np.float32), mem_rho=rho.astype(np.float32), count=count,
             converged=False,
-        ), np.float32(f_t)
+        ), metrics
 
-    state = LBFGSState(
-        step=0, flat=ravel([getattr(params0, f) for f in fields]).astype(np.float32),
-        loss=np.float32(np.inf), grad=np.zeros(P, np.float32), have_grad=False,
-        mem_s=np.zeros((m, P), np.float32), mem_y=np.zeros((m, P), np.float32),
-        mem_rho=np.zeros(m, np.float32), count=0, converged=False,
-    )
-    losses = []
-    for i in range(steps):
-        state, loss = step_fn(state)
-        losses.append(loss)
-        if log_every and (i + 1) % log_every == 0:
-            print(f"[{label}] step {i + 1:5d} loss {float(loss):.4f}", flush=True)
+    flat0 = ravel([getattr(params0, f) for f in fields]).astype(np.float32)
+
+    def attempt(ctx):
+        # a fresh iterate every attempt; resume pulls the latest good checkpoint
+        state = LBFGSState(
+            step=0, flat=flat0.copy(), loss=np.float32(np.inf), grad=np.zeros(P, np.float32),
+            have_grad=False, mem_s=np.zeros((m, P), np.float32),
+            mem_y=np.zeros((m, P), np.float32), mem_rho=np.zeros(m, np.float32), count=0,
+            converged=False,
+        )
+        start = 0
+        if resume or ctx.resume:
+            state, start = restore_train_state(checkpoint, state)
+        return train_loop(step_fn, state, lambda i: batch, steps, start=start, mgr=checkpoint,
+                          ckpt_every=ckpt_every, log_every=log_every, label=label)
+
+    state, losses = RunSupervisor(label=label).run(attempt)
     LAST_LBFGS_SWEEPS.clear()
     LAST_LBFGS_SWEEPS.update(sweeps)
     return type(params0)(*unravel(state.flat)), np.asarray([float(x) for x in losses], np.float64)
@@ -505,6 +574,9 @@ def fit_mctm_streaming(
     history: int = 10,
     gtol: float = 1e-6,
     featurize: Callable | None = None,
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
     log_every: int = 0,
     device=None,
 ) -> M.FitResult:
@@ -513,7 +585,8 @@ def fit_mctm_streaming(
     ``init`` (or fresh ``init_params`` from ``generator``) is the start.
     ``method``: ``"adam"`` (any first-order ``optimizer``) or ``"lbfgs"``
     (streaming-HVP quasi-Newton; ``steps`` are iterations, early-stopping
-    at ``gtol``)."""
+    at ``gtol``). ``checkpoint`` / ``ckpt_every`` / ``resume``: the fit
+    layer's supervised checkpoints (module doc)."""
     _check_method(method)
     dev = resolve_device(device)
     Y = np.asarray(Y, np.float32)
@@ -538,6 +611,7 @@ def fit_mctm_streaming(
         model, init, batch,
         optimizer=optimizer or default_fit_optimizer(lr, steps),
         steps=steps, method=method, microbatches=microbatches, history=history, gtol=gtol,
+        checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
         log_every=log_every, label=f"mctm-{method}", device=dev,
     )
     final = streamed_nll(

@@ -32,12 +32,22 @@ module, in a fixed order (each bucket's rows added in ascending row order
 from the carry, no ``index_add_``), since the sweep kernel is float32 only.
 Their moments, z rows and extremes stay float32, as in the reference.
 
-Not ported yet (they raise ``NotImplementedError``): ``sweep_ckpt=`` /
-``resume=`` checkpointed sweeps (ROADMAP Queue A 5).
+``sweep_ckpt=`` (a directory) checkpoints each sweep's carry every ``ft``
+config ``sweep_ckpt_every_chunks`` chunks with its chunk cursor
+(``_SweepCheckpoints``: ``sweep1/``, ``sweep2/``), and ``resume=True``
+restarts a crashed sweep from its cursor; the result is the uninterrupted
+sweep's, bit for bit. The random plans drawn from ``generator`` are part of
+that: a checkpoint of the generator's state at entry (``entry/``, written
+before any draw) is restored by a resume before it draws, so a resumed call
+draws the same plan and net and leaves the generator where the
+uninterrupted call would. Without
+``sweep_ckpt`` the loop is the plain one (no probe featurize, no added
+host read); both call ``ft.maybe_inject("scoring", …)`` after each chunk.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -45,6 +55,7 @@ import torch
 
 from repro_torch.core.hull import hull_directions, stable_first_unique
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.ft.config import get_ft_config, maybe_inject
 from repro_torch.kernels.bernstein import bernstein_featurize
 from repro_torch.kernels.extremes import directional_extremes
 from repro_torch.kernels.gram import gram_matrix
@@ -278,6 +289,21 @@ class RunningExtremes:
     def candidates(self) -> np.ndarray:
         """ALL distinct extremal row ids, first-occurrence order (≤ 2m)."""
         return stable_first_unique(np.concatenate([self.best_imax, self.best_imin]))
+
+    def state(self) -> dict[str, np.ndarray]:
+        """Checkpointable snapshot (f32/int64 arrays: an exact round trip)."""
+        return {
+            "max": self.best_max.copy(),
+            "imax": self.best_imax.copy(),
+            "min": self.best_min.copy(),
+            "imin": self.best_imin.copy(),
+        }
+
+    def load(self, s) -> None:
+        self.best_max = np.asarray(s["max"], np.float32).copy()
+        self.best_imax = np.asarray(s["imax"], np.int64).copy()
+        self.best_min = np.asarray(s["min"], np.float32).copy()
+        self.best_imin = np.asarray(s["imin"], np.int64).copy()
 
 
 def finalize_scoring(
@@ -543,6 +569,25 @@ def resolve_strategy(strategy, *, sketch_size: int = 0, gram_dtype: str = "float
 # --------------------------------------------------------------------------
 
 
+class _SweepCheckpoints:
+    """Per-sweep ``CheckpointManager`` pair for resumable chunk scans.
+
+    ``root`` is a directory (or anything with a ``directory`` attribute);
+    sweeps 1 and 2 get separate subdirectories so their cursors cannot
+    shadow each other, and ``entry/`` holds the generator's state at the
+    call's entry. Cadence comes from the ``ft`` config."""
+
+    def __init__(self, root):
+        from repro_torch.checkpoint import CheckpointManager
+
+        if not isinstance(root, (str, os.PathLike)):
+            root = getattr(root, "directory")
+        self.every = max(int(get_ft_config().sweep_ckpt_every_chunks), 1)
+        self.mgr0 = CheckpointManager(os.path.join(str(root), "entry"), keep=1)
+        self.mgr1 = CheckpointManager(os.path.join(str(root), "sweep1"), keep=2)
+        self.mgr2 = CheckpointManager(os.path.join(str(root), "sweep2"), keep=2)
+
+
 class ScoringEngine:
     """Drives the pre-sampling phase of Algorithm 1 in O(chunk) memory (the
     one-pass strategy also retains its z rows).
@@ -605,9 +650,14 @@ class ScoringEngine:
         ``(rows, signs, omega)``; ``hull_normals`` (m, p): the direction
         net's normal draws; ``hull_dirs`` (m', p): the whole net, overriding
         it. What is not given is drawn from ``generator``.
+
+        ``sweep_ckpt`` (a directory) saves the generator's state at entry and
+        each sweep's carry — strategy state, running extremes, the retained
+        z rows or emitted leverage, the chunk cursor — every
+        ``sweep_ckpt_every_chunks`` chunks; with ``resume=True`` a crashed
+        sweep restarts from its cursor and the result is bit-identical to
+        the uninterrupted sweep's (module doc).
         """
-        if sweep_ckpt is not None or resume:
-            raise NotImplementedError("sweep_ckpt= / resume= are not ported yet")
         if method not in SCORE_METHODS:
             raise ValueError(f"unknown scoring method: {method}")
         Y = to_tensor(Y, torch.float32, self.device)
@@ -629,7 +679,7 @@ class ScoringEngine:
         chunk = self.chunk_size if self.chunk_size > 0 else n
         return self._drive(
             strat, generator, plan, Y, sqrt_w, n, chunk, method, ridge_reg, hull_k,
-            hull_normals, hull_dirs,
+            hull_normals, hull_dirs, sweep_ckpt=sweep_ckpt, resume=resume,
         )
 
     def _net(self, build, hull_normals, hull_dirs, generator):
@@ -639,12 +689,19 @@ class ScoringEngine:
                                device=self.device)
 
     def _drive(self, strat, generator, plan_in, Y, sqrt_w, n, chunk, method, ridge_reg,
-               hull_k, hull_normals, hull_dirs) -> ScoringResult:
+               hull_k, hull_normals, hull_dirs, sweep_ckpt=None, resume=False) -> ScoringResult:
         """The shared chunk loop. Sweep 1 streams every chunk through
         ``strat.fused_update`` (one-pass: with the extremes against the
         upfront net). Two-pass strategies re-stream for leverage and the
         extremes against the moment net; one-pass reads leverage off the
-        retained z blocks."""
+        retained z rows.
+
+        With ``sweep_ckpt`` each sweep's carry is a fixed-shape payload saved
+        every N chunks with its cursor, and ``resume`` skips the chunks the
+        cursor covers. Only this path pays a shape-probing featurize of chunk
+        0, keeps the z rows in one (n, width) buffer and reads the carry to
+        the host at each save; the between-sweep algebra is recomputed from
+        the restored carry."""
         featurize = self.featurize
         dev = self.device
         r = self.rows_per_point
@@ -671,36 +728,87 @@ class ScoringEngine:
                 cached["c"] = _prep(lo, hi)
             return cached["c"]
 
+        def begin(D, p):
+            plan = strat.begin(n, D, generator, plan_in, dev)
+            state = strat.init_state(D, p, dev)
+            dirs1 = ext = None
+            if strat.one_pass and want_hull:
+                dirs1 = self._net(
+                    lambda **kw: upfront_directions(p, hull_k, self.hull_oversample, **kw),
+                    hull_normals, hull_dirs, generator,
+                )
+                ext = RunningExtremes(int(dirs1.shape[0]))
+            return plan, state, dirs1, ext
+
         # ---- sweep 1
         state = plan = None
         z_blocks: list = []
+        z_buf = None
         ext = dirs1 = None
-        for lo, hi in ranges:
+        ck = _SweepCheckpoints(sweep_ckpt) if sweep_ckpt is not None else None
+        done1 = 0
+        if ck is not None:
+            if generator is not None:  # a resume draws the plans from the entry state
+                if resume and ck.mgr0.latest_step() is not None:
+                    generator.set_state(torch.from_numpy(ck.mgr0.restore_flat()["gen"]))
+                else:
+                    ck.mgr0.save(0, {"gen": generator.get_state().numpy()})
+            # fixed-shape payloads need (D, p) before the loop: probe chunk 0
+            Xc0, Pc0, _ = get_chunk(*ranges[0])
+            D = int(Xc0.shape[1])
+            p = int(Pc0.shape[1]) if Pc0 is not None else None
+            plan, state, dirs1, ext = begin(D, p)
+            if strat.one_pass:
+                width = D if plan[2] is None else int(plan[2].shape[1])
+                z_buf = torch.zeros((n, width), dtype=torch.float32, device=dev)
+
+            def payload1():
+                out = {"chunks": np.int64(done1), "state": state}
+                if z_buf is not None:
+                    out["z"] = z_buf
+                if ext is not None:
+                    out["ext"] = ext.state()
+                return out
+
+            if resume and ck.mgr1.latest_step() is not None:
+                got = ck.mgr1.restore(payload1())
+                done1 = int(got["chunks"])
+                state = got["state"]
+                if z_buf is not None:
+                    z_buf = got["z"]
+                if ext is not None:
+                    ext.load(got["ext"])
+
+        for ci, (lo, hi) in enumerate(ranges):
+            if ci < done1:
+                continue
             Xc, Pc, swc = get_chunk(lo, hi)
             if state is None:
-                D = int(Xc.shape[1])
-                p = int(Pc.shape[1]) if Pc is not None else None
-                plan = strat.begin(n, D, generator, plan_in, dev)
-                state = strat.init_state(D, p, dev)
-                if strat.one_pass and want_hull:
-                    dirs1 = self._net(
-                        lambda **kw: upfront_directions(p, hull_k, self.hull_oversample, **kw),
-                        hull_normals, hull_dirs, generator,
-                    )
-                    ext = RunningExtremes(int(dirs1.shape[0]))
+                plan, state, dirs1, ext = begin(int(Xc.shape[1]),
+                                                int(Pc.shape[1]) if Pc is not None else None)
             state, z, extb = strat.fused_update(
                 state, Xc, Pc, swc, strat.slice_plan(plan, lo, hi), dirs=dirs1
             )
             if z is not None:
-                z_blocks.append(z)
+                if z_buf is not None:
+                    z_buf[lo:hi] = z
+                else:
+                    z_blocks.append(z)
             if ext is not None:
                 ext.update(*extb, offset=lo * r)
+            if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
+                done1 = ci + 1
+                ck.mgr1.save(ci + 1, payload1())
+            maybe_inject("scoring", ci + 1)
 
         # ---- between sweeps: (Jd)²-scale host algebra
         V, inv = projection_from_gram(strat.gram(state, plan), method, ridge_reg, device=dev)
 
         hull_rows = None
         if strat.one_pass:
+            if z_buf is not None:
+                # fresh chunk-sized blocks, as the plain path's, for its bits
+                z_blocks = [z_buf[lo:hi].clone() for lo, hi in ranges]
             u = torch.cat([_z_leverage(z, V, inv) for z in z_blocks])
         else:
             # ---- sweep 2: leverage + directional extremes
@@ -713,11 +821,32 @@ class ScoringEngine:
                 )
                 ext = RunningExtremes(int(dirs.shape[0]))
             u = torch.empty(n, dtype=torch.float32, device=dev)
-            for lo, hi in ranges:
+            done2 = 0
+            if ck is not None:
+
+                def payload2():
+                    out = {"chunks": np.int64(done2), "u": u}
+                    if ext is not None:
+                        out["ext"] = ext.state()
+                    return out
+
+                if resume and ck.mgr2.latest_step() is not None:
+                    got = ck.mgr2.restore(payload2())
+                    done2 = int(got["chunks"])
+                    u = got["u"]
+                    if ext is not None:
+                        ext.load(got["ext"])
+            for ci, (lo, hi) in enumerate(ranges):
+                if ci < done2:
+                    continue
                 Xc, Pc, swc = get_chunk(lo, hi)
                 u[lo:hi] = leverage_chunk(Xc, swc, V, inv)
                 if ext is not None:
                     ext.update(*hull_chunk_extremes(Pc, dirs), offset=lo * r)
+                if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
+                    done2 = ci + 1
+                    ck.mgr2.save(ci + 1, payload2())
+                maybe_inject("scoring", n_chunks + ci + 1)
         if ext is not None:
             hull_rows = ext.candidates()
 

@@ -284,18 +284,19 @@ __device__ __forceinline__ bool beats_min(float v, int i, float bv, int bi) {
 }
 
 // A fold CTA (kExtFoldWarps warps) for directions dir0 + lane, lane < 32,
-// over nblk partials [b·m + dir] of a score launch over P (rows × DP).
-// Warp w reads blocks w, w + 16, ... (each read covers 32 consecutive
-// directions: coalesced); warp 0 folds the warps' results; then warp w
-// rescans the winning tiles of directions 2w and 2w + 1, lanes 0–15 the
-// max's tile and lanes 16–31 the min's, a row a lane. smem: 4·16·32 words.
+// over nblk partials [b·m + dir] of a score launch over P (rows × DP; DP = 0:
+// rows × dp, the wide body's runtime width). Warp w reads blocks w, w + 16,
+// ... (each read covers 32 consecutive directions: coalesced); warp 0 folds
+// the warps' results; then warp w rescans the winning tiles of directions
+// 2w and 2w + 1, lanes 0–15 the max's tile and lanes 16–31 the min's, a row
+// a lane. smem: 4·16·32 words.
 template <int DP>
 __device__ __forceinline__ void extremes_fold_cta(
     const float* __restrict__ pvmax, const int* __restrict__ pimax,
     const float* __restrict__ pvmin, const int* __restrict__ pimin, int nblk, int m, int dir0,
     const float* __restrict__ P, int rows, const float* __restrict__ dirs,
     float* __restrict__ smem, float* __restrict__ vmax, int* __restrict__ imax,
-    float* __restrict__ vmin, int* __restrict__ imin) {
+    float* __restrict__ vmin, int* __restrict__ imin, int dp = DP) {
   constexpr int kNone = 0x7fffffff;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float bx = -CUDART_INF_F, bn = CUDART_INF_F;
@@ -366,13 +367,20 @@ __device__ __forceinline__ void extremes_fold_cta(
     bool hit = false;
     float s = v;
     if (t0 != kNone && row < rows) {
-      float dv[DP], p[DP];
+      if constexpr (DP > 0) {
+        float dv[DP], p[DP];
 #pragma unroll
-      for (int k = 0; k < DP; ++k) {
-        dv[k] = dirs[(long long)dir * DP + k];
-        p[k] = P[(long long)row * DP + k];
+        for (int k = 0; k < DP; ++k) {
+          dv[k] = dirs[(long long)dir * DP + k];
+          p[k] = P[(long long)row * DP + k];
+        }
+        s = dir_score<DP>(dv, p);
+      } else {  // dir_score's chain at the runtime width
+        const float* dd = dirs + (long long)dir * dp;
+        const float* pp = P + (long long)row * dp;
+        s = dd[0] * pp[0];
+        for (int k = 1; k < dp; ++k) s = fmaf(dd[k], pp[k], s);
       }
-      s = dir_score<DP>(dv, p);
       hit = s == v;
     }
     const unsigned ball = __ballot_sync(0xffffffffu, hit);

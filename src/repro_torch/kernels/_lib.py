@@ -11,7 +11,8 @@ every kernel) is kept in ``BUILD_LOG`` by source name.
 
 Every exported function launches on the stream it is given, allocates
 nothing and returns the ``cudaError_t`` of its launches; ``check`` raises on
-a nonzero code.
+a nonzero code. A failed build or launch raises ``KernelError``, which the
+fault-tolerance supervisor never retries (``ft/supervisor.py``).
 """
 from __future__ import annotations
 
@@ -63,10 +64,18 @@ _SIGNATURES = {
 CUDA_CONSTANTS = {
     "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
+    "extremes.cu": {"kExtWideWarps": 8, "kExtWideRows": 128, "kExtWideDirs": 128},
     "gram.cu": {"kMaxD": 64, "kWideMaxD": 160, "kWideCluster": 8, "kWideMaxGroups": 16,
                 "kWideScratchFloats": 458_752},
     "sweep.cu": {"kMaxD": 160},
 }
+
+
+
+class KernelError(RuntimeError):
+    """A kernel that does not build or does not launch: a fault of the
+    program, not a transient one, so no supervisor retries it."""
+
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None  # wall time of this process's build, if it built
@@ -80,7 +89,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found: the port's CUDA kernels build from source at first "
         "use and need the CUDA toolkit"
     )
@@ -118,14 +127,14 @@ def _build(out_dir: Path) -> Path:
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
     tmp = out_dir / f"librepro_torch.{os.getpid()}.so"
     link = subprocess.run(
         [nvcc, "-shared", *(str(o) for o in objs), "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     for o in objs:
         o.unlink(missing_ok=True)
@@ -168,7 +177,7 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 def check(code: int, name: str) -> None:
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")
+        raise KernelError(f"{name}: CUDA launch failed with cudaError_t {code}")
 
 
 def require_cuda(*tensors: torch.Tensor | None) -> None:

@@ -1,6 +1,8 @@
 """Directional-extremes wrapper on the CUDA kernel (``csrc/extremes.cu``)
 for a CUDA tensor, on ``ref.py`` for a CPU tensor. Row validity is a count:
-rows at or past ``n_valid`` are never extreme."""
+rows at or past ``n_valid`` are never extreme. Points of d ≤ ``MAX_DP``
+coordinates take the kernel's template body, wider ones its wide body
+(``PATH_LAUNCHES`` counts each)."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +17,12 @@ MAX_WARPS = _C["kExtMaxWarps"]      # warps of a score CTA
 TILE_ROWS = _C["kExtTile"]          # rows of the tile-max loop; a block is whole tiles
 MAX_BLOCK_ROWS = _C["kExtMaxBlockRows"]
 CTAS_PER_SM = _C["kExtCtasPerSm"]   # score CTAs an SM holds: the grid the plan aims at
+_W = _lib.CUDA_CONSTANTS["extremes.cu"]
+WIDE_WARPS = _W["kExtWideWarps"]    # warps of a wide score CTA: partials a row block
+WIDE_ROWS = _W["kExtWideRows"]      # rows of a wide CTA's step; a block is whole steps
+WIDE_DIRS = _W["kExtWideDirs"]      # directions of a wide CTA
 LAUNCHES = 0
+PATH_LAUNCHES = {"template": 0, "wide": 0}
 
 
 def launch_plan(rows: int, m: int, sms: int) -> tuple[int, int, int]:
@@ -31,6 +38,17 @@ def launch_plan(rows: int, m: int, sms: int) -> tuple[int, int, int]:
     rb = -(-max(rows, 1) // target)
     rb = min(MAX_BLOCK_ROWS, -(-rb // TILE_ROWS) * TILE_ROWS)
     return rb, warps, -(-rows // rb)
+
+
+def wide_launch_plan(rows: int, m: int, sms: int) -> tuple[int, int]:
+    """(rb, nrb) of a wide-body launch (d > MAX_DP): CTA rows of WIDE_DIRS
+    directions cover m, and rows are cut into ``nrb`` blocks of ``rb`` rows
+    (whole WIDE_ROWS steps) so the grid is about CTAS_PER_SM CTAs an SM."""
+    cta_rows = -(-m // WIDE_DIRS)
+    target = max(1, CTAS_PER_SM * sms // cta_rows)
+    rb = -(-max(rows, 1) // target)
+    rb = -(-rb // WIDE_ROWS) * WIDE_ROWS
+    return rb, -(-rows // rb)
 
 
 def directional_extremes(
@@ -49,12 +67,19 @@ def directional_extremes(
         raise ValueError("the extremes kernel is float32 only")
     rows, d = P.shape
     m = dirs.shape[0]
-    if dirs.shape[1] != d or not 1 <= d <= MAX_DP or m == 0:
-        raise ValueError(f"expected P (rows, d ≤ {MAX_DP}) and dirs (m ≥ 1, d), got {tuple(P.shape)}, {tuple(dirs.shape)}")
+    if dirs.shape[1] != d or d < 1 or m == 0:
+        raise ValueError(f"expected P (rows, d) and dirs (m ≥ 1, d), got {tuple(P.shape)}, {tuple(dirs.shape)}")
     nv = rows if n_valid is None else int(n_valid)
     _lib.require_cuda(P, dirs)
     dev = P.device
-    rb, warps, nblk = launch_plan(rows, m, _lib.sm_count(dev.index or 0))
+    sms = _lib.sm_count(dev.index or 0)
+    if d > MAX_DP:
+        path, warps = "wide", 0
+        rb, nrb = wide_launch_plan(rows, m, sms)
+        nblk = nrb * WIDE_WARPS
+    else:
+        path = "template"
+        rb, warps, nblk = launch_plan(rows, m, sms)
     scratch = torch.empty(max(1, 4 * nblk * m), dtype=torch.float32, device=dev)
     out = torch.empty(4 * m, dtype=torch.float32, device=dev)
     ints = out[2 * m:].view(torch.int32)
@@ -67,4 +92,5 @@ def directional_extremes(
         "repro_extremes",
     )
     LAUNCHES += 1
+    PATH_LAUNCHES[path] += 1
     return out[:m], ints[:m], out[m:2 * m], ints[m:]

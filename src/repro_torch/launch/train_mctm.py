@@ -1,7 +1,7 @@
 """End-to-end driver of the paper's experiment on one device: DGP → coreset
 → weighted MCTM fit → streamed full-data (1±ε) NLL validation. The port of
-``repro.launch.train_mctm``, single device, without mesh, fault tolerance
-or checkpoints.
+``repro.launch.train_mctm``, single device (the mesh waits for ROADMAP
+Queue A 9).
 
 ``PYTHONPATH=src python -m repro_torch.launch.train_mctm --reduced``
 
@@ -18,6 +18,16 @@ Stages (every data-sized computation on the device):
      likelihood-ratio check 1−ε̂−δ ≤ ratio ≤ (1+ε̂)/(1−ε̂)+δ with
      optimization slack δ.
 
+Fault tolerance, as the JAX driver's: ``--ckpt-dir`` / ``--ckpt-every``
+checkpoint every fit (``full/``, ``k<k>/``) and ``--resume`` restarts them
+from the latest save. ``--inject-failures [scoring,fit,checkpoint]`` is the
+recovery drill: it crashes the build's first sweep at chunk 2, the first fit
+at step steps//3 and the checkpoint save at step 2·ckpt-every, and recovers
+through the fits' supervisors and an outer supervisor around each build that
+resumes its sweep from the latest sweep checkpoint; the record gains ``ft``
+(the injection log and the supervisor's events), and the run fails if no
+injection fired.
+
 Prints one line per stage and returns the record (``per_k`` fields as the
 JAX driver's); ``--out`` also writes it as JSON. Exits nonzero when a ratio
 leaves its band.
@@ -28,11 +38,13 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import mctm as M
 from repro_torch.core.bernstein import DataScaler
 from repro_torch.core.coreset import build_coreset
@@ -44,6 +56,8 @@ from repro_torch.core.mctm_fit import (
 )
 from repro_torch.data.dgp import generate
 from repro_torch.device import resolve_device
+from repro_torch.ft import ElasticPlanner, FailureSimulator, FTConfig, RunSupervisor
+from repro_torch.ft.config import get_ft_config
 
 
 def parse_args(argv=None):
@@ -74,9 +88,17 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true", help="tiny end-to-end run")
     ap.add_argument("--opt-slack", type=float, default=0.02,
                     help="likelihood-ratio tolerance for finite-step fits")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out", default=None, help="also write the record here (JSON)")
+    ap.add_argument("--inject-failures", nargs="?", const="scoring,fit,checkpoint",
+                    default=None, metavar="PHASES",
+                    help="failure-injected recovery drill: crash mid-scoring / mid-fit / "
+                    "mid-checkpoint (comma list of phases; bare flag = all three) and "
+                    "recover through the ft supervisor and resumable sweeps")
     args = ap.parse_args(argv)
     if args.reduced:
         args.steps = min(args.steps, 250)
@@ -101,6 +123,36 @@ def run(args) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    sim = sup = None
+    if args.inject_failures:
+        phases = [p.strip() for p in args.inject_failures.split(",") if p.strip()]
+        if not args.ckpt_dir:
+            args.ckpt_dir = tempfile.mkdtemp(prefix="ft_ckpt_")
+        if not args.ckpt_every:
+            args.ckpt_every = 20
+        # several chunks so mid-scoring checkpoints exist to resume
+        args.chunk = min(args.chunk, 4096)
+        sim = FailureSimulator()
+        if "scoring" in phases:
+            sim.inject("scoring", 2)
+        if "fit" in phases:
+            sim.inject("fit", max(args.steps // 3, 1))
+        if "checkpoint" in phases:
+            sim.inject("checkpoint", 2 * args.ckpt_every)
+        ft_cfg = get_ft_config()
+        ft_cfg.simulator = sim
+        ft_cfg.sweep_ckpt_every_chunks = 2
+        # the build has no supervisor of its own: this one replays the sweep
+        # from its latest checkpoint through resume=ctx.resume
+        sup = RunSupervisor(label="train_mctm",
+                            planner=ElasticPlanner(model_parallel=1, base_data_parallel=1),
+                            remesh=lambda plan: dev)
+
+    def mgr(tag):
+        if not args.ckpt_dir:
+            return None
+        return CheckpointManager(os.path.join(args.ckpt_dir, tag), keep=2)
+
     ks = [int(k) for k in args.ks.split(",")]
     cfg = M.MCTMConfig(J=2, degree=args.degree)
     D = cfg.J * cfg.d
@@ -119,6 +171,7 @@ def run(args) -> dict:
     full = fit_mctm_streaming(
         cfg, scaler, Y, steps=args.steps, lr=args.lr, generator=_seeded(args.seed, 0),
         method=args.ref_method, gtol=args.gtol, chunk_size=args.chunk,
+        checkpoint=mgr("full"), ckpt_every=args.ckpt_every, resume=args.resume,
         log_every=args.log_every, device=dev,
     )
     sync()
@@ -132,10 +185,18 @@ def run(args) -> dict:
     for k in ks:
         sync()
         t0 = time.perf_counter()
-        cs = build_coreset(
-            cfg, scaler, Y, k, "l2-hull", generator=_seeded(args.seed, 1, k),
-            alpha=args.alpha, sketch_size=sketch, chunk_size=args.chunk, device=dev,
-        )
+        gen = _seeded(args.seed, 1, k)
+
+        def build(ctx=None):
+            return build_coreset(
+                cfg, scaler, Y, k, "l2-hull", generator=gen, alpha=args.alpha,
+                sketch_size=sketch, chunk_size=args.chunk, device=dev,
+                sweep_ckpt=(os.path.join(args.ckpt_dir, f"build_k{k}")
+                            if args.inject_failures else None),
+                resume=bool(ctx is not None and ctx.resume),
+            )
+
+        cs = sup.run(build) if sup is not None else build()
         sync()
         build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -143,7 +204,8 @@ def run(args) -> dict:
         fit = fit_mctm_streaming(
             cfg, scaler, Y[cs.indices], weights=cs_w, steps=args.steps, lr=args.lr,
             generator=_seeded(args.seed, 2, k), method=args.fit_method, gtol=args.gtol,
-            chunk_size=args.chunk, log_every=args.log_every, device=dev,
+            chunk_size=args.chunk, checkpoint=mgr(f"k{k}"), ckpt_every=args.ckpt_every,
+            resume=args.resume, log_every=args.log_every, device=dev,
         )
         sync()
         fit_s = time.perf_counter() - t0
@@ -198,6 +260,10 @@ def run(args) -> dict:
         "all_within_band": all(r["within_band"] for r in per_k),
         "coreset_beats_full_fit": all(r["total_s"] < full_fit_s for r in per_k),
     }
+    if sim is not None:
+        rec["ft"] = {"injected": list(sim.log), "supervisor_events": list(sup.events)}
+        print(f"[train_mctm] injected {len(sim.log)} failures ({args.inject_failures}); "
+              "all recovered", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -207,8 +273,18 @@ def run(args) -> dict:
 
 
 def main(argv=None) -> dict:
-    rec = run(parse_args(argv))
+    args = parse_args(argv)
+    try:
+        rec = run(args)
+    finally:
+        if args.inject_failures:
+            cfg = get_ft_config()
+            cfg.simulator = None
+            cfg.sweep_ckpt_every_chunks = FTConfig.sweep_ckpt_every_chunks
     if not rec["all_within_band"]:
+        sys.exit(1)
+    if args.inject_failures and not rec.get("ft", {}).get("injected"):
+        print("[train_mctm] --inject-failures requested but nothing fired", flush=True)
         sys.exit(1)
     return rec
 

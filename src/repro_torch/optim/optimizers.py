@@ -1,5 +1,6 @@
-"""AdamW exactly as ``repro.optim.optimizers.adamw`` writes it — the port
-of the part of ``repro.optim`` the MCTM fit runs.
+"""AdamW exactly as ``repro.optim.optimizers.adamw`` writes it, and
+``scale_updates`` (the supervisor's LR backoff) — the port of the part of
+``repro.optim`` the MCTM fit runs.
 
 The update is u = −lr_t · (m/bc1) / (√(v/bc2) + eps): eps sits outside the
 square root of the bias-corrected second moment, and the defaults are
@@ -14,7 +15,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "adamw", "apply_updates"]
+__all__ = ["Optimizer", "adamw", "apply_updates", "scale_updates"]
 
 
 class Optimizer(NamedTuple):
@@ -60,3 +61,18 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return [upd(m_, v_, p) for m_, v_, p in zip(m, v, params)], {"m": m, "v": v}
 
     return Optimizer(init, update)
+
+
+def scale_updates(optimizer: Optimizer, scale: float) -> Optimizer:
+    """Multiply emitted updates by ``scale``: LR backoff that leaves the
+    optimizer state's structure untouched, so checkpoints written before the
+    backoff still restore (the supervisor's non-finite rollback)."""
+    if scale == 1.0:
+        return optimizer
+    s = float(scale)
+
+    def update(grads, state, params, step):
+        updates, new_state = optimizer.update(grads, state, params, step)
+        return [u * s for u in updates], new_state
+
+    return Optimizer(optimizer.init, update)

@@ -179,13 +179,31 @@ def test_build_conditional_coreset_exact_k_low_diversity_hull():
     assert a[0].shape == (k,) and len(set(a[0][k1:].tolist())) == k - k1
 
 
-def test_unported_fit_options_raise(cond_data):
+def test_unported_fit_options_raise(cond_data, tmp_path):
+    """minibatch and mesh= still wait for their ROADMAP items; checkpoint=
+    and resume= are ported: a fit that crashes at step 4 resumes from its
+    step-3 checkpoint and ends on the straight fit's bits."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import FailureSimulator, get_ft_config
+
     X, Y, _, _, tscaler = cond_data
     _, tcfg = _cfgs()
-    for kw, item in (({"method": "minibatch"}, "Queue A 1"), ({"mesh": object()}, "Queue A 9"),
-                     ({"checkpoint": "/nonexistent"}, "Queue A 5"),
-                     ({"resume": True}, "Queue A 5")):
+    for kw, item in (({"method": "minibatch"}, "Queue A 1"), ({"mesh": object()}, "Queue A 9")):
         with pytest.raises(NotImplementedError, match=item):
             TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=1, device="cpu", **kw)
+    init = TCo.init_cparams(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    common = dict(init=init, steps=6, device="cpu")
+    straight = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], **common)
+    ft = get_ft_config()
+    ft.simulator = sim = FailureSimulator().inject("fit", 4)
+    try:
+        resumed = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], device="cpu", init=init,
+                                steps=6, checkpoint=CheckpointManager(str(tmp_path)),
+                                ckpt_every=3)
+    finally:
+        ft.simulator = None
+    assert [e["step"] for e in sim.log] == [4]
+    for a, b in zip(straight.params, resumed.params):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         TCo.conditional_coreset_scores(tcfg, tscaler, Y[:50], X[:50, :1], device="cpu")

@@ -227,6 +227,31 @@ def test_extremes_kernel(dev, rows, m, d, n_valid):
     assert int(got[1].max()) < n_valid and int(got[3].max()) < n_valid
 
 
+@pytest.mark.parametrize("d", [17, 33, 70, 140, 1024, 4096])
+@pytest.mark.parametrize("rows,m,valid", [(3001, 130, 3001), (3001, 130, 2900), (700, 1, 513)])
+def test_extremes_wide_body(dev, d, rows, m, valid):
+    """The wide body (d > 16): values to the bit (±0 included) and
+    first-occurrence indices of the plain version, exact ties in the second
+    half, ragged validity, one direction as the greedy hull walk asks; the
+    same bits on a repeated call; the wide body counted, the template not."""
+    from repro_torch.kernels.extremes import ops, ref
+
+    P = torch.randn(rows, d, generator=_g(rows + d)).to(dev)
+    P[rows // 2: 2 * (rows // 2)] = P[: rows // 2].clone()
+    dirs = torch.randn(m, d, generator=_g(m + d)).to(dev)
+    before = dict(ops.PATH_LAUNCHES)
+    got = ops.directional_extremes(P, dirs, valid)
+    assert ops.PATH_LAUNCHES["wide"] == before["wide"] + 1
+    assert ops.PATH_LAUNCHES["template"] == before["template"]
+    exp = ref.directional_extremes_ref(P, dirs, valid)
+    for g, e in zip(got, exp):
+        assert _same_bits(g, e)
+    ids = torch.cat([got[1], got[3]])  # a copied row never beats its original
+    assert bool(((ids < rows // 2) | (ids >= 2 * (rows // 2))).all()) and int(ids.max()) < valid
+    again = ops.directional_extremes(P, dirs, valid)
+    assert all(_same_bits(a, b) for a, b in zip(again, got))
+
+
 @pytest.mark.parametrize("c,r,m,q,moments", [(300, 2, 20, None, False),
                                              (517, 2, 33, 5, True), (129, 1, 0, None, True)])
 def test_sweep_kernel(dev, c, r, m, q, moments):
@@ -473,30 +498,30 @@ def test_conditional_scores_and_build_on_the_card_match_the_cpu_path(dev, sketch
 def test_hull_api_on_the_card_matches_its_plain_version(dev, monkeypatch):
     """greedy_hull_projection and epsilon_kernel_indices on the extremes
     kernel against the same functions on the kernel's plain version, both
-    on the card: the same support and ids, t within 1e-6; a d > 16 cloud
-    raises."""
+    on the card: the same support and ids, t within 1e-6, at d = 7 (the
+    template body) and d = 70 (the wide body)."""
     from repro_torch.core import hull as H
     from repro_torch.kernels.extremes.ref import directional_extremes_ref
 
     rng = np.random.default_rng(3)
-    P = (rng.standard_normal((20_000, 7)) * rng.uniform(0.5, 2, 7)).astype(np.float32)
-    normals = rng.standard_normal((160, 7)).astype(np.float32)
-    q_out = P.max(0) * 1.5
-    kernel = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (P.mean(0), q_out)]
-    ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
-    with monkeypatch.context() as mp:
-        mp.setattr(H, "directional_extremes", directional_extremes_ref)
-        plain = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev) for q in (P.mean(0), q_out)]
-        plain_ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
-    for (t, s, d), (tp, sp, dp) in zip(kernel, plain):
-        assert torch.equal(s, sp)
-        assert float((t - tp).abs().max()) <= 1e-6 and float((d - dp).abs().max()) <= 1e-6
-    np.testing.assert_array_equal(ids, plain_ids)
-    assert H.hull_distance(P, P.mean(0), device=dev) < 1e-2
-    with pytest.raises(ValueError, match="Queue C"):
-        H.greedy_hull_projection(np.zeros((10, 17), np.float32), np.ones(17), device=dev)
-    with pytest.raises(ValueError, match="Queue C"):
-        H.epsilon_kernel_indices(np.zeros((100, 17), np.float32), 5, generator=_g(0), device=dev)
+    for dim in (7, 70):
+        P = (rng.standard_normal((20_000, dim)) * rng.uniform(0.5, 2, dim)).astype(np.float32)
+        normals = rng.standard_normal((160, dim)).astype(np.float32)
+        q_out = P.max(0) * 1.5
+        kernel = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev)
+                  for q in (P.mean(0), q_out)]
+        ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
+        with monkeypatch.context() as mp:
+            mp.setattr(H, "directional_extremes", directional_extremes_ref)
+            plain = [H.greedy_hull_projection(P, q, 1e-2, 64, device=dev)
+                     for q in (P.mean(0), q_out)]
+            plain_ids = H.epsilon_kernel_indices(P, 40, normals=normals, device=dev)
+        for (t, s, d), (tp, sp, dp) in zip(kernel, plain):
+            assert torch.equal(s, sp)
+            assert float((t - tp).abs().max()) <= 1e-6 and float((d - dp).abs().max()) <= 1e-6
+        np.testing.assert_array_equal(ids, plain_ids)
+        if dim == 7:
+            assert H.hull_distance(P, P.mean(0), device=dev) < 1e-2
 
 
 def test_leverage_and_sample_on_the_card(dev):
@@ -764,3 +789,82 @@ def test_reduced_lm_on_the_card_matches_the_cpu_path(dev, name):
         outs.append(torch.cat(seq, 1))
     assert fa.LAUNCHES + ssd.LAUNCHES == before + cfg.n_layers
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4 * float(outs[0].abs().max()))
+
+
+@pytest.mark.parametrize("strategy,kw", [("two-pass", {}), ("one-pass", {"sketch_size": 784})])
+def test_resumed_sweep_is_bit_identical_on_the_card(dev, tmp_path, strategy, kw):
+    """A sweep on the card crashed in sweep 1 (and, two-pass, in sweep 2),
+    resumed from its chunk cursor: the uninterrupted sweep's scores, Gram
+    and hull rows to the bit, and the plans' generator where the
+    uninterrupted call leaves it."""
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.scoring import ScoringEngine
+    from repro_torch.data.dgp import generate
+    from repro_torch.ft import FailureSimulator, InjectedFailure, get_ft_config
+    from repro_torch.ft.config import ft_overrides
+
+    Y = generate("normal_mixture", 40_001, seed=2).astype(np.float32)
+    eng = ScoringEngine(M.MCTMConfig(J=2, degree=6), DataScaler.fit(Y), chunk_size=4096,
+                        device=dev)
+    args = dict(method="l2-hull", hull_k=400, strategy=strategy, **kw)
+    g_ref = _g(5)
+    ref = eng.score(Y, generator=g_ref, **args)
+    g = _g(5)
+    ft = get_ft_config()
+    ft.simulator = FailureSimulator().inject("scoring", 6).inject("scoring", 14)
+    crashes = 0
+    try:
+        with ft_overrides(sweep_ckpt_every_chunks=4):
+            while True:
+                try:
+                    got = eng.score(Y, generator=g, sweep_ckpt=str(tmp_path), resume=True,
+                                    **args)
+                    break
+                except InjectedFailure:
+                    crashes += 1
+    finally:
+        ft.simulator = None
+    assert crashes == (2 if strategy == "two-pass" else 1)
+    for a, b in ((ref.scores, got.scores), (ref.gram, got.gram), (ref.hull_rows, got.hull_rows)):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(g.get_state(), g_ref.get_state())
+
+
+def test_resumed_stream_is_bit_identical_on_the_card(dev, tmp_path):
+    """A sketched maintainer on the card killed at window 4 and resumed from
+    its window checkpoint reproduces the uninterrupted coreset to the bit."""
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.streaming import StreamingCoresetMaintainer
+    from repro_torch.data.dgp import generate
+    from repro_torch.ft import FailureSimulator, InjectedFailure, get_ft_config
+
+    Y = generate("normal_mixture", 8 * 8192, seed=3).astype(np.float32)
+    cfg, scaler = M.MCTMConfig(J=2, degree=6), DataScaler.fit(Y)
+    windows = [Y[i:i + 8192] for i in range(0, len(Y), 8192)]
+
+    def make(**kw):
+        return StreamingCoresetMaintainer(cfg, scaler, 500, 3, sketch_size=784, device=dev, **kw)
+
+    ref = make()
+    for w in windows:
+        ref.push(w)
+    ft = get_ft_config()
+    ft.simulator = FailureSimulator().inject("streaming", 4)
+    try:
+        m, done, crashes = make(ckpt_dir=str(tmp_path)), 0, 0
+        while done < len(windows):
+            try:
+                m.push(windows[done])
+                done = m.windows_done
+            except InjectedFailure:
+                crashes += 1
+                m = make(ckpt_dir=str(tmp_path))
+                done = m.resume()
+    finally:
+        ft.simulator = None
+    assert crashes == 1
+    a, b = ref.result(), m.result()
+    np.testing.assert_array_equal(a.Y, b.Y)
+    np.testing.assert_array_equal(a.weights, b.weights)

@@ -179,6 +179,39 @@ def test_extremes_ref_matches_pallas_kernel(rows, m, d, n_valid, tie):
         assert int(got[1].max()) < rows // 2 and int(got[3].max()) < rows // 2
 
 
+@pytest.mark.parametrize("d", [17, 33, 70, 1024])
+@pytest.mark.parametrize("rows,m,n_valid", [(777, 40, 700), (1030, 130, 1030)])
+def test_extremes_ref_matches_reference_at_wide_d(d, rows, m, n_valid):
+    """The plain version of the kernel's wide body (d > 16) against the JAX
+    package's oracle (``repro.kernels.extremes.ref``): the same indices,
+    first occurrence on the exact ties of the copied half; values within
+    float32 summation-order noise (rtol 1e-5)."""
+    from repro.kernels.extremes.ref import directional_extremes_ref as jax_ref
+
+    P, dirs = _extremes_case(rows, m, d, rows + m + d, True)
+    ref = jax_ref(jnp.asarray(P), jnp.asarray(dirs), jnp.arange(rows) < n_valid)
+    got = text.directional_extremes(_t(P), _t(dirs), n_valid)
+    for g, r, name in zip(got, ref, ("vmax", "imax", "vmin", "imin")):
+        if name.startswith("i"):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+            assert int(g.max()) < n_valid
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+
+def test_extremes_wide_launch_plan_covers_every_direction_and_row():
+    """The wide body's plan: blocks of whole 128-row steps covering the
+    rows, about two CTAs an SM, CTA rows of 128 directions covering m."""
+    assert text.wide_launch_plan(16_384, 1614, 132) == (896, 19)
+    assert text.wide_launch_plan(16_384, 128, 132) == (128, 128)
+    for rows in (1, 7, 513, 16_384, 327_680):
+        for m in (1, 127, 128, 129, 1614, 5000):
+            rb, nrb = text.wide_launch_plan(rows, m, 132)
+            assert rb % text.WIDE_ROWS == 0 and nrb * rb >= rows > (nrb - 1) * rb
+            assert nrb * -(-m // text.WIDE_DIRS) <= 2 * 132 or rb == text.WIDE_ROWS
+
+
 def _sweep_case(c, D, d, r, m, sk, q, seed):
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((c, D)).astype(np.float32)

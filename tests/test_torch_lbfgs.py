@@ -11,7 +11,8 @@ dense ``scipy-lbfgs`` oracle against the JAX package, on the CPU.
 - The reference's lbfgs tests (``tests/test_mctm_fit.py``), ported: the
   streaming fit matches the scipy oracle (rel < 1e-3), a counting featurize
   never sees more than one chunk, the weighted objective and the latch,
-  and the sweep census. A non-finite loss raises ``FloatingPointError``.
+  and the sweep census. A non-finite loss ends, on both packages, in the
+  fault-tolerance supervisor's "retry budget exhausted" diagnostic.
 - The drivers: ``repro_torch.launch.train_mctm`` and ``repro.launch.
   train_mctm`` at ``--smoke`` size (n = 10,001), default ``--ref-method``
   (lbfgs), give ``full_nll_per_point`` within 1e-4 relative (measured
@@ -157,13 +158,29 @@ def test_lbfgs_fused_linesearch_two_sweeps_per_iter():
 
 
 def test_lbfgs_non_finite_loss_raises():
-    Y, _, tscaler = _gaussian(n=300)
+    """An infinite weight makes the objective NaN on every attempt: both
+    packages raise NonFiniteError at the failing step, retry it and end in
+    the supervisor's RuntimeError naming the exhausted budget and the
+    non-finite signal."""
+    from repro.ft.config import ft_overrides as r_overrides
+    from repro_torch.ft.config import ft_overrides as t_overrides
+
+    Y, scaler, tscaler = _gaussian(n=300)
     w = np.ones(300, np.float32)
     w[7] = np.inf
-    with pytest.raises(FloatingPointError):
+    msgs = []
+    with r_overrides(max_retries=2, backoff_base_s=0.0), pytest.raises(RuntimeError) as ei:
+        RF.fit_mctm_streaming(RM.MCTMConfig(**CFG), scaler, Y, w, steps=5, method="lbfgs",
+                              chunk_size=128, key=jax.random.PRNGKey(0))
+    msgs.append(str(ei.value))
+    with t_overrides(max_retries=2, backoff_base_s=0.0), pytest.raises(RuntimeError) as ei:
         TF.fit_mctm_streaming(TM.MCTMConfig(**CFG), tscaler, Y, w, steps=5, method="lbfgs",
                               chunk_size=128, generator=torch.Generator().manual_seed(0),
                               device="cpu")
+    msgs.append(str(ei.value))
+    for msg in msgs:
+        assert "retry budget exhausted after 3 attempts" in msg
+        assert "non-finite" in msg and "NonFiniteError" in msg
 
 
 def test_streamed_oracles_sum_the_microbatches():

@@ -179,11 +179,14 @@ def test_weighted_ridge_scores_match_reference(data):
     assert got.hull_rows is None and ref.hull_rows is None
 
 
-def test_waiting_features_raise(data):
+def test_waiting_features_raise(data, tmp_path):
+    """Bad options raise; the checkpointed sweep (``sweep_ckpt=``, once
+    waiting) is ported and gives the plain sweep's bits."""
     Y, _, tscaler, _, _ = data
-    eng = TS.ScoringEngine(TM.MCTMConfig(J=2, degree=6), tscaler, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.score(Y, sweep_ckpt="/nonexistent")
+    eng = TS.ScoringEngine(TM.MCTMConfig(J=2, degree=6), tscaler, chunk_size=600,
+                           device="cpu")
+    np.testing.assert_array_equal(eng.score(Y, sweep_ckpt=str(tmp_path)).scores,
+                                  eng.score(Y).scores)
     with pytest.raises(ValueError):
         eng.score(Y, strategy="three-pass")
     with pytest.raises(ValueError):

@@ -58,6 +58,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.core import conditional as TCo
     from repro_torch.core import hull as TH
     from repro_torch.core import leverage as TL
+    from repro_torch.core import streaming as TSt
 
     ccfg = TCo.CMCTMConfig(J=2, n_features=1)
     Xc = Y[:, :1]
@@ -85,6 +86,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: TF.streamed_nll(cfg, scaler, TM.init_params(cfg, device="cpu"), Y),
         lambda: TM.init_params(cfg),
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1"]),
+        lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1",
+                                 "--inject-failures"]),
+        lambda: TF.fit_density_model(TF.MCTMDensityModel(cfg, scaler),
+                                     TM.init_params(cfg, device="cpu"),
+                                     {"Y": Y, "weights": np.ones(50, np.float32)},
+                                     steps=1, method="lbfgs"),
+        lambda: TSt.MergeReduceCoreset(cfg, scaler, 10),
+        lambda: TSt.StreamingCoresetMaintainer(cfg, scaler, 10, policy="sliding", window=2),
+        lambda: TSt.drift_window_nll(cfg, scaler, TM.init_params(cfg, device="cpu"), Y),
         lambda: build_model(lm_cfg),
         lambda: model_from_jax(lm_cfg, np_params),
         lambda: ServeEngine(cpu_model),
@@ -155,22 +165,37 @@ def _lm_cache_case(branch):
     "family:moe", "family:hybrid", "family:encdec", "modality:vision",
     "attention:prefill_into_nonempty_cache", "attention:per_slot_multi_token",
     "attention:no_cache", "attention:local_window", "attention:softcap", "attention:mla",
-    "attention:bidirectional",
+    "attention:bidirectional", "streaming:serve_engine", "streaming:drift_mesh",
+    "streaming:mesh",
 ])
 def test_unported_parts_raise_not_implemented(what):
     """What the port does not carry raises NotImplementedError naming the
     ROADMAP item — never plain code on a detour around a kernel."""
     from repro_torch import configs
+    from repro_torch.core import mctm as TM
+    from repro_torch.core import streaming as TSt
+    from repro_torch.core.bernstein import DataScaler
     from repro_torch.models import build_model
 
     kind, arg = what.split(":")
     tiny = configs.get_reduced_config("tinyllama_1b")
+    mcfg = TM.MCTMConfig(J=2)
+    Y = np.random.default_rng(0).normal(size=(20, 2)).astype(np.float32)
+    scaler = DataScaler.fit(Y)
+
+    def streaming(arg):
+        if arg == "mesh":
+            return TSt.drift_window_nll(mcfg, scaler, TM.init_params(mcfg, device="cpu"), Y,
+                                        mesh=object(), device="cpu")
+        return TSt.StreamingCoresetMaintainer(mcfg, scaler, 8, device="cpu",
+                                              **{arg: object()})
     call = {
         "config": lambda: configs.get_config(arg),
         "reduced": lambda: configs.get_reduced_config(arg),
         "family": lambda: build_model(tiny.replace(family=arg), device="cpu"),
         "modality": lambda: build_model(tiny.replace(modality=arg), device="cpu"),
         "attention": lambda: _lm_cache_case(arg)(),
+        "streaming": lambda: streaming(arg),
     }[kind]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
