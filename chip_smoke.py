@@ -105,8 +105,33 @@ Phases (any failure exits nonzero):
      (tests/test_streaming.py's bound), an adam refit on it against the full
      fit (reported); the drift detector silent over 6 clean windows and
      firing within 6 shifted ones (rows·1.6 + 2·std);
+  9. the data pipeline and the minibatch fit: gram's large body (D > 160)
+     at D = 2,048, the sweep at D = 2,048 and the wide-P route (P = X, d =
+     2,048: the extremes kernel's wide body and gram beside the sweep) on
+     one 16,384-row chunk of pooled embeddings, held to their plain
+     versions and timed (gram in turns with torch.mm, the sweep with
+     index_add_); ``CoresetSelector`` (l2-hull, k = 2,048, α = 0.8),
+     two-pass and one-pass, at D = 32 (launch/train.py's proxy: a 32,000 ×
+     32 projection mean-pooled over 262,144 sequences of 64 ids, sketch
+     4,096) and D = 2,048 (tinyllama-1.1b's embedding table pooled over
+     65,536 sequences of 256 ids, chunk 16,384, sketch 16,384): scores
+     against float64 of the same features beside a TF32-Gram (two-pass) or
+     bf16-feature (one-pass) control that must fail, the hull ids against
+     the plain versions' selection on the card, Σ weights against n; the
+     minibatch fit at n = 250,001 (batch 4,096, 250 steps, both sampling
+     modes) beside phase 3's adam full fit, with backup draws forced by a
+     straggler deadline and a crash at step 120 recovered to the straight
+     run's bits;
+ 10. density serving: ``launch/serve_mctm.py`` at its defaults (captures
+     in warmup and after it, latency per kind, queries/s, the refit's
+     build, fit and publish times; no dropped or mixed-version answer, each
+     log density within 1e-4 of ``mctm.log_density`` of its version), then
+     the maintainer's drift → refit → publish loop on phase 8's
+     clean-then-shifted stream (6 clean, 8 shifted windows);
   5. launch census: each kernel counted over its own path's run, and over
-     each of phases 6–8's paths (``launches_phase6`` to ``launches_phase8``).
+     each of phases 6–10's paths (``launches_phase6`` to
+     ``launches_phase10``; graph replays of the serving engine counted
+     apart).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
 numbers are also written to ``results/chip_smoke.json``.
@@ -241,14 +266,14 @@ CLEAN_WINDOW_TRIES = 5
 
 def clean_window(fn, iters: int = 20) -> dict:
     """``profile_window`` over ``iters`` calls of ``fn``, taken again (up to
-    CLEAN_WINDOW_TRIES times) while its kernel count is no multiple of
-    ``iters``: the profiler has been seen to drop kernel records from a
+    CLEAN_WINDOW_TRIES times) while its kernel count is zero or no multiple
+    of ``iters``: the profiler has been seen to drop kernel records from a
     window, and a window short of kernels reports a time short of them, so
     it raises when every try lost records."""
     fn()
     for _ in range(CLEAN_WINDOW_TRIES):
         w = profile_window(lambda: [fn() for _ in range(iters)])
-        if w["device_launches"] % iters == 0:
+        if w["device_launches"] and w["device_launches"] % iters == 0:
             return w
         log(f"  profiler window lost kernel records ({w['device_launches']} kernels over "
             f"{iters} calls); measuring again")
@@ -772,12 +797,15 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Each MCTM kernel's launches since ``reset_counts``, gram's cluster
-    body's as ``gram_cluster`` and the extremes kernel's wide body's as
-    ``extremes_wide``."""
+    body's as ``gram_cluster`` and its large body's as ``gram_large``, the
+    extremes kernel's wide body's as ``extremes_wide`` and the sweep's at
+    D > 160 as ``sweep_wide``."""
     mods = mctm_kernel_modules()
     out = {k: mod.LAUNCHES for k, mod in mods.items()}
     out["gram_cluster"] = mods["gram"].PATH_LAUNCHES["cluster"]
+    out["gram_large"] = mods["gram"].PATH_LAUNCHES["large"]
     out["extremes_wide"] = mods["extremes"].PATH_LAUNCHES["wide"]
+    out["sweep_wide"] = mods["sweep"].PATH_LAUNCHES["wide"]
     return out
 
 
@@ -2444,6 +2472,506 @@ def phase_streaming(dev, scratch: str):
     return census, rec
 
 
+# ---------------------------------------------------------------- phase 9
+
+SELECT_K, SELECT_ALPHA = 2048, 0.8
+VOCAB = 32_000                       # tinyllama-1.1b's vocabulary
+# D: (sequences, tokens a sequence, chunk, one-pass sketch). D = 32 is
+# launch/train.py's proxy (a seeded 32,000 × 32 projection, ×0.05, mean-
+# pooled), its sketch 4·D²; D = 2,048 pools tinyllama-1.1b's embedding
+# table, drawn as phase 4 draws it (the first draw of a generator seeded 0)
+SELECT_CASES = {32: (262_144, 64, 65_536, 4_096), 2048: (65_536, 256, 16_384, 16_384)}
+# scores against float64 of the same features (two-pass: the exact l2
+# scores; one-pass: the engine's float64 sketch, gram_dtype="float64", on the
+# same plan); a TF32 Gram (two-pass) and bf16-rounded features (one-pass)
+# run through the same check and must fail it. Set from a card run of this
+# phase (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): two-pass 3.7e-7 (D 32)
+# and 3.0e-7 (D 2,048) against TF32 6.3e-6 and 1.3e-4; one-pass 5.7e-7 and
+# 1.07e-6 against bf16 4.3e-3 and 6.0e-4
+SELECT_SCORE_RTOL = {"two-pass": 2e-6, "one-pass": 1e-5}
+SELECT_HULL_COMMON_FLOOR = 0.9       # hull ids shared with the plain versions' selection
+MINI_BATCH, MINI_STEPS = 4096, 250
+# phase 3's adam full fit at n = 250,001 (PERF.md §5, NVIDIA H100 80GB HBM3):
+# the minibatch fits' NLL/pt is reported beside it
+PHASE3_ADAM_NLL_PP = 3.73391
+MINI_NLL_REL = 0.02                  # minibatch NLL/pt within 2% of it
+MINI_CRASH, MINI_EVERY = 120, 50
+
+
+def _pooled(dev, D):
+    """(tokens (n, L) int64 on the card, featurize, F = featurize(tokens))."""
+    import torch
+
+    n, L, _, _ = SELECT_CASES[D]
+    if D == 2048:
+        from repro_torch.configs import get_config
+        from repro_torch.models.layers import init_embeddings
+
+        table = init_embeddings(torch.Generator(device=dev).manual_seed(0),
+                                get_config("tinyllama_1b"))["embed"].float()
+    else:
+        table = torch.randn((VOCAB, D), generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev) * 0.05
+    tokens = torch.randint(0, VOCAB, (n, L), generator=torch.Generator(device=dev).manual_seed(D),
+                           device=dev)
+
+    def featurize(t):
+        return torch.nn.functional.embedding_bag(t.to(table.device).long(), table, mode="mean")
+
+    return tokens, featurize, featurize(tokens)
+
+
+def l2_float64_card(F):
+    """Exact l2-only scores of features F in float64 on the card (Gram and
+    projection there, eigh on the host): l2_float64 at widths the host
+    cannot afford."""
+    import numpy as np
+    import torch
+
+    F64 = F.double()
+    w, V = np.linalg.eigh((F64.T @ F64).cpu().numpy())
+    inv = np.where(w > 1e-6 * np.abs(w).max(), 1.0 / np.maximum(w, 1e-30), 0.0)
+    Vt, it = torch.as_tensor(V, device=F.device), torch.as_tensor(inv, device=F.device)
+    return (torch.square(F64 @ Vt) @ it).cpu().numpy() + 1.0 / F.shape[0]
+
+
+def _plain_scoring():
+    """Context: the scoring module's kernel wrappers replaced by their plain
+    versions, on the card's tensors (the plain versions' selection)."""
+    import contextlib
+
+    from repro_torch.core import scoring
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+    from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.sweep.ref import fused_sweep_ref
+
+    @contextlib.contextmanager
+    def ctx():
+        real = (scoring.gram_matrix, scoring.fused_sweep_update, scoring.directional_extremes)
+        scoring.gram_matrix = lambda X, sw=None, *, acc=None: gram_ref(X, sw, acc=acc)
+        scoring.fused_sweep_update = fused_sweep_ref
+        scoring.directional_extremes = directional_extremes_ref
+        try:
+            yield
+        finally:
+            scoring.gram_matrix, scoring.fused_sweep_update, scoring.directional_extremes = real
+
+    return ctx()
+
+
+def phase_kernels_wide_d(dev):
+    """Phase 9's kernels, run beside phase 2, after the LM kernels' rows
+    (profiler windows after phase 4 drop records): the gram kernel's large
+    body (D > 160), the sweep at D > 160 and the wide-P route on one
+    16,384-row chunk of the D = 2,048 pooled features: held to their plain versions (the sweep's SX' and z to
+    the bit against the plain version on the CPU, whose index_add keeps each
+    bucket's order), timed (events, device), gram in turns with
+    torch.mm(X.T, X), the sweep with index_add_. Returns (kernel rows,
+    records)."""
+    import torch
+
+    from repro_torch.core import scoring
+    from repro_torch.core.scoring import sketch_plan, upfront_directions
+    from repro_torch.kernels.extremes import ops as ext
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+    from repro_torch.kernels.gram import ops as gram
+    from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.sweep import ops as sweep
+    from repro_torch.kernels.sweep.ref import fused_sweep_ref
+
+    errs: list[str] = []
+    _, _, F = _pooled(dev, 2048)
+    n, D = CHUNK, F.shape[1]
+    sk = SELECT_CASES[2048][3]
+    X = F[:n].contiguous()
+    sw = torch.ones(n, device=dev)
+    gen = torch.Generator().manual_seed(90)
+    acc = torch.randn(D, D, generator=gen).to(dev) * 1e-3
+    rows, rec = [], {}
+    # ---- gram, large body
+    large0 = gram.PATH_LAUNCHES["large"]
+    G = gram.gram_matrix(X, sw, acc=acc)
+    Gr = gram_ref(X.double(), sw.double(), acc=acc.double())
+    again = gram.gram_matrix(X, sw, acc=acc)
+    torch.cuda.synchronize()
+    err = max_err(G, Gr)
+    scale = float(Gr.abs().max())
+    if err > 1e-5 * scale or not torch.equal(G, again):
+        errs.append(f"gram D={D} (large body): err {err} of max|G| {scale}, repeat equal "
+                    f"{torch.equal(G, again)}")
+    if gram.PATH_LAUNCHES["large"] - large0 != 2:
+        errs.append("gram D=2048 did not take the large body")
+    r = kernel_row("gram_large", "src/repro_torch/csrc/gram.cu",
+                   "src/repro/kernels/gram/kernel.py:30", err,
+                   lambda: gram.gram_matrix(X, sw, acc=acc), lambda: gram_ref(X, sw, acc=acc),
+                   lambda: torch.mm(X.T, X),
+                   nbytes=4 * (n * D + n + 2 * D * D), flops=n * (D + D * (D + 1)))
+    r["device_kernels_per_call"] = kernels_per_call(lambda: gram.gram_matrix(X, sw, acc=acc),
+                                                    errs, "gram large body", 2, calls=5)
+    r["splits"] = gram.large_plan(n, D)[1]
+    rows.append(r)
+    rec["gram D=161"] = {"err_rel": max_err(gram.gram_matrix(X[:, :161].contiguous()),
+                                            gram_ref(X[:, :161].double())) / scale}
+    # ---- the sweep at D = 2,048: the one-pass selector's chunk (no P rows)
+    rws, sgn = sketch_plan(n, sk, generator=gen, device=dev)
+    SX0 = torch.zeros(sk, D, device=dev)
+    got = sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn)
+    plain = [t.to(dev) for t in fused_sweep_ref(SX0.cpu(), X.cpu(), None, sw.cpu(), rws.cpu(),
+                                                sgn.cpu())[:2]]
+    again = sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn)
+    torch.cuda.synchronize()
+    err = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+    bits = same_bits(got[0], plain[0]) and same_bits(got[1], plain[1])
+    if not bits or not (same_bits(got[0], again[0]) and same_bits(got[1], again[1])):
+        errs.append(f"sweep D={D} differs from its plain version's bits (err {err})")
+
+    def library(SX0=SX0):
+        return SX0.clone().index_add_(0, rws.long(), X * sgn[:, None])
+
+    r = kernel_row("sweep_wide", "src/repro_torch/csrc/sweep.cu",
+                   "src/repro/kernels/sweep/kernel.py:136", err,
+                   lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn),
+                   lambda: fused_sweep_ref(SX0, X, None, sw, rws, sgn), library,
+                   nbytes=4 * (2 * n * D + 2 * sk * D + 3 * n), flops=3 * n * D)
+    r["device_kernels_per_call"] = kernels_per_call(
+        lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn), errs, "sweep D=2048", 1,
+        calls=5)
+    rows.append(r)
+    # ---- the wide-P route (P = X, d = 2,048) beside the sweep: one-pass
+    # with the hull and the moments
+    k2 = SELECT_K - int(SELECT_ALPHA * SELECT_K)
+    dirs = torch.as_tensor(upfront_directions(D, k2, generator=gen), device=dev)
+    s1, s2 = torch.zeros(D, device=dev), torch.zeros(D, D, device=dev)
+
+    def route():
+        return scoring._sweep_update(SX0, X, X, sw, rws, sgn, dirs=dirs, moments=(s1, s2))
+
+    w0, g0 = ext.PATH_LAUNCHES["wide"], gram.PATH_LAUNCHES["large"]
+    out = route()
+    ext_plain = directional_extremes_ref(X, dirs)
+    X64 = X.double()
+    torch.cuda.synchronize()
+    ext_bits = all(same_bits(a, b) for a, b in zip(out[2], ext_plain))
+    mom_err = max(max_err(out[3][0], X64.sum(0)), max_err(out[3][1], X64.T @ X64))
+    if not ext_bits or not (close(out[3][0], X64.sum(0), rtol=1e-6, atol=1e-4)
+                            and close(out[3][1], X64.T @ X64, rtol=1e-6, atol=1e-4)):
+        errs.append(f"the wide-P route disagrees: extremes bits {ext_bits}, moments {mom_err}")
+    if ext.PATH_LAUNCHES["wide"] - w0 != 1 or gram.PATH_LAUNCHES["large"] - g0 != 1:
+        errs.append("the wide-P route did not take the extremes wide body and gram's large body")
+    m = dirs.shape[0]
+    b, by = bound_ms(4 * (n * D + m * D + 2 * sk * D + 2 * n * D + D * D),
+                     2 * m * n * D + 2 * n * D * (D + 1))
+    rec["wide_p_route"] = {
+        "dirs": m, "ms": cuda_ms(route, iters=5, warmup=1), "device_ms": device_ms(route, 5),
+        "bound_ms": b, "bound_by": by, "extremes_bits": ext_bits, "moments_err": mom_err,
+        "plain_ms": cuda_ms(lambda: (fused_sweep_ref(SX0, X, None, sw, rws, sgn),
+                                     directional_extremes_ref(X, dirs), gram_ref(X)),
+                            iters=1, warmup=0)}
+    log(f"  the wide-P route at d = {D} ({m:,} directions): {json.dumps(rec['wide_p_route'])}")
+    if errs:
+        fail("phase 9 kernels: " + "; ".join(errs))
+    return rows, rec
+
+
+def _phase9_select(dev, census, errs):
+    """CoresetSelector (l2-hull, k = 2,048, α = 0.8) at D = 32 and 2,048,
+    two-pass and one-pass, on the card's kernels, against float64 of the
+    same features (with the controls that must fail), the plain versions'
+    selection on the card and Σ weights against n."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scoring
+    from repro_torch.core.scoring import ScoringEngine, sketch_plan
+    from repro_torch.data.pipeline import CoresetSelector
+
+    k2 = SELECT_K - int(SELECT_ALPHA * SELECT_K)
+    k1 = SELECT_K - k2
+    rec = {}
+    for D, (n, L, chunk, sketch) in SELECT_CASES.items():
+        tokens, featurize, F = _pooled(dev, D)
+        look = lookup_featurizer(F, F, dev)
+        index = torch.stack([torch.arange(n, device=dev, dtype=torch.float32),
+                             torch.zeros(n, device=dev)], 1)
+        for strategy, sk in (("two-pass", 0), ("one-pass", sketch)):
+            tag = f"select D={D} {strategy}"
+            gen = torch.Generator().manual_seed(D + sk)
+            plan = {"hull_normals": torch.randn(4 * k2, D, generator=gen).numpy()}
+            if sk:
+                plan["sketch"] = sketch_plan(n, sk, generator=gen, device=dev)
+            results = []
+
+            def run(sel, seed):
+                real = sel._engine.score
+
+                def keep(*a, **kw):
+                    results.append(real(*a, **kw))
+                    return results[-1]
+
+                sel._engine.score = keep
+                return sel.select(tokens, SELECT_K, generator=torch.Generator().manual_seed(seed),
+                                  plan=plan)
+
+            sel = CoresetSelector(featurize, sketch_size=sk, chunk_size=chunk, device=dev)
+            _sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            sub = run(sel, 7)
+            _sync()
+            select_s = time.perf_counter() - t0
+            census[tag] = read_counts()
+            scores = results[-1].scores
+
+            def engine_scores(feat, gram_dtype="float32"):
+                kw = dict(method="l2-only", hull_k=0, sketch_size=sk)
+                if sk:
+                    kw["plan"] = plan["sketch"]
+                return ScoringEngine(featurize=feat, chunk_size=chunk, rows_per_point=1,
+                                     gram_dtype=gram_dtype, device=dev).score(index, **kw).scores
+
+            t0 = time.perf_counter()
+            ref = engine_scores(look, "float64") if sk else l2_float64_card(F)
+            ref_s = time.perf_counter() - t0
+            if sk:
+                control = engine_scores(lookup_featurizer(F, F, dev, dtype=torch.bfloat16))
+                control_name = "bf16 features"
+            else:
+                real = scoring.gram_matrix
+                scoring.gram_matrix = _tf32_gram
+                try:
+                    control = engine_scores(look)
+                finally:
+                    scoring.gram_matrix = real
+                control_name = "TF32 Gram"
+            err, cerr = rel_err(scores, ref), rel_err(control, ref)
+            with _plain_scoring():
+                t0 = time.perf_counter()
+                plain = run(CoresetSelector(featurize, sketch_size=sk, chunk_size=chunk,
+                                            device=dev), 7)
+                _sync()
+                plain_s = time.perf_counter() - t0
+            hull, hull_plain = sub.indices[k1:], plain.indices[k1:]
+            r = {"n": n, "D": D, "sketch": sk, "chunk": chunk, "select_s": select_s,
+                 "plain_select_s": plain_s, "float64_s": ref_s,
+                 "scores_rel_err_float64": err, f"control_{control_name}": cerr,
+                 "hull_common": int(np.intersect1d(hull, hull_plain).size), "hull_k": k2,
+                 "sampled_same": int((sub.indices[:k1] == plain.indices[:k1]).sum()),
+                 "plain_scores_rel_err_float64": rel_err(results[-1].scores, ref),
+                 "weights_sum_rel_n": abs(float(sub.weights.sum()) - n) / n,
+                 "distinct_hull": int(np.unique(hull).size), "launches": census[tag]}
+            rec[tag] = r
+            log(f"phase 9 {tag}: {json.dumps(r)}")
+            lim = SELECT_SCORE_RTOL[strategy]
+            if not err <= lim or not cerr > lim:
+                errs.append(f"{tag}: scores {err} from float64 (limit {lim}); "
+                            f"the {control_name} control {cerr} must exceed it")
+            if r["hull_common"] < SELECT_HULL_COMMON_FLOOR * k2 or r["distinct_hull"] != k2:
+                errs.append(f"{tag}: hull ids {r['hull_common']} of {k2} shared with the plain "
+                            f"versions', {r['distinct_hull']} distinct")
+            if sub.size != SELECT_K or not np.all(sub.weights > 0):
+                errs.append(f"{tag}: {sub.size} ids, weights positive {np.all(sub.weights > 0)}")
+        del tokens, F
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _phase9_minibatch(dev, scratch, census, errs):
+    """The minibatch fit on the J = 2 path (n = 250,001, batch 4,096, 250
+    steps) in both sampling modes, NLL/pt beside phase 3's adam full fit;
+    then every draw past a straggler deadline (backup draws), and a crash at
+    step 120 recovered from the step-100 checkpoint to the straight run's
+    bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.mctm_fit import fit_mctm_streaming, streamed_nll
+    from repro_torch.data.dgp import generate
+    from repro_torch.ft import FailureSimulator, get_ft_config
+
+    cfg = M.MCTMConfig(J=2, degree=6)
+    Yn = generate("normal_mixture", MAIN_N, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Yn)
+    init = M.init_params(cfg, generator=torch.Generator().manual_seed(91), device=dev)
+    rec, fits = {}, {}
+
+    def fit(tag, sampling="uniform", **kw):
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fit_mctm_streaming(cfg, scaler, Yn, init=init, steps=MINI_STEPS,
+                                 method="minibatch", batch_size=MINI_BATCH, sample_seed=3,
+                                 sampling=sampling, chunk_size=CHUNK, device=dev, **kw)
+        _sync()
+        s = time.perf_counter() - t0
+        census[f"minibatch {tag}"] = read_counts()
+        nll = streamed_nll(cfg, scaler, out.params, Yn, chunk=CHUNK, eta=1e-9, device=dev) / MAIN_N
+        rec[tag] = {"fit_s": s, "nll_pp": nll, "ratio_to_adam_full": nll / PHASE3_ADAM_NLL_PP,
+                    "final_loss": float(out.losses[-1]),
+                    "bernstein": census[f"minibatch {tag}"]["bernstein"]}
+        log(f"phase 9 minibatch {tag}: {json.dumps(rec[tag])}")
+        fits[tag] = out
+        return out
+
+    for sampling in ("uniform", "importance"):
+        fit(sampling, sampling)
+        if abs(rec[sampling]["ratio_to_adam_full"] - 1) > MINI_NLL_REL:
+            errs.append(f"minibatch {sampling}: NLL/pt {rec[sampling]['nll_pp']} against "
+                        f"{PHASE3_ADAM_NLL_PP}")
+    ft = get_ft_config()
+    old = ft.straggler_deadline_ms
+    ft.straggler_deadline_ms = 1e-6  # no draw meets it: every step takes its backup draw
+    try:
+        fit("backup draws")
+    finally:
+        ft.straggler_deadline_ms = old
+    if np.array_equal(fits["backup draws"].losses, fits["uniform"].losses):
+        errs.append("the straggler deadline took no backup draw")
+    d = os.path.join(scratch, "minibatch")
+    ft.simulator = sim = FailureSimulator().inject("fit", MINI_CRASH)
+    try:
+        fit("crash at 120", checkpoint=CheckpointManager(d), ckpt_every=MINI_EVERY)
+    finally:
+        ft.simulator = None
+    same = all(torch.equal(a, b) for a, b in zip(
+        (fits["crash at 120"].params.theta_raw, fits["crash at 120"].params.lam),
+        (fits["uniform"].params.theta_raw, fits["uniform"].params.lam)))
+    rec["crash at 120"]["same_bits"] = same
+    rec["crash at 120"]["injections"] = list(sim.failures)
+    if not same or sim.failures != [MINI_CRASH]:
+        errs.append(f"the crashed minibatch fit did not recover the straight bits: {sim.failures}")
+    return rec
+
+
+def phase_pipeline(dev, scratch: str):
+    """Phase 9: the data pipeline (CoresetSelector at D = 32 and 2,048) and
+    the minibatch fit (its kernels ran beside phase 2:
+    ``phase_kernels_wide_d``). Returns (census, records)."""
+    errs: list[str] = []
+    census: dict = {}
+    rec = {}
+    rec["select"] = _phase9_select(dev, census, errs)
+    rec["minibatch"] = _phase9_minibatch(dev, scratch, census, errs)
+    need = {"select D=32 two-pass": ("gram", "extremes_wide"),
+            "select D=32 one-pass": ("sweep", "extremes_wide"),
+            "select D=2048 two-pass": ("gram_large", "extremes_wide"),
+            "select D=2048 one-pass": ("sweep_wide", "extremes_wide"),
+            "minibatch uniform": ("bernstein",), "minibatch importance": ("bernstein",)}
+    for path, counts in census.items():
+        log(f"census {path}: {json.dumps(counts)}")
+        for name in need.get(path, ()):
+            if counts.get(name, 0) <= 0:
+                errs.append(f"{name} was not launched on the {path} path")
+    if errs:
+        fail("phase 9: " + "; ".join(errs))
+    return census, rec
+
+
+# ---------------------------------------------------------------- phase 10
+
+SERVE_ARGV = ["--device", "cuda"]   # serve_mctm at its defaults
+DRIFT_SERVE_CLEAN, DRIFT_SERVE_SHIFTED = 6, 8
+
+
+def phase_serving(dev):
+    """Phase 10: ``launch/serve_mctm.py`` at its defaults (n = 200,000,
+    k = 1,000, 200 steps, chunk 16,384, 4,096 queries of which 25% are
+    conditional samples, max batch 256, min bucket 8) with its gates; then
+    the streaming maintainer with ``serve_engine=`` and ``auto_trigger`` on
+    phase 8's clean-then-shifted stream: drift fires, a refit publishes, the
+    detector re-anchors and the served NLL of the shifted windows falls back
+    into its band. Returns (census, records)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.mctm_fit import fit_mctm_streaming
+    from repro_torch.core.streaming import DriftDetector, StreamingCoresetMaintainer
+    from repro_torch.data.dgp import generate
+    from repro_torch.launch import serve_mctm
+    from repro_torch.serve.density import DensityServeEngine
+
+    errs: list[str] = []
+    census: dict = {}
+    rec: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    sv = serve_mctm.run(serve_mctm.parse_args(SERVE_ARGV))
+    sv["s"] = time.perf_counter() - t0
+    census["serve_mctm"] = read_counts()
+    census["serve_mctm"]["bernstein (graph replays)"] = sv["replayed_launches"].get("bernstein", 0)
+    rec["serve_mctm"] = {k: v for k, v in sv.items() if k != "stats"}
+    rec["serve_mctm"]["ticks"] = sv["stats"]["ticks"]
+    log(f"phase 10 serve_mctm: {json.dumps(rec['serve_mctm'])}")
+    if (sv["dropped"] or sv["mixed_version_answers"] or sv["captures_after_warmup"]
+            or sv["log_density_max_err"] > serve_mctm.LOG_DENSITY_ATOL
+            or not set(sv["versions_served"]) >= {0, 1}
+            or sv["replayed_launches"].get("bernstein", 0) <= 0):
+        errs.append(f"serve_mctm: {rec['serve_mctm']}")
+
+    # ---- the drift → refit → publish loop
+    cfg = M.MCTMConfig(J=2, degree=6)
+    n = STREAM_WINDOWS * STREAM_ROWS
+    Yn = generate("normal_mixture", n, seed=1).astype(np.float32)
+    scaler = DataScaler.fit(Yn)
+    windows = [Yn[i * STREAM_ROWS:(i + 1) * STREAM_ROWS] for i in range(STREAM_WINDOWS)]
+    fit2 = fit_mctm_streaming(cfg, scaler, np.concatenate(windows[:2]),
+                              generator=torch.Generator().manual_seed(34), steps=FT_STEPS,
+                              method="adam", chunk_size=STREAM_ROWS, device=dev)
+    eng = DensityServeEngine(cfg, fit2.params, scaler, device=dev)
+    eng.warmup(kinds=("log_density",))
+    m = StreamingCoresetMaintainer(cfg, scaler, STREAM_K, 31, alpha=STREAM_ALPHA,
+                                   policy="sliding", window=2, sketch_size=SKETCH,
+                                   serve_engine=eng, detector=DriftDetector(),
+                                   refit_kwargs=dict(method="lbfgs", steps=60,
+                                                     chunk_size=CHUNK), device=dev)
+    std = Yn.std(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    waits = []
+    for i in range(DRIFT_SERVE_CLEAN + DRIFT_SERVE_SHIFTED):
+        w = windows[2 + i]
+        if i >= DRIFT_SERVE_CLEAN:
+            w = w * 1.6 + 2 * std
+        m.push(w)
+        if m.drift_log[-1]["triggered"]:
+            t1 = time.perf_counter()
+            while eng.refit_in_flight:
+                time.sleep(0.01)
+            waits.append(time.perf_counter() - t1)
+        eng.submit_log_density(w[:64])  # probe traffic: the publish swaps in at a tick
+        eng.run_until_drained()
+    loop_s = time.perf_counter() - t0
+    census["drift loop"] = read_counts()
+    log_ = m.drift_log
+    fired = [e["window"] for e in log_ if e["fired"]]
+    after = [e for e in log_ if e["version"] >= 1]
+    rec["drift_loop"] = {
+        "windows": [{k: e[k] for k in ("window", "version", "nll_pp", "ewma", "fired",
+                                       "triggered")} for e in log_],
+        "fired": fired, "refits": eng.refit_log, "triggered": m.triggered,
+        "refit_wait_s": waits, "s": loop_s, "final_eps_hat": log_[-1]["eps_hat"],
+        "versions": sorted({e["version"] for e in log_}), "captures": eng.compile_count}
+    log(f"phase 10 drift loop: {json.dumps(rec['drift_loop'])}")
+    if (any(e["fired"] for e in log_[:DRIFT_SERVE_CLEAN]) or not fired
+            or not eng.refit_log or not after or not after[-1]["eps_hat"] <= 0.1
+            or eng.compile_count != len(eng.buckets)):
+        errs.append(f"the drift → refit loop did not close: fired {fired}, refits "
+                    f"{len(eng.refit_log)}, final eps_hat {log_[-1]['eps_hat']}")
+    need = {"serve_mctm": ("bernstein", "gram", "extremes"), "drift loop": ("bernstein", "sweep")}
+    for path, counts in census.items():
+        log(f"census {path}: {json.dumps(counts)}")
+        for name in need.get(path, ()):
+            if counts.get(name, 0) <= 0:
+                errs.append(f"{name} was not launched on the {path} path")
+    if errs:
+        fail("phase 10: " + "; ".join(errs))
+    return census, rec
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
@@ -2459,7 +2987,9 @@ def main() -> None:
     mctm_kernels, wide = phase_kernels(dev)
     kernels_at_d16 = phase_kernels_d16(dev)
     wide_row, wide["extremes_wide"] = phase_wide_extremes(dev)
-    kernels = mctm_kernels + [wide_row] + phase_lm_kernels(dev)
+    lm_rows = phase_lm_kernels(dev)
+    p9_rows, wide["wide_d"] = phase_kernels_wide_d(dev)
+    kernels = mctm_kernels + [wide_row] + p9_rows + lm_rows
     phase_small_agreement(dev)
     wide["scoring_j10"] = phase_wide_scoring(dev)
     launches, two_pass_params = phase_path(dev)
@@ -2479,14 +3009,23 @@ def main() -> None:
     t0 = time.perf_counter()
     stream_census, stream_rec = phase_streaming(dev, scratch)
     log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    p9_census, p9_rec = phase_pipeline(dev, scratch)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
     shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    p10_census, p10_rec = phase_serving(dev)
+    log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
+    launches["gram_large"] = p9_census["select D=2048 two-pass"]["gram_large"]
+    launches["sweep_wide"] = p9_census["select D=2048 one-pass"]["sweep_wide"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on its path")
         name = "gram_cluster" if row["name"] == "gram" else row["name"]
         for key, cen in (("launches_phase6", core_census), ("launches_phase7", ft_census),
-                         ("launches_phase8", stream_census)):
+                         ("launches_phase8", stream_census), ("launches_phase9", p9_census),
+                         ("launches_phase10", p10_census)):
             row[key] = {path: counts[name] for path, counts in cen.items() if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
@@ -2494,7 +3033,9 @@ def main() -> None:
         json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve, "core": core,
                    "core_census": core_census, "fault_tolerance": ft_rec,
                    "ft_census": ft_census, "streaming": stream_rec,
-                   "stream_census": stream_census}, f, indent=1)
+                   "stream_census": stream_census, "pipeline": p9_rec,
+                   "pipeline_census": p9_census, "serving": p10_rec,
+                   "serving_census": p10_census}, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

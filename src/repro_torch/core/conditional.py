@@ -15,8 +15,8 @@ Random plans are inputs, as in ``coreset.build_coreset``: the CountSketch
 not given is drawn from ``generator`` in that order (the reference splits
 its key as (draw, hull[, sketch]) instead).
 
-Not ported yet (they raise ``NotImplementedError``): ``fit_cmctm``'s
-``minibatch`` method (ROADMAP Queue A 1) and ``mesh=`` (Queue A 9).
+Not ported yet (it raises ``NotImplementedError``): ``mesh=`` (ROADMAP
+Queue A 9).
 """
 from __future__ import annotations
 
@@ -168,6 +168,7 @@ def fit_cmctm(
     method: str = "adam",
     chunk_size: int | None = None,
     microbatches: int | None = None,
+    batch_size: int | None = None,
     history: int = 10,
     gtol: float = 1e-6,
     mesh=None,
@@ -177,10 +178,11 @@ def fit_cmctm(
     device=None,
 ) -> M.FitResult:
     """Weighted conditional-MCTM fit through the fit layer: ``method``
-    ``"adam"`` (a single-microbatch fit featurizes once, outside the steps)
-    or ``"lbfgs"`` (streaming HVP; ``steps`` are iterations, stopping at
-    ``gtol``); rows beyond ``chunk_size`` are featurized microbatch by
-    microbatch. ``init`` (or ``init_cparams`` from ``generator``) is the
+    ``"adam"`` (a single-microbatch fit featurizes once, outside the steps),
+    ``"lbfgs"`` (streaming HVP; ``steps`` are iterations, stopping at
+    ``gtol``) or ``"minibatch"`` (``batch_size`` sampled rows a step, the
+    (y_i, x_i) rows drawn like any other batch); rows beyond ``chunk_size``
+    are featurized microbatch by microbatch. ``init`` (or ``init_cparams`` from ``generator``) is the
     start. The final NLL is summed chunk by chunk, each chunk's float32 sum
     added to a float total. ``checkpoint=`` (a ``CheckpointManager``) +
     ``resume=True`` restart from the latest saved step (``ckpt_every``
@@ -196,8 +198,8 @@ def fit_cmctm(
     n = int(YX.shape[0])
     if n == 0:
         raise ValueError("cannot fit an empty dataset")
-    w, _, chunk, microbatches, norm = method_batch_plan(method, n, weights, chunk_size,
-                                                        microbatches)
+    w, _, chunk, microbatches, batch_size, norm = method_batch_plan(
+        method, n, weights, chunk_size, microbatches, batch_size)
     if init is None:
         init = init_cparams(cfg, generator=generator, device=dev)
     model = CMCTMDensityModel(cfg, scaler, norm=norm)
@@ -210,8 +212,8 @@ def fit_cmctm(
         batch = {"YX": YXt, "weights": wt}
     params, losses = fit_density_model(
         model, init, batch, optimizer=default_fit_optimizer(lr, steps), steps=steps,
-        method=method, microbatches=microbatches, history=history, gtol=gtol,
-        checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
+        method=method, microbatches=microbatches, batch_size=batch_size, history=history,
+        gtol=gtol, checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
         label=f"cmctm-{method}", device=dev,
     )
     params = CMCTMParams(*(t.detach() for t in params))

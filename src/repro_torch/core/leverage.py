@@ -14,11 +14,11 @@ Variants (the paper's Table 2 baselines): exact via QR
 Each takes X as a tensor or array and runs on ``device`` (None → CUDA,
 which must exist). float32 X computes in float32; float64 X in float64, as
 the reference does under x64. The float32 Gram XᵀX is formed by the gram
-kernel (``kernels.gram.gram_matrix``) for D ≤ ``MAX_D``, so these scores
-share the scoring engine's summation order: the degree-6 l2 leverage moves
-by up to ~3e-3 under another float32 order. Above ``MAX_D``, and in
-float64, the Gram is ``X.T @ X`` (``torch.mm``, TF32 off), the
-reference's plain product: a rule of the shape and dtype, not a fallback.
+kernel (``kernels.gram.gram_matrix``, any D), so these scores share the
+scoring engine's summation order: the degree-6 l2 leverage moves by up to
+~3e-3 under another float32 order. In float64 the Gram is ``X.T @ X``
+(``torch.mm``), the reference's plain product: a rule of the dtype, not a
+fallback (the kernel is float32 only).
 """
 from __future__ import annotations
 
@@ -30,9 +30,7 @@ from repro_torch.core.scoring import (
 )
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.kernels.gram import gram_matrix
-from repro_torch.kernels.gram.ops import MAX_D
 from repro_torch.kernels.sweep import fused_sweep_update
-from repro_torch.kernels.sweep.ops import MAX_D as SWEEP_MAX_D
 
 __all__ = [
     "flatten_features",
@@ -73,9 +71,9 @@ def _input(X, device) -> torch.Tensor:
 
 
 def _gram(X: torch.Tensor) -> torch.Tensor:
-    """XᵀX: the gram kernel (its plain version on the CPU) for float32 and
-    D ≤ MAX_D, else ``torch.mm`` (see the module doc)."""
-    if X.dtype == torch.float32 and X.shape[1] <= MAX_D:
+    """XᵀX: the gram kernel (its plain version on the CPU) for float32,
+    ``torch.mm`` for float64 (see the module doc)."""
+    if X.dtype == torch.float32:
         return gram_matrix(X.contiguous())
     return X.T @ X
 
@@ -131,10 +129,9 @@ def sketched_leverage(
     reference's ``randint``/``rademacher`` draws in parity tests; without
     it from ``generator`` (``scoring.sketch_plan``). SX is accumulated
     ``chunk_size`` rows at a time, in X's dtype: on the sweep kernel (no P
-    rows, no z) for float32 X with D ≤ ``SWEEP_MAX_D``, else by
-    ``scoring.countsketch_add`` (float64, or D above the kernel's limit): a
-    rule of the shape and dtype, as for the Gram. Both add each bucket's
-    rows in ascending order, without atomics."""
+    rows, no z) for float32 X, by ``scoring.countsketch_add`` for float64:
+    a rule of the dtype, as for the Gram. Both add each bucket's rows in
+    ascending order, without atomics."""
     X = _input(X, device)
     n, D = X.shape
     dev = X.device
@@ -153,7 +150,7 @@ def sketched_leverage(
     step = max(1, int(chunk_size))
     for lo in range(0, n, step):
         Xc, rc, sc = X[lo:lo + step], rows[lo:lo + step], signs[lo:lo + step]
-        if X.dtype == torch.float64 or D > SWEEP_MAX_D:
+        if X.dtype == torch.float64:
             SX = countsketch_add(SX, sc[:, None].to(X.dtype) * Xc, rc)
         else:
             sw = torch.ones(Xc.shape[0], dtype=torch.float32, device=dev)

@@ -115,9 +115,9 @@ def lambda_matrix(cfg: MCTMConfig, lam_flat: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(J, dtype=lam_flat.dtype, device=lam_flat.device)
     if J == 1:
         return eye
-    rows, cols = np.tril_indices(J, k=-1)
-    idx = (torch.as_tensor(rows, device=lam_flat.device), torch.as_tensor(cols, device=lam_flat.device))
-    return eye.index_put(idx, lam_flat)
+    # built on the device (no host copy), so a CUDA graph can capture it
+    rows, cols = torch.tril_indices(J, J, offset=-1, device=lam_flat.device)
+    return eye.index_put((rows, cols), lam_flat)
 
 
 def basis_features(
@@ -187,6 +187,7 @@ def fit_mctm(
     method: str = "adam",
     chunk_size: int | None = None,
     microbatches: int | None = None,
+    batch_size: int | None = None,
     optimizer=None,
     checkpoint=None,
     ckpt_every: int = 0,
@@ -194,9 +195,9 @@ def fit_mctm(
     device=None,
 ) -> FitResult:
     """Weighted maximum-likelihood fit of an MCTM (``weights`` are coreset
-    weights; None → unweighted). ``method`` ``"adam"`` or ``"lbfgs"``
-    dispatches to ``mctm_fit.fit_mctm_streaming`` (``"minibatch"`` is not
-    ported yet); ``"scipy-lbfgs"`` is the dense small-n oracle kept for
+    weights; None → unweighted). ``method`` ``"adam"``, ``"lbfgs"`` or
+    ``"minibatch"`` (``batch_size`` sampled rows a step) dispatches to
+    ``mctm_fit.fit_mctm_streaming``; ``"scipy-lbfgs"`` is the dense small-n oracle kept for
     tests (scipy's L-BFGS-B on the flat float64 vector, featurizing inside
     the objective). ``checkpoint`` / ``ckpt_every`` / ``resume`` pass to the
     fit layer (``mctm_fit``)."""
@@ -209,8 +210,8 @@ def fit_mctm(
             generator=generator, init=init, steps=steps, lr=lr, optimizer=optimizer,
             method=method,
             chunk_size=DEFAULT_CHUNK if chunk_size is None else chunk_size,
-            microbatches=microbatches, checkpoint=checkpoint, ckpt_every=ckpt_every,
-            resume=resume, device=device,
+            microbatches=microbatches, batch_size=batch_size, checkpoint=checkpoint,
+            ckpt_every=ckpt_every, resume=resume, device=device,
         )
     if method != "scipy-lbfgs":
         raise ValueError(f"unknown fit method: {method}")

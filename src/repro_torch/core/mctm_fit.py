@@ -1,11 +1,14 @@
-"""MCTM fit layer — the single-host ``adam`` and ``lbfgs`` parts of
-``repro.core.mctm_fit``: streamed featurization, the weighted-NLL fits, and
-the streamed full-data evaluator behind the (1±ε) validation.
+"""MCTM fit layer — the single-host port of ``repro.core.mctm_fit``:
+streamed featurization, the weighted-NLL fits (``adam``, ``lbfgs``,
+``minibatch``), and the streamed full-data evaluator behind the (1±ε)
+validation.
 
 Objective: Σ w·nll(θ) / Σw. ``method_batch_plan`` owns the microbatch and
 normalizer rules (adam: norm = Σw / microbatches, so the mean over
 microbatches of each microbatch's Σ w·nll / norm is the objective; lbfgs:
-norm = Σw, its oracles sum over microbatches). Every step featurizes each
+norm = Σw, its oracles sum over microbatches; minibatch: norm =
+Σw·batch_size / (n·microbatches), so a sampled batch's estimate is
+unbiased). Every step featurizes each
 microbatch inside the loss (the bernstein kernel; the features are
 constants of the fit, so no backward kernel is needed).
 
@@ -13,6 +16,15 @@ constants of the fit, so no backward kernel is needed).
   applies the reference's AdamW update — the arithmetic of
   ``repro.train.trainer``'s ``make_train_step``. A single-microbatch adam
   fit featurizes once, outside the step loop (the dense fast path).
+- ``minibatch``: adam's step on ``batch_size`` rows drawn each step through
+  ``data.pipeline.full_data_loader`` (uniform with replacement, or
+  w-proportional with ``sampling="importance"``), the bernstein kernel
+  featurizing them inside the loss. A batch is a pure function of
+  (``sample_seed``, step), so a resumed fit replays the straight run's
+  draws; with the ``ft`` config's ``straggler_deadline_ms > 0`` a slow
+  draw is replaced by the backup draw of the same step
+  (``with_backup_draws``). adam and minibatch share one ``TrainState``
+  driver (``_train_state_loop``).
 - ``lbfgs``: the streaming-HVP quasi-Newton fit (``_fit_lbfgs``): loss,
   gradient and Hessian-vector product each one sweep over the microbatches
   on the device (``make_streamed_oracles``); the two-loop direction, the
@@ -39,8 +51,7 @@ step is a deterministic function of the state, so a resumed fit lands on the
 straight run's bits. A non-finite objective that repeats on every attempt
 (NaN data) ends in the supervisor's "retry budget exhausted" diagnostic.
 
-Not ported yet (they raise ``NotImplementedError``): the ``minibatch``
-method (it draws through ``data/pipeline.py``, ROADMAP Queue A 8) and meshes.
+Not ported yet (``NotImplementedError``): meshes (ROADMAP Queue A 9).
 """
 from __future__ import annotations
 
@@ -69,6 +80,7 @@ __all__ = [
     "fit_mctm_streaming",
     "batch_plan",
     "method_batch_plan",
+    "resolve_batch_size",
     "make_streamed_oracles",
     "streamed_nll",
     "coreset_epsilon",
@@ -79,14 +91,9 @@ __all__ = [
 ]
 
 FIT_METHODS = ("adam", "lbfgs", "minibatch")
-_NOT_PORTED = ("minibatch",)
 
 
 def _check_method(method: str) -> None:
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fit method {method!r} is not ported yet (ROADMAP.md Queue A 1: it waits for "
-            "data/pipeline.py, Queue A 8)")
     if method not in FIT_METHODS:
         raise ValueError(f"unknown fit method: {method!r} (one of {FIT_METHODS})")
 
@@ -189,16 +196,43 @@ def batch_plan(n: int, weights, chunk_size: int | None, microbatches: int | None
     return w, float(w.sum()), chunk, microbatches
 
 
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the fit layer's mesh= is not ported yet (ROADMAP Queue A 9)")
+
+
+def resolve_batch_size(batch_size: int, microbatches: int = 1, mesh=None) -> int:
+    """Round a requested minibatch size UP to the microbatch multiple the
+    step geometry needs — sampled batches carry no padding, so the size
+    itself must already be divisible."""
+    _check_mesh(mesh)
+    mult = max(1, microbatches)
+    return -(-int(batch_size) // mult) * mult
+
+
 def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
-                      microbatches: int | None):
-    """``batch_plan`` plus the per-method objective normalizer: returns
-    ``(w, total_w, chunk, microbatches, norm)`` where, so that the fit
-    minimizes Σ w·nll / Σw, adam's norm = Σw / microbatches (its step
-    averages the microbatches) and lbfgs's norm = Σw (its oracles sum
-    them)."""
+                      microbatches: int | None, batch_size: int | None = None, mesh=None):
+    """``batch_plan`` plus the per-method microbatch and objective-normalizer
+    rules, shared by ``fit_mctm_streaming`` and ``conditional.fit_cmctm``:
+    returns ``(w, total_w, chunk, microbatches, batch_size, norm)`` where,
+    so that the fit minimizes Σ w·nll / Σw, adam's norm = Σw / microbatches
+    (its step averages the microbatches), lbfgs's norm = Σw (its oracles sum
+    them) and minibatch's norm = Σw·batch_size / (n·microbatches) (a
+    batch_size-row draw with replacement makes E[Σ_sampled w·nll] =
+    (batch_size/n)·Σ w·nll); ``batch_size`` is None but for minibatch."""
     _check_method(method)
-    w, total_w, chunk, mb = batch_plan(n, weights, chunk_size, microbatches)
-    return w, total_w, chunk, mb, total_w if method == "lbfgs" else total_w / mb
+    _check_mesh(mesh)
+    w, total_w, chunk, mb_full = batch_plan(n, weights, chunk_size, microbatches)
+    if method == "minibatch":
+        # clamp to n: past that, extra with-replacement draws only add cost
+        # and variance over a full-batch step of the same size
+        bs = min(int(batch_size), n) if batch_size else min(n, 4096)
+        mb = microbatches or max(1, -(-bs // chunk))
+        bs = resolve_batch_size(bs, mb, mesh)
+        return w, total_w, chunk, mb, bs, total_w * bs / (n * mb)
+    if method == "lbfgs":
+        return w, total_w, chunk, mb_full, None, total_w
+    return w, total_w, chunk, mb_full, None, total_w / mb_full
 
 
 class TrainState(NamedTuple):
@@ -220,7 +254,11 @@ def fit_density_model(
     optimizer: Optimizer | None = None,
     steps: int,
     method: str = "adam",
+    mesh=None,
     microbatches: int = 1,
+    batch_size: int | None = None,
+    sample_seed: int = 0,
+    sampling: str = "uniform",
     history: int = 10,
     gtol: float = 1e-6,
     max_linesearch: int = 20,
@@ -235,15 +273,18 @@ def fit_density_model(
     first-order ``optimizer``): rows padded to a microbatch multiple with
     zero weight, one step per iteration, grads summed over microbatches then
     scaled by 1/microbatches; each loss is the objective before that step's
-    update. ``lbfgs`` ignores ``optimizer`` and runs ``_fit_lbfgs``
-    (``history`` curvature pairs, Armijo backtracking capped at
-    ``max_linesearch`` halvings, convergence at ``gtol`` gradient norm).
-    ``params0`` is any parameter tuple (``MCTMParams``, the conditional
-    model's three-leaf ``CMCTMParams``): its leaves are optimized in the
-    order of its ``_fields`` (the order ``ravel_pytree`` flattens a
-    NamedTuple in) and the result is of its own type. ``checkpoint``,
-    ``ckpt_every``, ``resume``: see the module doc. Returns ``(params,
-    losses)`` with one float per step of the final attempt."""
+    update. ``minibatch``: the same step on ``batch_size`` weighted rows
+    drawn each step (``_fit_minibatch``; ``sample_seed``, ``sampling``).
+    ``lbfgs`` ignores ``optimizer`` and runs ``_fit_lbfgs`` (``history``
+    curvature pairs, Armijo backtracking capped at ``max_linesearch``
+    halvings, convergence at ``gtol`` gradient norm). ``params0`` is any
+    parameter tuple (``MCTMParams``, the conditional model's three-leaf
+    ``CMCTMParams``): its leaves are optimized in the order of its
+    ``_fields`` (the order ``ravel_pytree`` flattens a NamedTuple in) and
+    the result is of its own type. ``checkpoint``, ``ckpt_every``,
+    ``resume``: see the module doc. Returns ``(params, losses)`` with one
+    float per step of the final attempt."""
+    _check_mesh(mesh)
     if method == "lbfgs":
         return _fit_lbfgs(
             model, params0, batch, steps=steps, microbatches=microbatches,
@@ -255,9 +296,47 @@ def fit_density_model(
     if optimizer is None:
         raise ValueError(f"method={method!r} requires an optimizer")
     dev = resolve_device(device)
+    common = dict(optimizer=optimizer, steps=steps, microbatches=microbatches,
+                  checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
+                  log_every=log_every, label=label, device=dev)
+    if method == "minibatch":
+        if not batch_size:
+            raise ValueError("method='minibatch' requires batch_size")
+        return _fit_minibatch(model, params0, batch, batch_size=batch_size,
+                              sample_seed=sample_seed, sampling=sampling, **common)
     mb = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     mbatches = _microbatches(_pad_batch(batch, mb)[0], mb)
+    # full batch: on the device once, the same microbatches every step
+    return _train_state_loop(model, params0, lambda i: mbatches, **common)
+
+
+def _train_state_loop(
+    model,
+    params0,
+    batch_fn: Callable[[int], list],
+    *,
+    optimizer: Optimizer,
+    steps: int,
+    microbatches: int = 1,
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
+    log_every: int = 0,
+    label: str = "fit",
+    device=None,
+):
+    """The shared ``TrainState`` driver of the adam and minibatch modes:
+    the step, resume, the loop and the supervisor, written once so the two
+    first-order modes cannot drift. ``batch_fn(i)`` returns step i's
+    ``microbatches`` equal slices (dicts of tensors on ``device``).
+
+    Supervised (``ft.RunSupervisor``): retryable failures — injected faults,
+    non-finite losses or grads (``NonFiniteError`` → LR backoff through
+    ``scale_updates``) — roll back to the latest checkpoint and re-run.
+    Returns ``(params, losses)`` of the final attempt."""
+    dev = device
+    mb = max(1, microbatches)
     fields = params0._fields
     leaf_type = getattr(model, "leaf_type", None) or type(params0)
     scale = 1.0 / mb
@@ -301,13 +380,77 @@ def fit_density_model(
             state, start = restore_train_state(checkpoint, state)
             state = state._replace(params=type(params0)(*(
                 getattr(state.params, f).detach().requires_grad_(True) for f in fields)))
-        return train_loop(make_step(opt), state, lambda i: mbatches, steps, start=start,
+        return train_loop(make_step(opt), state, batch_fn, steps, start=start,
                           mgr=checkpoint, ckpt_every=ckpt_every, log_every=log_every,
                           label=label)
 
     state, losses = RunSupervisor(label=label).run(attempt)
     out = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(0)
     return state.params, out
+
+
+def _fit_minibatch(
+    model,
+    params0,
+    batch: dict,
+    *,
+    optimizer: Optimizer,
+    steps: int,
+    microbatches: int = 1,
+    batch_size: int,
+    sample_seed: int = 0,
+    sampling: str = "uniform",
+    checkpoint=None,
+    ckpt_every: int = 0,
+    resume: bool = False,
+    log_every: int = 0,
+    label: str = "minibatch",
+    device=None,
+):
+    """Sampled-minibatch driver: each step draws ``batch_size`` weighted rows
+    through ``data.pipeline.full_data_loader`` over the full index set
+    (uniform with replacement, or w-proportional with the 1/p correction
+    under ``sampling="importance"``; the caller's normalizer makes the
+    estimate unbiased either way, see ``method_batch_plan``), moves them to
+    the device and takes adam's step on them. Batches are a pure function of
+    (sample_seed, step), so a resumed fit replays the straight run's draws.
+
+    With the ``ft`` config's ``straggler_deadline_ms > 0`` each primary draw
+    is deadlined (``data.pipeline.with_backup_draws`` under
+    ``ft.failure.StragglerPolicy``): a draw slower than the deadline is
+    replaced by the deterministic backup draw of the same step (seed
+    ``sample_seed + BACKUP_SEED_OFFSET``), also pure in the step."""
+    from repro_torch.data.pipeline import BACKUP_SEED_OFFSET, full_data_loader, with_backup_draws
+    from repro_torch.ft.failure import StragglerPolicy
+
+    microbatches = max(1, microbatches)
+    dev = device
+    w = np.asarray(_host(batch["weights"]), np.float32)
+    b = resolve_batch_size(batch_size, microbatches)
+    data = {k: np.asarray(_host(v)) for k, v in batch.items() if k != "weights"}
+    sample_fn = full_data_loader(data, w, b, seed=sample_seed, sampling=sampling)
+    ft = get_ft_config()
+    if ft.straggler_deadline_ms > 0:
+        backup_fn = full_data_loader(data, w, b, seed=sample_seed + BACKUP_SEED_OFFSET,
+                                     sampling=sampling)
+        sample_fn = with_backup_draws(
+            sample_fn, backup_fn,
+            StragglerPolicy(deadline_ms=ft.straggler_deadline_ms,
+                            backup_factor=ft.straggler_backup_factor),
+        )
+
+    def batch_fn(i):
+        drawn = {k: torch.as_tensor(v, device=dev) for k, v in sample_fn(i).items()}
+        return _microbatches(drawn, microbatches)
+
+    return _train_state_loop(model, params0, batch_fn, optimizer=optimizer, steps=steps,
+                             microbatches=microbatches, checkpoint=checkpoint,
+                             ckpt_every=ckpt_every, resume=resume, log_every=log_every,
+                             label=label, device=dev)
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +714,9 @@ def fit_mctm_streaming(
     method: str = "adam",
     chunk_size: int | None = DEFAULT_CHUNK,
     microbatches: int | None = None,
+    batch_size: int | None = None,
+    sample_seed: int = 0,
+    sampling: str = "uniform",
     history: int = 10,
     gtol: float = 1e-6,
     featurize: Callable | None = None,
@@ -583,10 +729,13 @@ def fit_mctm_streaming(
     """Weighted maximum-likelihood MCTM fit (``weights`` None → unweighted),
     inputs beyond ``chunk_size`` rows featurized microbatch by microbatch.
     ``init`` (or fresh ``init_params`` from ``generator``) is the start.
-    ``method``: ``"adam"`` (any first-order ``optimizer``) or ``"lbfgs"``
+    ``method``: ``"adam"`` (any first-order ``optimizer``), ``"lbfgs"``
     (streaming-HVP quasi-Newton; ``steps`` are iterations, early-stopping
-    at ``gtol``). ``checkpoint`` / ``ckpt_every`` / ``resume``: the fit
-    layer's supervised checkpoints (module doc)."""
+    at ``gtol``) or ``"minibatch"`` (``batch_size`` sampled weighted rows a
+    step, drawn from ``sample_seed``; ``sampling="importance"`` for
+    w-proportional draws with the 1/p correction). ``checkpoint`` /
+    ``ckpt_every`` / ``resume``: the fit layer's supervised checkpoints
+    (module doc)."""
     _check_method(method)
     dev = resolve_device(device)
     Y = np.asarray(Y, np.float32)
@@ -595,8 +744,8 @@ def fit_mctm_streaming(
         raise ValueError("cannot fit an empty dataset")
     if init is None:
         init = M.init_params(cfg, generator=generator, device=dev)
-    w, _, chunk, microbatches, norm = method_batch_plan(
-        method, n, weights, chunk_size, microbatches
+    w, _, chunk, microbatches, batch_size, norm = method_batch_plan(
+        method, n, weights, chunk_size, microbatches, batch_size
     )
     model = MCTMDensityModel(cfg, scaler, norm=norm, featurize=featurize)
     Yt = torch.as_tensor(Y, device=dev)
@@ -604,13 +753,15 @@ def fit_mctm_streaming(
     if method == "adam" and microbatches == 1 and featurize is None:
         # dense fast path: featurize once instead of once per step (adam
         # only: lbfgs holds its batch across many oracle sweeps, where a
-        # cached (n, J, d) basis is what this layer exists to avoid)
+        # cached (n, J, d) basis is what this layer exists to avoid, and
+        # minibatch rows change every step)
         A, Ap = fit_featurize(cfg, scaler)(Yt)
         batch = {"A": A, "Ap": Ap, "weights": batch["weights"]}
     params, losses = fit_density_model(
         model, init, batch,
         optimizer=optimizer or default_fit_optimizer(lr, steps),
-        steps=steps, method=method, microbatches=microbatches, history=history, gtol=gtol,
+        steps=steps, method=method, microbatches=microbatches, batch_size=batch_size,
+        sample_seed=sample_seed, sampling=sampling, history=history, gtol=gtol,
         checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
         log_every=log_every, label=f"mctm-{method}", device=dev,
     )

@@ -12,6 +12,13 @@ carried across chunks, is owned by a pass strategy:
   TwoPassSketched    2       (SX, Σp, Σppᵀ)   sweep (pass 1); extremes (pass 2)
   OnePassSketched    1       SX               sweep (sketch + z + extremes)
 
+The sweep kernel takes X of any width and P rows of d ≤ 16 (its register
+tiling). Wider P rows (a generic featurize's P = X, such as
+``data.pipeline.CoresetSelector``'s) are scored beside it (``_sweep_update``):
+the chunk's extremes on the extremes kernel's wide body, with chunk-local
+ids as the sweep's, and the moments (Σp, Σppᵀ) on the gram kernel
+(``_gram_moments``).
+
 The strategy contract is the reference's: ``init_state`` / ``update`` /
 ``fused_update`` / ``gram`` / ``result_gram`` / ``moments``; the chunk loop,
 running extremes and ``ScoringResult`` assembly live once in the engine. The
@@ -60,6 +67,7 @@ from repro_torch.kernels.bernstein import bernstein_featurize
 from repro_torch.kernels.extremes import directional_extremes
 from repro_torch.kernels.gram import gram_matrix
 from repro_torch.kernels.sweep import fused_sweep_update
+from repro_torch.kernels.sweep.ops import MAX_DP as SWEEP_MAX_DP
 
 __all__ = [
     "ScoringEngine",
@@ -166,6 +174,35 @@ def hull_chunk_extremes(P, dirs, n_valid: int | None = None):
 
 def _moments_update(s1, s2, P):
     return s1 + torch.sum(P, dim=0), s2 + P.T @ P
+
+
+def _gram_moments(s1, s2, P):
+    """(s1 + Σp, s2 + Σppᵀ) in one gram-kernel call: the Gram of the rows
+    [p, 1] with the carry [[s2, s1], [s1ᵀ, 0]] as its accumulator."""
+    d = P.shape[1]
+    ones = torch.ones((P.shape[0], 1), dtype=torch.float32, device=P.device)
+    acc = torch.zeros((d + 1, d + 1), dtype=torch.float32, device=P.device)
+    acc[:d, :d] = s2
+    acc[:d, d] = s1
+    acc[d, :d] = s1
+    G = gram_matrix(torch.cat([P, ones], dim=1), acc=acc)
+    return G[:d, d].contiguous(), G[:d, :d].contiguous()
+
+
+def _sweep_update(SX, X, P, sw, rows, signs, *, dirs=None, omega=None, moments=None,
+                  want_z=True):
+    """``fused_sweep_update`` for P rows of any d: up to the kernel's
+    SWEEP_MAX_DP the sweep takes P (extremes and moments in its own body);
+    a wider P is scored beside it, its chunk extremes on the extremes
+    kernel (chunk-local ids, as the sweep's) and its moments on the gram
+    kernel (``_gram_moments``). Returns ``(SX', z, ext, moments')``."""
+    if P is None or P.shape[1] <= SWEEP_MAX_DP:
+        return fused_sweep_update(SX, X, P, sw, rows, signs, dirs=dirs, omega=omega,
+                                  moments=moments, want_z=want_z)
+    SX, z, _, _ = fused_sweep_update(SX, X, None, sw, rows, signs, omega=omega, want_z=want_z)
+    ext = hull_chunk_extremes(P, dirs) if dirs is not None else None
+    mom = _gram_moments(*moments, P) if moments is not None else None
+    return SX, z, ext, mom
 
 
 def _sketch_update(SX, s1, s2, X, P, sw, rows, signs):
@@ -463,7 +500,7 @@ class TwoPassSketched(_SketchedBase):
         if self.gram_dtype == "float64":
             return self._f64_update(state, X, P, sw, rows, signs)[0], None
         moments = (state[1], state[2]) if P is not None else None
-        SX, _, _, mom = fused_sweep_update(
+        SX, _, _, mom = _sweep_update(
             state[0], X, P, sw, rows, signs, moments=moments, want_z=False
         )
         s1, s2 = mom if mom is not None else (state[1], state[2])
@@ -521,7 +558,7 @@ class OnePassSketched(_SketchedBase):
                                     want_z=True)
         moments = (state[1], state[2]) if state[1] is not None and P is not None else None
         keep_P = dirs is not None or moments is not None
-        SX, z, ext, mom = fused_sweep_update(
+        SX, z, ext, mom = _sweep_update(
             state[0], X, P if keep_P else None, sw, rows, signs,
             dirs=dirs, omega=omega, moments=moments,
         )

@@ -37,10 +37,17 @@ before the sweep (keys ``"plan"``, ``"hull_normals"``) and with the
 sampling probabilities after it (key ``"draw"``).
 
 ``DriftDetector`` (a numpy copy) and ``drift_window_nll`` measure drift for
-one host. Not ported yet (they raise ``NotImplementedError``): the serving
-loop (``serve_engine=``; its ``auto_trigger``, ``refit_kwargs`` and
-``drift_chunk`` come with it, ROADMAP Queue A 7) and meshes
-(``drift_mesh=``, ``drift_window_nll(mesh=)``, Queue A 9).
+one host. The drift → refit loop, as the reference's: with a
+``serve_engine`` (``serve.density.DensityServeEngine``) and a ``detector``
+attached, every pushed window is scored against the engine's live slot
+(``drift_window_nll``, ``drift_chunk`` rows at a time); a fired detector
+(``auto_trigger=True``) calls ``engine.start_background_refit(scaler,
+coreset=result(), generator=…, **refit_kwargs)``, one refit in flight, whose
+publish lands between serving ticks; the next window of the new version
+re-anchors the detector on the refit's recorded ``fit_nll_pp``. The refit's
+draws come from ``stage_generator(seed, REFIT_TAG, window)``. Not ported
+yet (they raise ``NotImplementedError``): meshes (``drift_mesh=``,
+``drift_window_nll(mesh=)``, ROADMAP Queue A 9).
 """
 from __future__ import annotations
 
@@ -70,9 +77,11 @@ __all__ = [
     "stage_generator",
     "STREAM_POLICIES",
     "RESULT_TAG",
+    "REFIT_TAG",
 ]
 
 RESULT_TAG = 0x57E4  # result()'s window tag, as the reference folds it
+REFIT_TAG = 0xD21F   # the drift-triggered refit's tag, as the reference folds it
 
 
 def stage_generator(seed: int, window: int, stage: int) -> torch.Generator:
@@ -375,8 +384,12 @@ class StreamingCoresetMaintainer:
     two-round direction net (module doc). One ``push(chunk)`` is one
     window. ``ckpt_dir`` checkpoints the full state atomically after every
     window, so crash → ``resume()`` → re-push replays bit-identically.
-    ``detector`` is carried and checkpointed; it observes windows only with
-    a serving engine (ROADMAP Queue A 7)."""
+
+    Drift loop: with ``serve_engine`` and ``detector`` attached, every
+    pushed window is evaluated against the engine's live slot; a fired
+    detector (``auto_trigger=True``) starts the engine's background refit on
+    ``result()`` (module doc). ``drift_log`` records each window's reading,
+    ``triggered`` counts the refits started."""
 
     def __init__(
         self,
@@ -393,6 +406,9 @@ class StreamingCoresetMaintainer:
         sketch_size: int = 0,
         serve_engine=None,
         detector: DriftDetector | None = None,
+        auto_trigger: bool = True,
+        refit_kwargs: dict | None = None,
+        drift_chunk: int | None = DEFAULT_CHUNK,
         drift_mesh=None,
         ckpt_dir: str | None = None,
         plan_hook: Callable | None = None,
@@ -405,10 +421,6 @@ class StreamingCoresetMaintainer:
             raise ValueError("sliding policy requires window >= 1")
         if policy == "decayed" and not (0.0 < decay < 1.0):
             raise ValueError("decayed policy requires 0 < decay < 1")
-        if serve_engine is not None:
-            raise NotImplementedError(
-                "the maintainer's serving loop (serve_engine=, its auto_trigger and refit "
-                "options) is not ported yet (ROADMAP Queue A 7)")
         if drift_mesh is not None:
             raise NotImplementedError(
                 "StreamingCoresetMaintainer(drift_mesh=) is not ported yet (ROADMAP Queue A 9)")
@@ -427,7 +439,13 @@ class StreamingCoresetMaintainer:
         self.windows_done = 0
         self._moments: tuple | None = None
         self._engine = ScoringEngine(cfg, scaler, chunk_size=chunk_size, device=device)
+        self.serve_engine = serve_engine
         self.detector = detector
+        self.auto_trigger = bool(auto_trigger)
+        self.refit_kwargs = dict(refit_kwargs or {})
+        self._drift_chunk = drift_chunk
+        self.drift_log: list[dict] = []
+        self.triggered = 0
         self._mgr = None
         if ckpt_dir is not None:
             from repro_torch.checkpoint import CheckpointManager
@@ -496,6 +514,8 @@ class StreamingCoresetMaintainer:
 
         self.windows_done = widx + 1
         self.n_seen += int(chunk.shape[0])
+        if self.detector is not None and self.serve_engine is not None:
+            self._observe_window(chunk, widx)
         if self._mgr is not None:
             self._mgr.save(self.windows_done, self.state_dict())
 
@@ -510,6 +530,40 @@ class StreamingCoresetMaintainer:
         for b in live[1:]:
             acc = WeightedSet.concat(acc, b.as_ws())
         return self._reduce(acc, RESULT_TAG, self.n_seen, update_moments=False)
+
+    # ------------------------------------------------------------ drift loop
+
+    def _observe_window(self, chunk: np.ndarray, widx: int) -> None:
+        eng = self.serve_engine
+        slot = eng.current_slot()
+        nll_pp = drift_window_nll(self.cfg, self.scaler, slot.params, chunk,
+                                  chunk=self._drift_chunk, device=self._engine.device)
+        ref_hint = None
+        for rec in reversed(eng.refit_log):
+            if rec["version"] == slot.version:
+                ref_hint = rec["fit_nll_pp"]
+                break
+        fired = self.detector.observe(nll_pp, version=slot.version, ref_hint=ref_hint)
+        entry = {
+            "window": widx,
+            "version": int(slot.version),
+            "nll_pp": float(nll_pp),
+            "ratio": float(self.detector.last_ratio),
+            "ewma": float(self.detector.ewma),
+            "eps_hat": float(self.detector.eps_hat),
+            "fired": bool(fired),
+            "triggered": False,
+        }
+        if fired and self.auto_trigger:
+            cs = self.result()
+            if cs.size:
+                th = eng.start_background_refit(
+                    self.scaler, coreset=(cs.Y, np.asarray(cs.weights, np.float32)),
+                    generator=stage_generator(self.seed, REFIT_TAG, widx), **self.refit_kwargs)
+                if th is not None:
+                    self.triggered += 1
+                    entry["triggered"] = True
+        self.drift_log.append(entry)
 
     # ---------------------------------------------------------- checkpointing
 

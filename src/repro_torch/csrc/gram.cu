@@ -1,5 +1,5 @@
 // Gram matrix G = acc + (√w·X)ᵀ(√w·X) of one chunk of basis rows, in one
-// launch.
+// launch (two for D > 160).
 //
 // Replaces: src/repro/kernels/gram/kernel.py:gram_kernel (the TPU kernel
 // revisits one (D, D) VMEM block across a sequential grid of row blocks).
@@ -72,6 +72,26 @@
 //    adds acc last and writes both triangles, so the result has the bits of
 //    acc + gram(X) on every call, within ~4e-8 of float64 relative to
 //    max|G| at the path's chunk.
+//
+// For D > 160 (any D: feature rows of a generic featurize, such as a
+// 2,048-wide mean-pooled embedding) the large body takes the call, in two
+// launches. Bound: f32 FMA work, n·D(D+1)/2 multiply-adds over the upper
+// triangle (70 GFLOP at n = 16,384, D = 2,048: 1.0 ms at 67 TFLOP/s); the
+// body is simple and untuned.
+//
+//  - G's upper triangle is cut into 64×64 tiles (bi ≤ bj), nb(nb+1)/2 of
+//    them over blockIdx.x, and the rows into `splits` contiguous spans over
+//    blockIdx.y (ops.py:large_plan, a pure function of n and D: enough
+//    CTAs for two an SM, at least kLargeMinRows rows a span).
+//  - A CTA of 256 threads stages 32 rows of its tile's two 64-column blocks
+//    (√w applied as a value lands; past D or the span, zeros), and each
+//    thread sums a 4×4 block of the tile (rows ty + 16i, columns tx + 16j)
+//    in f32 FMAs over the stage, then adds the stage's sum into compensated
+//    (Kahan) sums. It stores the (sum, compensation) pair of every entry of
+//    its tile to its split's row of the scratch (torch.empty in ops.py).
+//  - A fold launch sums each upper entry over the splits in split order,
+//    compensated, adds acc last and writes both triangles. No float
+//    atomics: every sum is taken in the same order on every call.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -762,17 +782,157 @@ int launch_tiled(const float* X, const float* sw, int n, int D, const float* acc
   }
 }
 
+
+constexpr int kLargeTile = 64;         // G's tiles: kLargeTile × kLargeTile
+constexpr int kLargeStageRows = 32;    // rows a stage
+constexpr int kLargeThreads = 256;     // 16 × 16 threads, a 4×4 block of the tile each
+constexpr int kLargeTargetCtas = 264;  // two CTAs an SM of the H100's 132
+constexpr int kLargeMaxSplits = 64;
+constexpr int kLargeMinRows = 1024;    // rows a split at least
+constexpr int kLargeTileFloats = kLargeTile * kLargeTile;
+constexpr int kLargeStageFloats = kLargeStageRows * kLargeTile;
+static_assert(kLargeThreads == 256 && kLargeTile == 64, "the 4×4 blocks below assume 16 × 16 threads");
+
+// t-th tile of the upper triangle of an nb×nb tile grid, row by row
+__device__ __forceinline__ void large_tile_of(int t, int nb, int& bi, int& bj) {
+  bi = 0;
+  while (t >= nb - bi) {
+    t -= nb - bi;
+    ++bi;
+  }
+  bj = bi + t;
+}
+
+// The large body's products: tile blockIdx.x over the rows of split
+// blockIdx.y, [y·span, (y+1)·span), into its (sum, compensation) pair of
+// scratch rows.
+__global__ void __launch_bounds__(kLargeThreads)
+    gram_large_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
+                      int span, float* __restrict__ scratch) {
+  __shared__ float as[kLargeStageRows][kLargeTile];
+  __shared__ float bs[kLargeStageRows][kLargeTile];
+  const int nb = (D + kLargeTile - 1) / kLargeTile;
+  const int ntiles = nb * (nb + 1) / 2;
+  int bi, bj;
+  large_tile_of((int)blockIdx.x, nb, bi, bj);
+  const int a0 = bi * kLargeTile, b0 = bj * kLargeTile;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long first = (long long)blockIdx.y * span;
+  const int row0 = (int)min((long long)n, first);
+  const int row_end = (int)min((long long)n, first + span);
+  float s[4][4], c[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = c[i][j] = 0.f;
+  for (int r0 = row0; r0 < row_end; r0 += kLargeStageRows) {
+    const int cnt = min(kLargeStageRows, row_end - r0);
+    for (int i = tid; i < 2 * kLargeStageFloats; i += kLargeThreads) {
+      const int side = i / kLargeStageFloats, k = (i % kLargeStageFloats) / kLargeTile;
+      const int col = i % kLargeTile, gc = (side ? b0 : a0) + col;
+      float v = 0.f;
+      if (k < cnt && gc < D) {
+        v = X[(long long)(r0 + k) * D + gc];
+        if (sw != nullptr) v = __fmul_rn(v, sw[r0 + k]);
+      }
+      if (side)
+        bs[k][col] = v;
+      else
+        as[k][col] = v;
+    }
+    __syncthreads();
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < kLargeStageRows; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // the stage is read before the next one lands
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kahan_add(s[i][j], c[i][j], acc[i][j]);
+  }
+  float* part = scratch + ((long long)blockIdx.y * ntiles + blockIdx.x) * 2 * kLargeTileFloats;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = (ty + 16 * i) * kLargeTile + tx + 16 * j;
+      part[e] = s[i][j];
+      part[kLargeTileFloats + e] = c[i][j];
+    }
+}
+
+// The large body's fold: entry (a, b ≥ a) of G summed over the splits in
+// split order, compensated; acc added last; both triangles written.
+__global__ void __launch_bounds__(256)
+    gram_large_fold_kernel(const float* __restrict__ scratch, int D, int splits,
+                           const float* __restrict__ acc, float* __restrict__ G) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)D * D) return;
+  const int a = (int)(e / D), b = (int)(e % D);
+  if (a > b) return;
+  const int nb = (D + kLargeTile - 1) / kLargeTile, ntiles = nb * (nb + 1) / 2;
+  const int bi = a / kLargeTile, bj = b / kLargeTile;
+  const int t = bi * nb - bi * (bi - 1) / 2 + bj - bi;
+  const int local = (a % kLargeTile) * kLargeTile + b % kLargeTile;
+  float sum = 0.f, cmp = 0.f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* part = scratch + ((long long)sp * ntiles + t) * 2 * kLargeTileFloats;
+    kahan_add(sum, cmp, part[local]);
+    kahan_add(sum, cmp, -part[kLargeTileFloats + local]);
+  }
+  const float total = sum - cmp;
+  const long long ab = (long long)a * D + b, ba = (long long)b * D + a;
+  G[ab] = acc != nullptr ? acc[ab] + total : total;
+  if (a != b) G[ba] = acc != nullptr ? acc[ba] + total : total;
+}
+
+int launch_large(const float* X, const float* sw, int n, int D, int splits, const float* acc,
+                 float* G, float* scratch, cudaStream_t st) {
+  if (splits < 1 || splits > kLargeMaxSplits || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int nb = (D + kLargeTile - 1) / kLargeTile;
+  const int span = ((n + splits - 1) / splits + kLargeStageRows - 1) / kLargeStageRows *
+                   kLargeStageRows;
+  gram_large_kernel<<<dim3(nb * (nb + 1) / 2, splits), kLargeThreads, 0, st>>>(X, sw, n, D,
+                                                                               span, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long entries = (long long)D * D;
+  gram_large_fold_kernel<<<(unsigned)((entries + 255) / 256), 256, 0, st>>>(scratch, D, splits,
+                                                                           acc, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// X (n, D) f32, D ≤ 160, and sw (n,) f32 or null (all ones), both with
-// 16-byte aligned bases,
-// acc (D, D) f32 or null (zeros) → G = acc + (√w·X)ᵀ(√w·X), (D, D) f32. G
-// must not alias X, sw or acc. For D > 64 (the tiled body): scratch
-// kWideScratchFloats f32 of device memory, tickets kWideCluster int32 that
-// are 0 (the kernel leaves them 0); the D ≤ 64 body reads neither.
+// X (n, D) f32 and sw (n,) f32 or null (all ones), both with 16-byte
+// aligned bases, acc (D, D) f32 or null (zeros) → G = acc + (√w·X)ᵀ(√w·X),
+// (D, D) f32. G must not alias X, sw or acc. D ≤ 64: the cluster body,
+// which reads neither scratch nor tickets. 64 < D ≤ 160 (the tiled body):
+// scratch kWideScratchFloats f32 of device memory, tickets kWideCluster
+// int32 that are 0 (the kernel leaves them 0). D > 160 (the large body):
+// `splits` row spans (ops.py:large_plan) and scratch of splits ·
+// nb(nb+1)/2 · 2 · kLargeTile² f32, nb = ⌈D/kLargeTile⌉; two launches.
 REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const void* acc,
-                            void* G, void* scratch, void* tickets, void* stream) {
-  if (D <= 0 || D > kWideMaxD || n < 0) return (int)cudaErrorInvalidValue;
+                            void* G, void* scratch, void* tickets, int splits, void* stream) {
+  if (D <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (D > kWideMaxD)
+    return launch_large((const float*)X, (const float*)sw, n, D, splits, (const float*)acc,
+                        (float*)G, (float*)scratch, (cudaStream_t)stream);
   if (D > kMaxD)
     return launch_tiled((const float*)X, (const float*)sw, n, D, (const float*)acc, (float*)G,
                         (float*)scratch, (int*)tickets, (cudaStream_t)stream);

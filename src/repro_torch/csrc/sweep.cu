@@ -11,22 +11,27 @@
 //
 // Bound on the H100: f32 FMA work of the extremes (m·c·r·d multiply-adds,
 // ≈ 0.74 GFLOP per 16,384-point chunk at m = 1,614), then bytes (X, P, z
-// and SX: a few MB per chunk at J = 2, SX alone 44 MB at J = 20). Design:
+// and SX: a few MB per chunk at J = 2, SX alone 44 MB at J = 20, X and z
+// 134 MB each at D = 2,048). X takes any D; P rows take d ≤ REPRO_MAX_DP
+// (scoring.py scores a wider P beside the sweep, on the extremes and gram
+// kernels). Design:
 // one launch of two kinds of CTA, the sketch CTAs first in the grid, and
 // about two CTAs an SM in all, so every CTA starts at once.
 //
 //  - Block CTAs each own pb consecutive points (their pb·r P rows): they
-//    stage the P rows (padded, as kernels/extremes does) and √w·X, write z
-//    from the staged rows, coalesced (the FMA chain of fma_matmul when Ω is
-//    given), sum the moments of the P rows in compensated f32 sums (row
+//    stage the P rows (padded, as kernels/extremes does) and √w·X (where
+//    pb·D ≤ kXwStageFloats; a wider X is read from device memory as z is
+//    written, the same product √w·x), write z, coalesced (the FMA chain of
+//    fma_matmul when Ω is given), sum the moments of the P rows in compensated f32 sums (row
 //    groups combined in a fixed order) into one partial a CTA, and score
 //    the P rows against the directions with common.cuh:score_block.
 //  - Sketch CTAs each own a range of bk buckets. A CTA reads the chunk's
 //    sketch rows, compacts the points that land in its range in ascending
 //    point order (a scan over each warp and a prefix over the warps),
-//    stages their sign·(x·√w) rows in shared memory, and each warp adds
-//    them into the rows of the buckets it owns, each bucket's points in
-//    ascending order (ballots over the list), starting from the carried SX.
+//    stages their sign·(x·√w) rows in shared memory, a slab of kSlabCols
+//    columns at a time, and each warp adds them into the rows of the buckets
+//    it owns, each bucket's points in ascending order (ballots over the
+//    list), starting from the carried SX.
 //    That is the order of the plain version's index_add on the CPU, so SX'
 //    has its bits; there is no per-CTA partial and no limit on the sketch
 //    size (a range holds up to 4,096 points at a time and is flushed in
@@ -42,12 +47,14 @@ namespace {
 
 constexpr int kSegCap = 4096;     // compacted points a sketch CTA holds
 constexpr int kScanPts = 8;       // points a thread per compaction step
-constexpr int kColsPerLane = 5;   // ceil(kMaxD / 32): SX columns a lane adds
+constexpr int kSlabCols = 160;    // SX columns a warp adds at a time
+constexpr int kColsPerLane = kSlabCols / 32;  // of them a lane
 constexpr int kStageFloats = 8192; // staged sign·(x·√w) values of a flush chunk
-constexpr int kMaxD = 160;
+constexpr int kXwStageFloats = 12288;  // √w·X values a block CTA stages, at most
 constexpr int kMaxThreads = kExtMaxWarps * 32;
 static_assert(kSegCap >= kMaxThreads * kScanPts, "a compaction step must fit the segment");
-static_assert(32 * kColsPerLane >= kMaxD, "a warp's lanes must cover a row of SX");
+static_assert(32 * kColsPerLane == kSlabCols, "a warp's lanes must cover a slab of SX");
+static_assert(kStageFloats >= kSlabCols, "a flush chunk must hold a slab of one row");
 
 struct SweepArgs {
   const float* X;
@@ -67,6 +74,7 @@ struct SweepArgs {
   int* pimin;
   int c, D, r, n_valid, m, q, sk;
   int want_z, want_mom;
+  int stage_x;   // block CTAs stage √w·X (pb·D ≤ kXwStageFloats)
   int pb, nblk;  // block CTAs: points each (pb·r P rows), count
   int bk, ns;    // sketch CTAs: buckets each, count
   int warps;     // scoring warps of a block CTA
@@ -90,10 +98,11 @@ __device__ __forceinline__ void block_cta(const SweepArgs& A, int blk, float* sm
   const int D = A.D, rb = A.pb * A.r, nrow = cnt * A.r;
   const bool has_p = A.dirs != nullptr || A.want_mom;
   float* tile = smem;                           // rb · DP4   P rows, padded
+  const bool stage_x = A.want_z && A.stage_x;
   float* xw = tile + (has_p ? rb * DP4 : 0);    // pb · D     √w·X rows
-  float* red = xw + (A.want_z ? A.pb * D : 0);  // T          moment partials
+  float* red = xw + (stage_x ? A.pb * D : 0);   // T          moment partials
   if (has_p) stage_rows<DP>(A.P, pt0 * A.r, nrow, tile);
-  if (A.want_z)
+  if (stage_x)
     for (int i = tid; i < cnt * D; i += T)
       xw[i] = __fmul_rn(A.X[(long long)pt0 * D + i], A.sw[pt0 + i / D]);
   __syncthreads();
@@ -102,12 +111,16 @@ __device__ __forceinline__ void block_cta(const SweepArgs& A, int blk, float* sm
     for (int e = tid; e < cnt * qw; e += T) {
       const int i = e / qw, oc = e - i * qw;
       const float* xr = xw + i * D;
+      const float* xg = A.X + (long long)(pt0 + i) * D;
+      const float wi = A.sw[pt0 + i];
+      // √w·x of column k: staged, or the same product from device memory
+      auto xv = [&](int k) { return stage_x ? xr[k] : __fmul_rn(xg[k], wi); };
       float v;
       if (A.omega != nullptr) {
-        v = xr[0] * A.omega[oc];
-        for (int k = 1; k < D; ++k) v = fmaf(xr[k], A.omega[k * A.q + oc], v);
+        v = xv(0) * A.omega[oc];
+        for (int k = 1; k < D; ++k) v = fmaf(xv(k), A.omega[(long long)k * A.q + oc], v);
       } else {
-        v = xr[oc];
+        v = xv(oc);
       }
       A.z[(long long)(pt0 + i) * qw + oc] = v;
     }
@@ -138,50 +151,55 @@ __device__ __forceinline__ void block_cta(const SweepArgs& A, int blk, float* sm
 }
 
 // Sketch CTA: one flush of the n compacted points (Lp ids, Lb buckets in
-// the range, ascending) into SX', in chunks of the list: all threads stage
-// the chunk's rows sign·(x·√w) in V (loads in parallel), then warp w adds
-// them to the buckets b ≡ w (mod warps) it owns, lanes on columns, each
-// bucket's points in list order (ballots over the chunk).
+// the range, ascending) into SX', a slab of S ≤ kSlabCols columns at a
+// time, in chunks of the list: all threads stage the chunk's rows
+// sign·(x·√w) of the slab in V (loads in parallel), then warp w adds them to
+// the buckets b ≡ w (mod warps) it owns, lanes on columns, each bucket's
+// points in list order (ballots over the chunk). A column's sum takes the
+// same order whatever the slabs: one slab for D ≤ kSlabCols.
 __device__ __forceinline__ void sketch_flush(const SweepArgs& A, int lo, int nb, int n,
                                              const int* Lp, const int* Lb, float* V) {
   const int tid = threadIdx.x, T = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, W = T >> 5;
   const int D = A.D;
-  const int chunk = kStageFloats / D;
-  for (int c0 = 0; c0 < n; c0 += chunk) {
-    const int cn = min(chunk, n - c0);
-    __syncthreads();  // the list is written; the last chunk's V is read
+  for (int s0 = 0; s0 < D; s0 += kSlabCols) {
+    const int S = min(kSlabCols, D - s0);
+    const int chunk = kStageFloats / S;
+    for (int c0 = 0; c0 < n; c0 += chunk) {
+      const int cn = min(chunk, n - c0);
+      __syncthreads();  // the list is written; the last chunk's V is read
 #pragma unroll 4
-    for (int i = tid; i < cn * D; i += T) {
-      const int j = i / D, col = i - j * D;
-      const int pt = Lp[c0 + j];
-      V[i] = __fmul_rn(A.signs[pt], __fmul_rn(A.X[(long long)pt * D + col], A.sw[pt]));
-    }
-    __syncthreads();
-    for (int b = warp; b < nb; b += W) {
-      const long long row = (long long)(lo + b) * D;
-      float acc[kColsPerLane];
-      bool live = false;  // uniform across the warp
-      for (int j0 = 0; j0 < cn; j0 += 32) {
-        unsigned mask = __ballot_sync(0xffffffffu, j0 + lane < cn && Lb[c0 + j0 + lane] == b);
-        if (mask && !live) {
-#pragma unroll
-          for (int q = 0; q < kColsPerLane; ++q)
-            acc[q] = lane + 32 * q < D ? A.SXo[row + lane + 32 * q] : 0.f;
-          live = true;
-        }
-        while (mask) {
-          const float* v = V + (j0 + __ffs(mask) - 1) * D;
-          mask &= mask - 1;
-#pragma unroll
-          for (int q = 0; q < kColsPerLane; ++q)
-            if (lane + 32 * q < D) acc[q] = __fadd_rn(acc[q], v[lane + 32 * q]);
-        }
+      for (int i = tid; i < cn * S; i += T) {
+        const int j = i / S, col = i - j * S;
+        const int pt = Lp[c0 + j];
+        V[i] = __fmul_rn(A.signs[pt], __fmul_rn(A.X[(long long)pt * D + s0 + col], A.sw[pt]));
       }
-      if (live)
+      __syncthreads();
+      for (int b = warp; b < nb; b += W) {
+        const long long row = (long long)(lo + b) * D + s0;
+        float acc[kColsPerLane];
+        bool live = false;  // uniform across the warp
+        for (int j0 = 0; j0 < cn; j0 += 32) {
+          unsigned mask = __ballot_sync(0xffffffffu, j0 + lane < cn && Lb[c0 + j0 + lane] == b);
+          if (mask && !live) {
 #pragma unroll
-        for (int q = 0; q < kColsPerLane; ++q)
-          if (lane + 32 * q < D) A.SXo[row + lane + 32 * q] = acc[q];
+            for (int q = 0; q < kColsPerLane; ++q)
+              acc[q] = lane + 32 * q < S ? A.SXo[row + lane + 32 * q] : 0.f;
+            live = true;
+          }
+          while (mask) {
+            const float* v = V + (j0 + __ffs(mask) - 1) * S;
+            mask &= mask - 1;
+#pragma unroll
+            for (int q = 0; q < kColsPerLane; ++q)
+              if (lane + 32 * q < S) acc[q] = __fadd_rn(acc[q], v[lane + 32 * q]);
+          }
+        }
+        if (live)
+#pragma unroll
+          for (int q = 0; q < kColsPerLane; ++q)
+            if (lane + 32 * q < S) A.SXo[row + lane + 32 * q] = acc[q];
+      }
     }
   }
   __syncthreads();  // the list may be refilled
@@ -320,7 +338,8 @@ cudaError_t launch(const SweepArgs& A, int threads, const float* s1c, const floa
                    cudaStream_t st) {
   const bool has_p = A.dirs != nullptr || A.want_mom;
   long long smem = 4LL * ((has_p ? (long long)A.pb * A.r * pad4(DP) : 0) +
-                          (A.want_z ? (long long)A.pb * A.D : 0) + threads);  // block CTAs
+                          (A.want_z && A.stage_x ? (long long)A.pb * A.D : 0) +
+                          threads);  // block CTAs
   if (A.ns > 0 && smem < 4 * (2 * kSegCap + kStageFloats + 64))
     smem = 4 * (2 * kSegCap + kStageFloats + 64);
   if (smem > 232448) return cudaErrorInvalidValue;  // an H100 CTA's opt-in limit
@@ -368,7 +387,7 @@ REPRO_EXPORT int repro_sweep(const void* X, int c, int D, const void* sw, const 
                              void* imin, void* stream) {
   const bool has_p = P != nullptr;
   const bool want_mom = s1c != nullptr;
-  if (c < 0 || D <= 0 || D > kMaxD || sk <= 0 || r <= 0 || dp <= 0 || dp > REPRO_MAX_DP ||
+  if (c < 0 || D <= 0 || sk <= 0 || r <= 0 || dp <= 0 || dp > REPRO_MAX_DP ||
       ((dirs != nullptr || want_mom) && !has_p) || (dirs != nullptr && m <= 0) ||
       (omega != nullptr && q <= 0) || pb <= 0 || pb * r > kExtMaxBlockRows || bk <= 0 ||
       (dirs != nullptr && (warps < 1 || warps > kExtMaxWarps)))
@@ -393,6 +412,7 @@ REPRO_EXPORT int repro_sweep(const void* X, int c, int D, const void* sw, const 
   A.sk = sk;
   A.want_z = z != nullptr;
   A.want_mom = want_mom;
+  A.stage_x = (long long)pb * D <= kXwStageFloats;
   A.pb = pb;
   A.nblk = (A.want_z || want_mom || dirs != nullptr) ? (c + pb - 1) / pb : 0;
   A.bk = bk;

@@ -42,7 +42,7 @@ _F = ctypes.c_float
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "repro_bernstein_featurize": (_P, _L, _I, _I, _P, _P, _P, _P),
-    "repro_gram": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "repro_gram": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P),
     "repro_gram_tiled_plan": (_I, _P),
     "repro_extremes": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "repro_sweep": (
@@ -66,8 +66,9 @@ CUDA_CONSTANTS = {
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
     "extremes.cu": {"kExtWideWarps": 8, "kExtWideRows": 128, "kExtWideDirs": 128},
     "gram.cu": {"kMaxD": 64, "kWideMaxD": 160, "kWideCluster": 8, "kWideMaxGroups": 16,
-                "kWideScratchFloats": 458_752},
-    "sweep.cu": {"kMaxD": 160},
+                "kWideScratchFloats": 458_752, "kLargeTile": 64, "kLargeTargetCtas": 264,
+                "kLargeMaxSplits": 64, "kLargeMinRows": 1024},
+    "sweep.cu": {"kSlabCols": 160, "kXwStageFloats": 12_288},
 }
 
 

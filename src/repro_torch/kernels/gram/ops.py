@@ -1,6 +1,7 @@
 """Gram wrapper: G = acc + (√w·X)ᵀ(√w·X) on the CUDA kernel
-(``csrc/gram.cu``, one launch: the cluster body for D ≤ 64, the tiled body
-up to MAX_D) for a CUDA tensor, on ``ref.py`` for a CPU tensor."""
+(``csrc/gram.cu``: the cluster body for D ≤ 64 and the tiled body up to
+TILED_MAX_D, one launch each; the large body above, any D, two launches) for
+a CUDA tensor, on ``ref.py`` for a CPU tensor."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,15 +11,15 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.gram.ref import gram_ref
 
 _C = _lib.CUDA_CONSTANTS["gram.cu"]
-MAX_D = _C["kWideMaxD"]  # J·(degree+1) to J = 20 at degree 6
 SMALL_MAX_D = _C["kMaxD"]  # the cluster body's limit; above it the tiled body
+TILED_MAX_D = _C["kWideMaxD"]  # the tiled body's (J = 20 at degree 6); above it the large body
 LAUNCHES = 0
-PATH_LAUNCHES = {"cluster": 0, "tiled": 0}
+PATH_LAUNCHES = {"cluster": 0, "tiled": 0, "large": 0}
 _TICKETS: dict = {}  # (device index, stream) → the tiled body's kWideCluster int32 tickets
 
 
 def tiled_plan(D: int) -> tuple[int, list[tuple[int, int, int, int]]]:
-    """The tiled body's warps for D (64 < D ≤ MAX_D), as ``csrc/gram.cu``'s
+    """The tiled body's warps for D (64 < D ≤ TILED_MAX_D), as ``csrc/gram.cu``'s
     ``make_tiled_plan`` builds them on the host: ``(W, runs)``, each run
     (i0, j0, split, cnt) of W tiles of 16×8 (tiles q < split are (i0, j0 +
     q), the rest (i0 + 1, 2(i0 + 1) + q − split); q ≥ cnt pad the run). It
@@ -27,6 +28,19 @@ def tiled_plan(D: int) -> tuple[int, list[tuple[int, int, int, int]]]:
     _lib.check(_lib.lib().repro_gram_tiled_plan(D, out.ctypes.data), "repro_gram_tiled_plan")
     runs, W = int(out[0]), int(out[1])
     return W, [tuple(int(v) for v in out[2 + 4 * k:6 + 4 * k]) for k in range(runs)]
+
+
+def large_plan(n: int, D: int) -> tuple[int, int]:
+    """The large body's launch for D > TILED_MAX_D: ``(tiles, splits)``,
+    the nb(nb+1)/2 upper tiles of kLargeTile² (nb = ⌈D/kLargeTile⌉) and the
+    row spans, enough CTAs for kLargeTargetCtas in all but at least
+    kLargeMinRows rows a span (at most kLargeMaxSplits). A pure function of
+    (n, D), so the summation order is too."""
+    nb = -(-D // _C["kLargeTile"])
+    tiles = nb * (nb + 1) // 2
+    splits = max(1, min(_C["kLargeMaxSplits"], -(-_C["kLargeTargetCtas"] // tiles),
+                        -(-n // _C["kLargeMinRows"])))
+    return tiles, splits
 
 
 def _tickets(device: torch.device, stream: int) -> torch.Tensor:
@@ -54,8 +68,6 @@ def gram_matrix(
     if any(t is not None and t.dtype != torch.float32 for t in (X, sw, acc)):
         raise ValueError("the gram kernel is float32 only")
     n, D = X.shape
-    if D > MAX_D:
-        raise ValueError(f"the gram kernel supports D ≤ {MAX_D}, got {D}")
     if sw is not None and sw.shape != (n,):
         raise ValueError(f"sw must be ({n},), got {tuple(sw.shape)}")
     if acc is not None and acc.shape != (D, D):
@@ -66,18 +78,23 @@ def gram_matrix(
     sw = sw if sw is None or sw.data_ptr() % 16 == 0 else sw.clone()
     G = torch.empty((D, D), dtype=torch.float32, device=X.device)
     stream = _lib.stream_ptr(X.device)
-    tiled = D > SMALL_MAX_D
+    path = "cluster" if D <= SMALL_MAX_D else ("tiled" if D <= TILED_MAX_D else "large")
     scratch = tickets = None
-    if tiled:
+    splits = 0
+    if path == "tiled":
         scratch = torch.empty(_C["kWideScratchFloats"], dtype=torch.float32, device=X.device)
         tickets = _tickets(X.device, stream)
+    elif path == "large":
+        tiles, splits = large_plan(n, D)
+        scratch = torch.empty(splits * tiles * 2 * _C["kLargeTile"] ** 2, dtype=torch.float32,
+                              device=X.device)
     _lib.check(
         _lib.lib().repro_gram(
             _lib.ptr(X), _lib.ptr(sw), n, D, _lib.ptr(acc), _lib.ptr(G), _lib.ptr(scratch),
-            _lib.ptr(tickets), stream,
+            _lib.ptr(tickets), splits, stream,
         ),
         "repro_gram",
     )
     LAUNCHES += 1
-    PATH_LAUNCHES["tiled" if tiled else "cluster"] += 1
+    PATH_LAUNCHES[path] += 1
     return G

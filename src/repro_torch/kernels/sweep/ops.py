@@ -8,7 +8,9 @@ unfused formulation. It is float32 only and refuses a float64 sketch.
 Validity is a count of valid points (``n_valid``), scaled by the r P rows of
 each point; rows past it are never extreme, while the sketch, z and moments
 take every row given (the caller zeroes a padding row's √w). One call is one
-main launch plus, with dirs or moments, one fold launch.
+main launch plus, with dirs or moments, one fold launch. X takes any width D
+(the sketch CTAs add SX a slab of columns at a time); P rows take d ≤
+MAX_DP (``core/scoring.py`` scores a wider P beside the sweep).
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from repro_torch.kernels.sweep.ref import fused_sweep_ref
 __all__ = ["fused_sweep_update", "launch_plan", "LAUNCHES"]
 
 _C = _lib.CUDA_CONSTANTS["common.cuh"]
-MAX_D = _lib.CUDA_CONSTANTS["sweep.cu"]["kMaxD"]
 MAX_DP = _C["REPRO_MAX_DP"]
 MAX_BLOCK_ROWS = _C["kExtMaxBlockRows"]  # P rows a block CTA stages
 # the plan's own targets
@@ -31,6 +32,7 @@ SEG_POINTS_ALONE = 128  # ... or with no directions, when block CTAs are light
 BLOCK_FLOATS = 12_288   # floats a block CTA stages (P rows padded, √w·X rows)
 SKETCH_FLOATS = 16_384  # SX floats a sketch CTA copies, about at most
 LAUNCHES = 0
+PATH_LAUNCHES = {"narrow": 0, "wide": 0}  # D ≤ kSlabCols, and the slab walk past it
 
 
 def launch_plan(c: int, D: int, r: int, d: int, sk: int, m: int, sms: int) -> dict:
@@ -38,7 +40,8 @@ def launch_plan(c: int, D: int, r: int, d: int, sk: int, m: int, sms: int) -> di
     (enough CTAs that each expects about SEG_POINTS points, SEG_POINTS_ALONE
     with no directions, and copies about SKETCH_FLOATS of SX); ``pb``
     points a block CTA (whole 16-row tiles of P, at most BLOCK_FLOATS
-    staged), of ``nblk``, so sketch and block CTAs together are about
+    staged, but one tile where a row is wider than that: the kernel then
+    stages no √w·X and reads it as it writes z), of ``nblk``, so sketch and block CTAs together are about
     kExtCtasPerSm an SM and start at once; ``warps`` scoring warps a block CTA
     (128 directions each)."""
     seg = SEG_POINTS if m else SEG_POINTS_ALONE
@@ -87,8 +90,8 @@ def fused_sweep_update(
     r, d = (1, 1) if P is None else (P.shape[0] // max(c, 1), P.shape[1])
     if P is not None and P.shape[0] != r * c:
         raise ValueError(f"P must hold r·c rows, got {P.shape[0]} for c={c}")
-    if D > MAX_D or d > MAX_DP:
-        raise ValueError(f"the sweep kernel supports D ≤ {MAX_D} and d ≤ {MAX_DP}")
+    if d > MAX_DP:
+        raise ValueError(f"the sweep kernel takes P rows of d ≤ {MAX_DP}, got {d}")
     rows = rows.to(torch.int32).contiguous()
     signs = signs.to(torch.float32).contiguous()
     s1c, s2c = (None, None) if moments is None else moments
@@ -130,4 +133,5 @@ def fused_sweep_update(
         "repro_sweep",
     )
     LAUNCHES += 1
+    PATH_LAUNCHES["wide" if D > _lib.CUDA_CONSTANTS["sweep.cu"]["kSlabCols"] else "narrow"] += 1
     return SXo, z, ext, out_moments

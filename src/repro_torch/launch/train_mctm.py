@@ -13,7 +13,8 @@ Stages (every data-sized computation on the device):
      microbatch) and its strict-η full-data NLL.
   3. Per k: ``build_coreset`` (``--strategy two-pass`` exact Gram, or
      ``one-pass`` with ``--sketch-size``, 0 → 4·(Jd)²), the weighted coreset
-     fit (``--fit-method``, adam by default), the full-data NLL at the
+     fit (``--fit-method``, adam by default; ``minibatch`` draws
+     ``--batch-size`` rows a step), the full-data NLL at the
      coreset fit, the measured ε̂ (``coreset_epsilon``) and the
      likelihood-ratio check 1−ε̂−δ ≤ ratio ≤ (1+ε̂)/(1−ε̂)+δ with
      optimization slack δ.
@@ -69,10 +70,12 @@ def parse_args(argv=None):
                     "full / 500,2000 --reduced / 300,600 --smoke)")
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--fit-method", default="adam", choices=("adam", "lbfgs", "minibatch"),
-                    help="coreset-fit mode (adam or lbfgs; minibatch is not ported yet)")
+                    help="coreset-fit mode (core.mctm_fit method table)")
     ap.add_argument("--ref-method", default="lbfgs", choices=("adam", "lbfgs", "minibatch"),
                     help="full-data reference-fit mode (default: streaming lbfgs, the "
-                    "paper's quasi-Newton baseline; minibatch is not ported yet)")
+                    "paper's quasi-Newton baseline)")
+    ap.add_argument("--batch-size", type=int, default=4096,
+                    help="minibatch-mode rows sampled per step")
     ap.add_argument("--gtol", type=float, default=1e-5,
                     help="lbfgs-mode gradient-norm early stop (the objective is "
                     "mean-normalized, so this is scale-free)")
@@ -106,6 +109,7 @@ def parse_args(argv=None):
         args.n = min(args.n, 30_001)
         args.steps = min(args.steps, 120)
         args.chunk = min(args.chunk, 4096)
+        args.batch_size = min(args.batch_size, 1024)
     if args.ks is None:
         args.ks = "300,600" if args.smoke else "500,2000" if args.reduced else "500,1000,2000,4000"
     return args
@@ -170,9 +174,9 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     full = fit_mctm_streaming(
         cfg, scaler, Y, steps=args.steps, lr=args.lr, generator=_seeded(args.seed, 0),
-        method=args.ref_method, gtol=args.gtol, chunk_size=args.chunk,
-        checkpoint=mgr("full"), ckpt_every=args.ckpt_every, resume=args.resume,
-        log_every=args.log_every, device=dev,
+        method=args.ref_method, batch_size=args.batch_size, gtol=args.gtol,
+        chunk_size=args.chunk, checkpoint=mgr("full"), ckpt_every=args.ckpt_every,
+        resume=args.resume, log_every=args.log_every, device=dev,
     )
     sync()
     full_fit_s = time.perf_counter() - t0
@@ -203,7 +207,8 @@ def run(args) -> dict:
         cs_w = np.asarray(cs.weights, np.float32)
         fit = fit_mctm_streaming(
             cfg, scaler, Y[cs.indices], weights=cs_w, steps=args.steps, lr=args.lr,
-            generator=_seeded(args.seed, 2, k), method=args.fit_method, gtol=args.gtol,
+            generator=_seeded(args.seed, 2, k), method=args.fit_method,
+            batch_size=args.batch_size, gtol=args.gtol,
             chunk_size=args.chunk, checkpoint=mgr(f"k{k}"), ckpt_every=args.ckpt_every,
             resume=args.resume, log_every=args.log_every, device=dev,
         )
@@ -245,6 +250,7 @@ def run(args) -> dict:
         "steps": args.steps,
         "fit_method": args.fit_method,
         "ref_method": args.ref_method,
+        "batch_size": args.batch_size,
         "lr": args.lr,
         "chunk": args.chunk,
         "alpha": args.alpha,

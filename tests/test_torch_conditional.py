@@ -180,17 +180,24 @@ def test_build_conditional_coreset_exact_k_low_diversity_hull():
 
 
 def test_unported_fit_options_raise(cond_data, tmp_path):
-    """minibatch and mesh= still wait for their ROADMAP items; checkpoint=
-    and resume= are ported: a fit that crashes at step 4 resumes from its
-    step-3 checkpoint and ends on the straight fit's bits."""
+    """mesh= still waits for its ROADMAP item; minibatch is ported (a
+    sampled fit runs its steps to a finite NLL; its parity with the
+    reference is in tests/test_torch_minibatch.py); checkpoint= and resume=
+    are ported: a fit that crashes at
+    step 4 resumes from its step-3 checkpoint and ends on the straight
+    fit's bits."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.ft import FailureSimulator, get_ft_config
 
     X, Y, _, _, tscaler = cond_data
     _, tcfg = _cfgs()
-    for kw, item in (({"method": "minibatch"}, "Queue A 1"), ({"mesh": object()}, "Queue A 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue A 9"):
+        TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=1, device="cpu", mesh=object())
+    mini = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=3, method="minibatch",
+                         batch_size=16, device="cpu",
+                         init=TCo.init_cparams(tcfg, generator=torch.Generator().manual_seed(0),
+                                               device="cpu"))
+    assert mini.losses.shape == (3,) and np.isfinite(mini.final_nll)
     init = TCo.init_cparams(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
     common = dict(init=init, steps=6, device="cpu")
     straight = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], **common)

@@ -3,7 +3,7 @@ small ragged shapes. Marked ``cuda``: they skip where no CUDA device is
 present (run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 Tolerances are chip_smoke.py's: bernstein atol 1e-6; gram 1e-5 of max|G|
-against float64 (both bodies: D ≤ 64 and up to 160), and bit-identical
+against float64 (all three bodies: D ≤ 64, up to 160 and above), and bit-identical
 across calls, streams and the fused accumulator;
 extremes exact (same FMA chain on both sides); sweep 1e-6 against the plain
 version on the card, and at the default sketch of J = 2, 10 and 20 SX' and
@@ -93,8 +93,12 @@ def test_gram_kernel(dev, n, D, weighted):
     Gr = ref.gram_ref(X.double(), None if sw is None else sw.double())
     assert float((G.double() - Gr).abs().max()) <= 1e-5 * float(Gr.abs().max())
     assert torch.equal(G, G.T)
+    # past the tiled body's D the large body takes the call (once a refusal)
+    large = ops.PATH_LAUNCHES["large"]
+    Z = ops.gram_matrix(torch.zeros(4, ops.TILED_MAX_D + 1, device=dev))
+    assert ops.PATH_LAUNCHES["large"] == large + 1 and not bool(Z.any())
     with pytest.raises(ValueError):
-        ops.gram_matrix(torch.zeros(4, ops.MAX_D + 1, device=dev))
+        ops.gram_matrix(X.double())
 
 
 @pytest.mark.parametrize("n,D", [(16_384, 14), (250_001, 14), (1000, 64), (16_384, 140),
@@ -187,9 +191,47 @@ def test_gram_tiled_plan_is_the_model(dev, D):
     from repro_torch.kernels.gram import ops
 
     assert ops.tiled_plan(D) == tiled_plan_model(D)
-    for bad in (ops.SMALL_MAX_D, ops.MAX_D + 1):
+    for bad in (ops.SMALL_MAX_D, ops.TILED_MAX_D + 1):
         with pytest.raises(RuntimeError):
             ops.tiled_plan(bad)
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 1000, 16_387, 70_001])
+@pytest.mark.parametrize("D", [161, 256, 2048])
+def test_gram_large_body(dev, monkeypatch, D, n, weighted, with_acc):
+    """The large body (D > 160, any D): D past one 64-column tile and
+    ragged, n from none to many row splits with a ragged last stage. Within
+    1e-5·max|G| of float64; the same bits on repeated calls and, with acc=,
+    those of the separate add; one wrapper launch a call, on the large body;
+    torch.mm and the plain version are never reached."""
+    from repro_torch.kernels.gram import ops, ref
+
+    X = torch.randn(n, D, generator=_g(D + n)).to(dev)
+    sw = torch.rand(n, generator=_g(n + 1)).to(dev) if weighted else None
+    acc = torch.randn(D, D, generator=_g(D)).to(dev) * 1e2 if with_acc else None
+    Gr = ref.gram_ref(X.double(), None if sw is None else sw.double(),
+                      acc=None if acc is None else acc.double())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("gram_matrix on a CUDA tensor left the kernel")
+
+    monkeypatch.setattr(ops, "gram_ref", refuse)
+    monkeypatch.setattr(torch, "mm", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    before, large = ops.LAUNCHES, ops.PATH_LAUNCHES["large"]
+    G = ops.gram_matrix(X, sw, acc=acc)
+    assert ops.LAUNCHES == before + 1 and ops.PATH_LAUNCHES["large"] == large + 1
+    again = [ops.gram_matrix(X, sw, acc=acc) for _ in range(2)]
+    plain = ops.gram_matrix(X, sw)
+    monkeypatch.undo()
+    scale = max(float(Gr.abs().max()), 1e-30)
+    assert float((G.double() - Gr).abs().max()) <= 1e-5 * scale
+    for a in again:
+        assert torch.equal(a, G)
+    assert torch.equal(G, plain if acc is None else acc + plain)
+    assert torch.equal(plain, plain.T)
 
 
 @pytest.mark.parametrize("D", [70, 97, 140])
@@ -531,9 +573,9 @@ def test_leverage_and_sample_on_the_card(dev):
     estimate on the sweep kernel against float64 of the same plan and
     against the CPU's within atol 5e-3 (the sweep gives the CPU's SX bits,
     and the float32 products SXᵀSX on the two devices move the
-    pseudo-inverse by up to 3.6e-3 here on an H100); above the sweep's D
-    limit, the CountSketch by ``countsketch_add`` gives the CPU's SX bits,
-    so the well-conditioned Gaussian case agrees to rtol 1e-4;
+    pseudo-inverse by up to 3.6e-3 here on an H100); at D = 161, past one
+    160-column slab of the sweep's sketch CTAs, the sweep gives the CPU's SX
+    bits too, so the well-conditioned Gaussian case agrees to rtol 1e-4;
     ``sample`` on the CPU's normals within 1e-4 of the scaler's span of the
     CPU's."""
     from repro_torch.core import leverage as L
@@ -559,9 +601,7 @@ def test_leverage_and_sample_on_the_card(dev):
     a64 = L.sketched_leverage(X64, 784, plan=plan, chunk_size=8192, device=dev)
     torch.testing.assert_close(a.double(), a64, rtol=0, atol=5e-3)
     torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-3)
-    from repro_torch.kernels.sweep.ops import MAX_D
-
-    Xg = torch.randn(3000, MAX_D + 1, generator=_g(6))
+    Xg = torch.randn(3000, 161, generator=_g(6))
     plan = (torch.randint(0, 2000, (3000,), generator=_g(7)),
             torch.randint(0, 2, (3000,), generator=_g(8)) * 2.0 - 1)
     a = L.sketched_leverage(Xg.to(dev), 2000, plan=plan, chunk_size=1024, device=dev)
@@ -868,3 +908,222 @@ def test_resumed_stream_is_bit_identical_on_the_card(dev, tmp_path):
     a, b = ref.result(), m.result()
     np.testing.assert_array_equal(a.Y, b.Y)
     np.testing.assert_array_equal(a.weights, b.weights)
+
+
+@pytest.mark.parametrize("D,d,m,q", [(176, 7, 40, None), (176, 16, 0, 9), (2048, 4, 33, None),
+                                     (2048, 1, 0, 5)])
+def test_sweep_kernel_at_any_width(dev, D, d, m, q):
+    """X wider than one 160-column slab of the sketch CTAs (D = 176, and
+    2,048, where the block CTAs stage no √w·X): SX' to the bit and z within
+    1e-6 of the plain version on the CPU (the bucket order of index_add,
+    the fma chain of z), the extremes to the bit and the moments within
+    rtol 1e-6 / atol 1e-4 of float64; the same bits on a repeated call."""
+    from repro_torch.kernels.sweep import ops, ref
+
+    c, sk = 3001, 512
+    g = _g(D + d)
+    X, P = torch.rand(c, D, generator=g), torch.randn(c, d, generator=g)
+    sw = torch.rand(c, generator=g)
+    rows = torch.randint(0, sk, (c,), generator=g).int()
+    signs = (torch.randint(0, 2, (c,), generator=g) * 2 - 1).float()
+    dirs = torch.randn(m, d, generator=g) if m else None
+    omega = torch.randn(D, q, generator=g) if q else None
+    SX = torch.randn(sk, D, generator=g)
+    mom = (torch.zeros(d), torch.zeros(d, d))
+    cuda = [None if t is None else t.to(dev) for t in (SX, X, P, sw, rows, signs, dirs, omega)]
+    momc = tuple(t.to(dev) for t in mom)
+    got = ops.fused_sweep_update(*cuda[:6], dirs=cuda[6], omega=cuda[7], n_valid=c - 5,
+                                 moments=momc)
+    exp = ref.fused_sweep_ref(SX, X, P, sw, rows, signs, omega=omega)
+    assert _same_bits(got[0], exp[0])
+    torch.testing.assert_close(got[1].cpu(), exp[1], rtol=1e-6, atol=1e-6)
+    if m:
+        ext = ref.fused_sweep_ref(*cuda[:6], dirs=cuda[6], n_valid=c - 5, want_z=False)[2]
+        assert all(_same_bits(a, b) for a, b in zip(got[2], ext))
+    e64 = ref.fused_sweep_ref(SX.double(), X.double(), P.double(), sw.double(), rows,
+                              signs.double(), moments=tuple(t.double() for t in mom),
+                              want_z=False)[3]
+    for a, b in zip(got[3], e64):
+        torch.testing.assert_close(a.cpu().double(), b, rtol=1e-6, atol=1e-4)
+    again = ops.fused_sweep_update(*cuda[:6], dirs=cuda[6], omega=cuda[7], n_valid=c - 5,
+                                   moments=momc)
+    assert _same_bits(again[0], got[0]) and _same_bits(again[1], got[1])
+
+
+@pytest.mark.parametrize("strategy", ["one-pass", "two-pass-sketched"])
+@pytest.mark.parametrize("d", [17, 32, 2048])
+def test_wide_p_route_beside_the_sweep(dev, monkeypatch, strategy, d):
+    """P rows wider than the sweep's 16 (d = 17, 32, 2,048; P = X as a
+    feature selector scores them): the sketched strategies take the sweep
+    for SX and z, the extremes kernel's wide body for the chunk extremes
+    (to the bit against its plain version on the same chunk) and the gram
+    kernel for the moments (within rtol 1e-6 / atol 1e-4 of float64);
+    neither torch.mm nor a plain version is reached on the card."""
+    from repro_torch.core import scoring as TS
+    from repro_torch.kernels.extremes import ops as ext_ops
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.sweep import ops as sweep_ops
+
+    c, sk, m = 2500, 1024, 48
+    g = _g(d)
+    X = torch.randn(c, d, generator=g).to(dev)
+    sw = torch.rand(c, generator=g).to(dev)
+    rows = torch.randint(0, sk, (c,), generator=g).int().to(dev)
+    signs = (torch.randint(0, 2, (c,), generator=g) * 2 - 1).float().to(dev)
+    dirs = torch.randn(m, d, generator=g).to(dev)
+    s1, s2 = torch.randn(d, generator=g).to(dev), torch.randn(d, d, generator=g).to(dev)
+    strat = (TS.OnePassSketched(sk, track_moments=True) if strategy == "one-pass"
+             else TS.TwoPassSketched(sk))
+    state = (torch.zeros(sk, d, device=dev), s1, s2)
+    plan = (rows, signs, None) if strategy == "one-pass" else (rows, signs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wide-P route left the kernels")
+
+    counts = (sweep_ops.LAUNCHES, gram_ops.PATH_LAUNCHES["large"] + gram_ops.PATH_LAUNCHES[
+        "tiled"] + gram_ops.PATH_LAUNCHES["cluster"], ext_ops.PATH_LAUNCHES["wide"])
+    for mod in (sweep_ops, gram_ops, ext_ops):
+        for name in ("fused_sweep_ref", "gram_ref", "directional_extremes_ref"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(torch, "mm", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    if strategy == "one-pass":
+        new, z, ext = strat.fused_update(state, X, X, sw, plan, dirs=dirs)
+    else:
+        new, z = strat.update(state, X, X, sw, plan)
+        ext = None
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert sweep_ops.LAUNCHES == counts[0] + 1
+    assert (gram_ops.PATH_LAUNCHES["large"] + gram_ops.PATH_LAUNCHES["tiled"]
+            + gram_ops.PATH_LAUNCHES["cluster"]) == counts[1] + 1
+    if ext is not None:
+        assert ext_ops.PATH_LAUNCHES["wide"] == counts[2] + 1
+        want = directional_extremes_ref(X, dirs)
+        assert all(_same_bits(a, b) for a, b in zip(ext, want))
+    X64 = X.double()
+    torch.testing.assert_close(new[1].double(), s1.double() + X64.sum(0), rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(new[2].double(), s2.double() + X64.T @ X64, rtol=1e-6,
+                               atol=1e-4)
+
+
+def _pooled_featurize(dev, V, D, seed):
+    """Mean-pooled rows of a seeded (V, D) embedding table, on ``dev``."""
+    emb = torch.randn(V, D, generator=_g(seed)).to(dev)
+
+    def featurize(tokens):
+        t = torch.as_tensor(tokens).to(dev).long()
+        return torch.nn.functional.embedding_bag(t, emb, mode="mean")
+
+    return featurize
+
+
+@pytest.mark.parametrize("sketch", [0, 4096])
+@pytest.mark.parametrize("D", [32, 2048])
+def test_coreset_selector_on_the_card(dev, monkeypatch, D, sketch):
+    """``CoresetSelector`` (l2-hull) on the card against its plain versions on
+    the CPU, on the same plan (sketch, hull normals, sample draw) and the
+    same feature rows: scores within rtol 1e-3 (two f32 Gram orders on
+    well-conditioned pooled rows), the sampled ids equal, the hull ids ≥ 90%
+    shared, Σ weights within 1e-3 of each other; on the card no plain
+    version runs (the gram, sweep and extremes kernels take every width)."""
+    from repro_torch.core import scoring as TS
+    from repro_torch.data import pipeline as TP
+    from repro_torch.kernels.extremes import ops as ext_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.sweep import ops as sweep_ops
+
+    n, k, seq = (4096, 512, 16) if D == 32 else (1024, 128, 16)  # the CPU side's extremes
+    tokens = torch.randint(0, 5000, (n, seq), generator=_g(D))
+    feats = {d: _pooled_featurize(d, 5000, D, D + 1) for d in (dev, torch.device("cpu"))}
+    g = _g(sketch + D)
+    k2 = k - int(0.8 * k)
+    plan = {"draw": torch.randint(0, n, (int(0.8 * k),), generator=g).numpy()}
+    if sketch:
+        plan["sketch"] = (torch.randint(0, sketch, (n,), generator=g),
+                          torch.randint(0, 2, (n,), generator=g) * 2.0 - 1)
+        plan["hull_normals"] = torch.randn(4 * k2, D, generator=g).numpy()
+    else:
+        P = feats[torch.device("cpu")](tokens).double()
+        s1, s2 = P.sum(0), P.T @ P
+        plan["hull_dirs"] = TS.directions_from_moments(
+            s1, s2, n, k2, normals=torch.randn(4 * k2, D, generator=g).numpy())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    scores = []  # the CPU's result, then the card's
+    real_score = TS.ScoringEngine.score
+
+    def keep(self, *a, **kw):
+        scores.append(real_score(self, *a, **kw))
+        return scores[-1]
+
+    monkeypatch.setattr(TS.ScoringEngine, "score", keep)
+    cpu = TP.CoresetSelector(feats[torch.device("cpu")], sketch_size=sketch, chunk_size=1500,
+                             device="cpu").select(tokens.numpy(), k, plan=plan)
+    for mod, name in ((gram_ops, "gram_ref"), (sweep_ops, "fused_sweep_ref"),
+                      (ext_ops, "directional_extremes_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = (gram_ops.LAUNCHES, sweep_ops.LAUNCHES, ext_ops.LAUNCHES)
+    got = TP.CoresetSelector(feats[dev], sketch_size=sketch, chunk_size=1500,
+                             device=dev).select(tokens, k, plan=plan)
+    monkeypatch.undo()
+    after = (gram_ops.LAUNCHES, sweep_ops.LAUNCHES, ext_ops.LAUNCHES)
+    assert after[2] > before[2] and (after[1] > before[1] if sketch else after[0] > before[0])
+    np.testing.assert_allclose(scores[1].scores, scores[0].scores, rtol=1e-3)
+    kk = int(0.8 * k)
+    np.testing.assert_array_equal(got.indices[:kk], cpu.indices[:kk])
+    np.testing.assert_allclose(got.weights[:kk], cpu.weights[:kk], rtol=1e-3)
+    shared = np.intersect1d(got.indices[kk:], cpu.indices[kk:]).size
+    assert shared >= 0.9 * k2 and np.unique(got.indices[kk:]).size == k2
+    assert got.weights.sum() == pytest.approx(cpu.weights.sum(), rel=1e-3)
+
+
+def test_density_engine_graphs_are_the_eager_functions(dev):
+    """Each (kind, bucket) CUDA graph replays the bits of an eager call of
+    the same function on the same static inputs; captures happen in warmup
+    only (none across publishes); each replay runs the bernstein kernel;
+    log densities within 1e-5·max(1, |ref|) of ``mctm.log_density`` of the
+    version each answer records."""
+    from repro_torch.core import mctm as TM
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.serve.density import DensityServeEngine, bucket_for
+
+    cfg = TM.MCTMConfig(J=2, degree=6)
+    Y = (torch.randn(600, 2, generator=_g(1)) * torch.tensor([1.0, 2.0])).numpy()
+    scaler = DataScaler.fit(Y)
+    p0 = TM.init_params(cfg, generator=_g(2), device="cpu")
+    p1 = TM.ParamLeaves(p0.theta_raw.detach() + 0.3, p0.lam.detach() - 0.2)
+    eng = DensityServeEngine(cfg, p0, scaler, max_batch=64, min_bucket=8, device=dev)
+    assert eng.warmup() == 2 * len(eng.buckets)
+    reqs = []
+    for i, burst in enumerate((3, 8, 13, 64, 40, 1)):
+        reqs += eng.submit_log_density(Y[i * 64:i * 64 + burst])
+        eng.submit_sample(burst, y_obs=Y[i], n_obs=i % 3, seeds=list(range(burst)))
+        if i == 3:
+            eng.publish(p1)
+        eng.step()
+        for kind in ("log_density", "sample"):
+            ex = eng._execs[(kind, bucket_for(burst, eng.buckets))]
+            args = ((eng._static["low"], eng._static["high"], eng._static["inv_span"],
+                     ex.inputs["Y"]) if kind == "log_density" else
+                    (eng._static["low"], eng._static["high"], ex.inputs["z"],
+                     ex.inputs["y_obs"], ex.inputs["n_obs"]))
+            with torch.no_grad():
+                eager = eng._fns[kind](eng._params(), *args)
+            assert _same_bits(eager, ex.out)
+    eng.run_until_drained()
+    assert eng.compile_count == 2 * len(eng.buckets)
+    assert eng.replayed_launches["bernstein"] >= 2 * 6
+    for v, p in ((0, p0), (1, p1)):
+        rows = [r for r in reqs if r.version == v]
+        assert rows
+        with torch.no_grad():
+            ref = TM.log_density(cfg, TM.ParamLeaves(p.theta_raw.detach().to(dev),
+                                                     p.lam.detach().to(dev)), scaler,
+                                 torch.as_tensor(np.stack([r.y for r in rows]), device=dev))
+        for r, e in zip(rows, ref.cpu().tolist()):
+            assert abs(r.result - e) <= 1e-5 * max(1.0, abs(e))

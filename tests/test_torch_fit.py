@@ -83,10 +83,14 @@ def test_optimizer_schedule_and_methods(data):
                              jnp.asarray(step))
         tu, ts = topt.update([torch.from_numpy(g * (step + 1))], ts, [torch.zeros(3, 4)], step)
         np.testing.assert_allclose(tu[0].numpy(), np.asarray(ru["a"]), rtol=1e-6)
-    Y, _, tscaler, _ = data
+    Y, scaler, tscaler, _ = data
     # lbfgs and scipy-lbfgs are ported (tests/test_torch_lbfgs.py); minibatch
-    # waits for data/pipeline.py
-    with pytest.raises(NotImplementedError):
-        TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], method="minibatch", device="cpu")
+    # draws through data/pipeline.py: the reference's losses on the same draws
+    init = RM.init_params(jax.random.PRNGKey(1), RM.MCTMConfig(J=2))
+    ref = RM.fit_mctm(RM.MCTMConfig(J=2), scaler, jnp.asarray(Y[:10]), init=init,
+                      method="minibatch", batch_size=8, steps=3)
+    got = TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], init=_port_params(init),
+                      method="minibatch", batch_size=8, steps=3, device="cpu")
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-5)
     with pytest.raises(ValueError):
         TM.fit_mctm(TM.MCTMConfig(J=2), tscaler, Y[:10], method="sgd", device="cpu")

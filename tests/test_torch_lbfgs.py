@@ -224,10 +224,14 @@ def test_method_batch_plan_normalizers_match_reference():
     for method in ("adam", "lbfgs"):
         got = TF.method_batch_plan(method, 1001, w, 256, None)
         ref = RF.method_batch_plan(method, 1001, w, 256, None)
-        assert got[1:4] == (ref[1], ref[2], ref[3])
-        assert got[4] == pytest.approx(ref[5], rel=1e-7)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        TF.method_batch_plan("minibatch", 1001, w, 256, None)
+        assert got[1:5] == (ref[1], ref[2], ref[3], ref[4])
+        assert got[5] == pytest.approx(ref[5], rel=1e-7)
+    # the minibatch row (ported with data/pipeline.py): batch size and normalizer
+    for bs, mb in ((None, None), (500, None), (777, 3), (5000, None)):
+        got = TF.method_batch_plan("minibatch", 1001, w, 256, mb, bs)
+        ref = RF.method_batch_plan("minibatch", 1001, w, 256, mb, bs)
+        assert got[1:5] == (ref[1], ref[2], ref[3], ref[4])
+        assert got[5] == pytest.approx(ref[5], rel=1e-7)
 
 
 def test_driver_full_nll_matches_reference(tmp_path):

@@ -90,18 +90,24 @@ def test_sketched_leverage_on_the_reference_plan(chunk):
 
 
 def test_sketched_leverage_beyond_the_sweep_kernel_width(monkeypatch):
-    """Above the sweep kernel's D limit, float32 SX is built by
-    ``countsketch_add`` (a shape rule, as the reference takes any D): the
-    sweep is not called, and the scores match the reference's on its own
-    plan to rtol 1e-4 (the same SX; the float32 products SXᵀSX differ in
-    summation order)."""
-    from repro_torch.kernels.sweep.ops import MAX_D
+    """The sweep kernel takes X of any width (its old limit was D ≤ 160):
+    at D = 161, float32 SX is built by the sweep wrapper, one call a chunk,
+    never by ``countsketch_add``, and the scores match the reference's on
+    its own plan to rtol 1e-4 (the same SX; the float32 products SXᵀSX
+    differ in summation order)."""
+    calls = []
+    real = TL.fused_sweep_update
 
-    def no_sweep(*args, **kwargs):
-        raise AssertionError("the sweep kernel takes D ≤ MAX_D only")
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape)
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(TL, "fused_sweep_update", no_sweep)
-    n, D, sk = 600, MAX_D + 1, 900
+    def no_countsketch(*args, **kwargs):
+        raise AssertionError("float32 SX goes through the sweep at any width")
+
+    monkeypatch.setattr(TL, "fused_sweep_update", counted)
+    monkeypatch.setattr(TL, "countsketch_add", no_countsketch)
+    n, D, sk = 600, 161, 900
     X = _gaussian(n=n, D=D, seed=5)
     key = jax.random.PRNGKey(6)
     k1, k2 = jax.random.split(key)
@@ -110,6 +116,7 @@ def test_sketched_leverage_beyond_the_sweep_kernel_width(monkeypatch):
     ref = np.asarray(RL.sketched_leverage(jnp.asarray(X), key, sk))
     got = TL.sketched_leverage(X, sk, plan=(rows, signs), chunk_size=250, device="cpu")
     assert got.dtype == torch.float32
+    assert calls == [(250, D), (250, D), (100, D)]
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-6)
 
 

@@ -346,3 +346,68 @@ def test_countsketch_add_adds_in_row_order(dtype):
     got = TS.countsketch_add(SX, V, rows)
     assert torch.equal(got, want) and got.dtype == dtype
     assert torch.equal(TS.countsketch_add(SX, V[:0], rows[:0]), SX)
+
+
+WIDE_D = 24  # P = X wider than the sweep kernel's d ≤ 16: the wide-P route
+
+
+@pytest.mark.parametrize("name", ["two-pass-sketched", "one-pass"])
+@pytest.mark.parametrize("chunk", [0, 500])
+def test_wide_feature_rows_match_reference(name, chunk, monkeypatch):
+    """P = X at D = 24 (``rows_per_point=1``, as ``CoresetSelector`` scores
+    feature rows): the sketched strategies take the wide-P route (the
+    chunk's extremes beside the sweep, the moments (Σp, Σppᵀ) on the gram
+    wrapper, ``_gram_moments``). Against the reference's ``ScoringEngine``
+    on its own plans: scores rtol 2e-5 (well-conditioned Gaussian rows),
+    hull rows exact, moments rtol 1e-5 / atol 1e-4 (another f32 order)."""
+    X = np.random.default_rng(7).normal(size=(N, WIDE_D)).astype(np.float32)
+    rfeat, tfeat = _lookup_featurizers(X, X, r=1)
+    Yidx = np.stack([np.arange(N), np.zeros(N)], axis=1).astype(np.float32)
+    if name == "one-pass":
+        rstrat = RS.OnePassSketched(SK, track_moments=True)
+        tstrat = TS.OnePassSketched(SK, track_moments=True)
+    else:
+        rstrat, tstrat = RS.TwoPassSketched(SK), TS.TwoPassSketched(SK)
+    key, hull_key = jax.random.split(jax.random.PRNGKey(13))
+    kw = {}
+    if rstrat.one_pass:
+        kw["hull_normals"] = np.asarray(jax.random.normal(hull_key, (4 * HULL_K, WIDE_D)))
+        rkw = {}
+    else:
+        s1, s2 = X.sum(0), X.T.astype(np.float64) @ X
+        kw["hull_dirs"] = rkw = RS.directions_from_moments(hull_key, s1, s2, N, HULL_K)
+        rkw = {"hull_dirs": rkw}
+    ref = RS.ScoringEngine(featurize=rfeat, rows_per_point=1, chunk_size=chunk).score(
+        jnp.asarray(Yidx), method="l2-hull", key=key, hull_k=HULL_K, hull_key=hull_key,
+        strategy=rstrat, **rkw)
+    moment_calls = []
+    real = TS._gram_moments
+    monkeypatch.setattr(TS, "_gram_moments",
+                        lambda *a: moment_calls.append(a[2].shape) or real(*a))
+    got = TS.ScoringEngine(featurize=tfeat, rows_per_point=1, chunk_size=chunk,
+                           device="cpu").score(
+        Yidx, method="l2-hull", plan=_plan_at(rstrat, key, WIDE_D), hull_k=HULL_K,
+        strategy=tstrat, **kw)
+    assert len(moment_calls) == got.n_chunks == ref.n_chunks
+    np.testing.assert_allclose(got.scores, ref.scores, rtol=2e-5)
+    np.testing.assert_array_equal(got.hull_rows, ref.hull_rows)
+    if rstrat.one_pass:
+        for g, r in zip(got.moments[:2], ref.moments[:2]):
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4)
+
+
+def test_gram_moments_are_the_moments():
+    """``_gram_moments`` adds Σp and Σppᵀ to the carry (float64 of the same
+    rows: rtol 1e-6, f32 rounding of sums up to ~3,000, atol 1e-4)."""
+    rng = np.random.default_rng(3)
+    P = torch.tensor(rng.normal(size=(3000, 20)).astype(np.float32))
+    s1 = torch.tensor(rng.normal(size=20).astype(np.float32))
+    s2 = torch.tensor(rng.normal(size=(20, 20)).astype(np.float32))
+    g1, g2 = TS._gram_moments(s1, s2, P)
+    P64 = P.double()
+    torch.testing.assert_close(g1.double(), s1.double() + P64.sum(0), rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(g2.double(), s2.double() + P64.T @ P64, rtol=1e-6, atol=1e-4)
+
+
+def _plan_at(rstrat, key, D):
+    return tuple(None if p is None else np.asarray(p) for p in rstrat.begin(N, D, key))

@@ -129,8 +129,13 @@ def test_policy_validation_and_unported_options():
     for kw in (dict(policy="nope"), dict(policy="sliding"), dict(policy="decayed", decay=1.0)):
         with pytest.raises(ValueError):
             _maintainer(cfg, scaler, 32, 0, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        _maintainer(cfg, scaler, 32, 0, serve_engine=object())
+    # the serving loop is ported: a maintainer takes an engine and a detector
+    from repro_torch.serve.density import DensityServeEngine
+
+    eng = DensityServeEngine(cfg, TM.init_params(cfg, device="cpu"), scaler, device="cpu")
+    m = _maintainer(cfg, scaler, 32, 0, serve_engine=eng, detector=TSt.DriftDetector(),
+                    refit_kwargs={"steps": 3})
+    assert m.serve_engine is eng and m.auto_trigger and m.refit_kwargs == {"steps": 3}
     with pytest.raises(NotImplementedError, match="Queue A 9"):
         _maintainer(cfg, scaler, 32, 0, drift_mesh=object())
 
@@ -303,3 +308,57 @@ def test_drift_window_nll_matches_reference():
     assert shifted > got
     with pytest.raises(NotImplementedError, match="Queue A 9"):
         TSt.drift_window_nll(cfg, scaler, tp, Y, mesh=object(), device="cpu")
+
+
+def _drift_loop(maintainer, engine, windows):
+    """Push each window; a triggered refit is joined and its publish served
+    (a tick swaps it in) before the next window, as the reference's
+    streaming drill waits for it."""
+    for w in windows:
+        maintainer.push(w)
+        if maintainer.drift_log[-1]["triggered"]:
+            engine._refit_thread.join(120)
+            assert not engine._refit_thread.is_alive()
+        engine.submit_log_density(w[:4])
+        engine.run_until_drained()
+
+
+def test_drift_refit_loop_matches_reference():
+    """The maintainer's drift → refit → publish loop against the
+    reference's: the same served model at version 0, 4 clean then 5
+    shifted windows (rows·1.6 + 2·std). Both fire at the same window,
+    start one refit there, publish it (the next window re-anchors on the
+    refit's fit_nll_pp) and log the same number of refits; the served NLL
+    of the shifted windows falls back into the band after the publish."""
+    from repro.serve.density import DensityServeEngine as RDS
+    from repro_torch.serve.density import DensityServeEngine as TDS
+
+    cfg, scaler, Y, rcfg, rscaler = _setup(n=512 * 9, seed=3)
+    std = Y.std(0)
+    windows = [Y[i * 512:(i + 1) * 512] for i in range(9)]
+    windows = windows[:4] + [w * 1.6 + 2 * std for w in windows[4:]]
+    rp = RM.init_params(jax.random.PRNGKey(4), rcfg)
+    from repro.core.mctm_fit import fit_mctm_streaming as rfit
+
+    p0 = rfit(rcfg, rscaler, np.concatenate(windows[:2]), init=rp, steps=40, method="lbfgs").params
+    tp0 = TM.params_from_numpy(np.asarray(p0.theta_raw), np.asarray(p0.lam), device="cpu")
+    kw = dict(policy="sliding", window=3, sketch_size=32)
+    det = dict(eps=0.1, alpha=0.5, min_windows=2)
+    reng = RDS(rcfg, p0, rscaler, max_batch=8)
+    ref = RSt.StreamingCoresetMaintainer(
+        rcfg, rscaler, 96, jax.random.PRNGKey(2), serve_engine=reng,
+        detector=RSt.DriftDetector(**det), refit_kwargs=dict(steps=20, method="lbfgs"), **kw)
+    teng = TDS(cfg, tp0, scaler, max_batch=8, device="cpu")
+    got = _maintainer(cfg, scaler, 96, 2, serve_engine=teng, detector=TSt.DriftDetector(**det),
+                      refit_kwargs=dict(steps=20, method="lbfgs"), **kw)
+    _drift_loop(ref, reng, windows)
+    _drift_loop(got, teng, windows)
+    fired = [e["window"] for e in got.drift_log if e["fired"]]
+    assert fired and fired[0] == [e["window"] for e in ref.drift_log if e["fired"]][0] >= 4
+    assert not any(e["fired"] for e in got.drift_log[:4])
+    assert len(teng.refit_log) == len(reng.refit_log) == got.triggered == ref.triggered >= 1
+    for a, b in zip(got.drift_log[:fired[0] + 1], ref.drift_log[:fired[0] + 1]):
+        assert a["nll_pp"] == pytest.approx(b["nll_pp"], rel=1e-5)
+    assert teng.version == reng.version >= 1
+    after = [e for e in got.drift_log if e["version"] >= 1]
+    assert after and after[-1]["eps_hat"] <= 0.1

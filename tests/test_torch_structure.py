@@ -39,7 +39,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.configs import get_reduced_config
     from repro_torch.launch import train_mctm
     from repro_torch.models import build_model, model_from_jax
-    from repro_torch.serve import ServeEngine
+    from repro_torch.data.pipeline import CoresetSelector
+    from repro_torch.launch import serve_mctm
+    from repro_torch.serve import DensityServeEngine, ServeEngine
 
     lm_cfg = get_reduced_config("tinyllama_1b")
     cpu_model = build_model(lm_cfg, device="cpu")
@@ -98,6 +100,11 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: build_model(lm_cfg),
         lambda: model_from_jax(lm_cfg, np_params),
         lambda: ServeEngine(cpu_model),
+        lambda: CoresetSelector(lambda rows: rows),
+        lambda: DensityServeEngine(cfg, TM.init_params(cfg, device="cpu"), scaler),
+        lambda: serve_mctm.main(["--smoke"]),
+        lambda: TF.fit_mctm_streaming(cfg, scaler, Y, steps=1, method="minibatch",
+                                      batch_size=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -170,13 +177,34 @@ def _lm_cache_case(branch):
 ])
 def test_unported_parts_raise_not_implemented(what):
     """What the port does not carry raises NotImplementedError naming the
-    ROADMAP item — never plain code on a detour around a kernel."""
+    ROADMAP item — never plain code on a detour around a kernel. The
+    maintainer's ``serve_engine=`` is ported now: its case checks that it
+    is taken."""
     from repro_torch import configs
     from repro_torch.core import mctm as TM
     from repro_torch.core import streaming as TSt
     from repro_torch.core.bernstein import DataScaler
     from repro_torch.models import build_model
 
+    if what == "streaming:serve_engine":
+        # ported (the drift → refit loop): the maintainer takes a serving
+        # engine, and only its mesh option still raises
+        from repro_torch.core import mctm as TM
+        from repro_torch.core import streaming as TSt
+        from repro_torch.core.bernstein import DataScaler
+        from repro_torch.serve.density import DensityServeEngine
+
+        cfg = TM.MCTMConfig(J=2)
+        Y = np.random.default_rng(0).normal(size=(20, 2)).astype(np.float32)
+        scaler = DataScaler.fit(Y)
+        eng = DensityServeEngine(cfg, TM.init_params(cfg, device="cpu"), scaler, device="cpu")
+        m = TSt.StreamingCoresetMaintainer(cfg, scaler, 8, device="cpu", serve_engine=eng,
+                                           detector=TSt.DriftDetector())
+        assert m.serve_engine is eng
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TSt.StreamingCoresetMaintainer(cfg, scaler, 8, device="cpu", serve_engine=eng,
+                                           drift_mesh=object())
+        return
     kind, arg = what.split(":")
     tiny = configs.get_reduced_config("tinyllama_1b")
     mcfg = TM.MCTMConfig(J=2)
