@@ -128,9 +128,19 @@ Phases (any failure exits nonzero):
      log density within 1e-4 of ``mctm.log_density`` of its version), then
      the maintainer's drift → refit → publish loop on phase 8's
      clean-then-shifted stream (6 clean, 8 shifted windows);
+ 11. the data mesh at the path's width (n = 250,001, k = 500 and 2000,
+     two-pass and one-pass at sketch 784): an NCCL world of 1 gives the
+     single-device bits (builds, ``streamed_nll``, a 250-step adam fit);
+     gloo worlds of 2 and 4 whose ranks share the card hold their
+     f64-Gram scores to world 1's, their f32 ridge-lss scores to float64 of
+     the same features (beside a TF32-Gram control at each world and a
+     bf16-feature control), their
+     coresets to the same bits on every rank and their collectives to one
+     fold a sweep and one gather pair; a crashed segmented sweep at world
+     2 resumes to the same bits; per-rank ``build_s`` and fold bytes;
   5. launch census: each kernel counted over its own path's run, and over
-     each of phases 6–10's paths (``launches_phase6`` to
-     ``launches_phase10``; graph replays of the serving engine counted
+     each of phases 6–11's paths (``launches_phase6`` to
+     ``launches_phase11``; graph replays of the serving engine counted
      apart).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
@@ -590,6 +600,17 @@ def phase_kernels(dev):
     log(f"  sweep: device {sw_row['device_ms']:.5f} ms (parent [{PARENT_DEVICE_MS['sweep']}]), "
         f"{sw_row['bound_ms'] / sw_row['device_ms']:.3f} of its bound, "
         f"{sw_row['device_kernels_per_call']} device kernels a call")
+    # the sketch alone (no P rows, no z) against the one PyTorch call that
+    # computes it, index_add_, as phase 9 times the sweep at D = 2,048
+    sgn_w = signs_p * sw
+    t = in_turns(lambda: fused_sweep_update(SX0, X, None, sw, rows_p, signs_p, want_z=False),
+                 lambda: SX0.clone().index_add_(0, rows_p.long(), X * sgn_w[:, None]))
+    b, by = bound_ms(4 * (CHUNK * D + 3 * CHUNK + 2 * SKETCH * D), 2 * CHUNK * D)
+    sw_row["sketch_only"] = dict(t, bound_ms=b, bound_by=by)
+    log(f"  sweep D={D} sketch only: device {t['device_ms']:.5f} ms vs index_add_ "
+        f"{t['library_device_ms']:.5f} ms (ratio {t['device_ratio']:.3f}, in turns "
+        f"{[round(x, 5) for x in t['turns_device_ms']]}); events {t['ms']:.5f} vs "
+        f"{t['library_ms']:.5f} ms; bound {b:.5f} ms ({by})")
 
     # ---- sweep at the default one-pass sketch 4·D² of J = 10 and 20
     for J, (Xw, Pw) in wide.items():
@@ -2667,6 +2688,20 @@ def phase_kernels_wide_d(dev):
         "plain_ms": cuda_ms(lambda: (fused_sweep_ref(SX0, X, None, sw, rws, sgn),
                                      directional_extremes_ref(X, dirs), gram_ref(X)),
                             iters=1, warmup=0)}
+    # the route's extremes against the one PyTorch call pair that computes
+    # them: dirs @ P.T, then max and min
+    def library_extremes():
+        S = dirs @ X.T
+        return S.max(dim=1), S.min(dim=1)
+
+    # CUDA events alone: every profiler window of these 35-ms calls lost a
+    # kernel record, and at that length the events read the device time
+    turns = [cuda_ms(f, iters=5, warmup=1) for f in (
+        lambda: ext.directional_extremes(X, dirs), library_extremes, library_extremes,
+        lambda: ext.directional_extremes(X, dirs))]
+    rec["wide_p_route"]["extremes_in_turns"] = {
+        "ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
+        "turns_ms": turns, "ratio": (turns[0] + turns[3]) / (turns[1] + turns[2])}
     log(f"  the wide-P route at d = {D} ({m:,} directions): {json.dumps(rec['wide_p_route'])}")
     if errs:
         fail("phase 9 kernels: " + "; ".join(errs))
@@ -2972,6 +3007,316 @@ def phase_serving(dev):
     return census, rec
 
 
+# ---------------------------------------------------------------- phase 11
+
+MESH_WORLDS = (2, 4)                 # gloo ranks sharing the one card
+MESH_STEPS = 250                     # the world-1 adam fit, as phase 3's
+MESH_F64_ATOL = 1e-6                 # f64-Gram scores, world R against world 1
+# the f32 default's two-pass ridge-lss scores against float64 of the same
+# features (relative). Not l2: the degree-6 Gram's pseudo-inverse turns any
+# f32 summation order, a shard split included, into 3e-3–6e-3 of float64
+# (Queue C 2), and a TF32 Gram reads 5.2e-3 there on the H100, so no l2
+# limit separates a TF32 Gram (l2 is reported beside it). With ridge 1 the
+# H100 reads 1.28e-4 (world 1), 3.25e-4 (2), 1.41e-4 (4), the TF32-Gram
+# control 5.12e-4 at world 1: every one the same bits on every run. The
+# TF32 control runs at every world, each held to this limit, and a
+# bf16-feature control at world 1 lies far beyond it.
+MESH_F32_RTOL = 4e-4
+MESH_SEG_EVERY = 4                   # sweep_ckpt_every_chunks on the mesh
+MESH_SEG_CRASH = 6                   # maybe_inject("scoring", 6): rank chunk 6 of sweep 1
+
+
+def _mesh_gen(*parts):
+    import numpy as np
+    import torch
+
+    return torch.Generator().manual_seed(int(np.random.SeedSequence(parts).generate_state(1)[0]))
+
+
+def mesh_rank(mesh, Y, scratch):
+    """One rank of phase 11's gloo worlds, on the shared card: the
+    f64-Gram and f32 two-pass scores (l2-only, ridge-lss, and ridge-lss on a
+    TF32 Gram, the control), each strategy's builds at k = 500 and 2000
+    (their census, build_s and fold bytes), and at world 2 a segmented sweep
+    crashed at chunk 6 and resumed. Returns what the parent checks; every
+    rank returns its own."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed_coreset as TD
+    from repro_torch.core import mctm as M
+    from repro_torch.core import scoring
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.ft import FailureSimulator, get_ft_config
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    reset_counts()
+    cfg = M.MCTMConfig(J=2, degree=6)
+    scaler = DataScaler.fit(Y)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend}
+    f64 = TD.DistributedScoringEngine(cfg, scaler, mesh=mesh, chunk_size=CHUNK,
+                                      gram_dtype="float64")
+    out["f64"] = f64.score(Y, method="l2-only").scores
+    eng = TD.DistributedScoringEngine(cfg, scaler, mesh=mesh, chunk_size=CHUNK)
+    out["f32"] = eng.score(Y, method="l2-only").scores
+    out["f32_ridge"] = eng.score(Y, method="ridge-lss").scores
+    gram_kernel = scoring.gram_matrix
+    scoring.gram_matrix = _tf32_gram  # every rank's partial Gram, then the fold
+    try:
+        out["tf32_ridge"] = eng.score(Y, method="ridge-lss").scores
+    finally:
+        scoring.gram_matrix = gram_kernel
+    builds = {}
+    for strategy, sketch in (("two-pass", 0), ("one-pass", SKETCH)):
+        for k in KS:
+            mesh.reset_census()
+            sync()
+            t0 = time.perf_counter()
+            cs = TD.distributed_build_coreset(cfg, scaler, Y, k, mesh=mesh, chunk_size=CHUNK,
+                                              sketch_size=sketch,
+                                              generator=_mesh_gen(0, k, sketch))
+            sync()
+            builds[f"{strategy} k={k}"] = {"build_s": time.perf_counter() - t0,
+                                           "indices": cs.indices, "weights": cs.weights,
+                                           "census": copy.deepcopy(mesh.census)}
+    out["builds"] = builds
+    if mesh.world == 2:
+        ft = get_ft_config()
+        ft.sweep_ckpt_every_chunks = MESH_SEG_EVERY
+        seg = {}
+        for strategy, kw in (("two-pass", {}), ("one-pass", {"sketch_size": SKETCH})):
+            def score(sub, resume=False):
+                return eng.score(Y, method="l2-hull", hull_k=400, generator=_mesh_gen(1, 400),
+                                 sweep_ckpt=os.path.join(scratch, sub), resume=resume, **kw)
+
+            t0 = time.perf_counter()
+            straight = score(f"{strategy}-straight")
+            straight_s = time.perf_counter() - t0
+            ft.simulator = sim = FailureSimulator().inject("scoring", MESH_SEG_CRASH)
+            try:
+                score(f"{strategy}-crash")
+                crashed = False
+            except RuntimeError:
+                crashed = True
+            finally:
+                ft.simulator = None
+            resumed = score(f"{strategy}-crash", resume=True)
+            seg[strategy] = {
+                "crashed_at": [e["step"] for e in sim.log] if crashed else [],
+                "same_bits": bool(np.array_equal(straight.scores, resumed.scores)
+                                  and np.array_equal(straight.hull_rows, resumed.hull_rows)
+                                  and np.array_equal(straight.gram, resumed.gram)),
+                "straight_s": straight_s}
+        ft.sweep_ckpt_every_chunks = 4
+        out["segmented"] = seg
+    out["launches"] = read_counts()
+    return out
+
+
+def phase_mesh(dev, scratch: str):
+    """Phase 11: Algorithm 1 on the data mesh at the path's width
+    (normal_mixture, n = 250,001, J = 2, degree 6, chunk 16,384, k = 500
+    and 2000, two-pass and one-pass at sketch 784).
+
+    (a) World 1 on NCCL (a process group of one rank): every collective is
+        the identity, so ``distributed_build_coreset``, ``streamed_nll(mesh=)``
+        and the adam fit (250 steps) must give the single-device calls' bits.
+    (b) Worlds 2 and 4 on gloo, their ranks spawned on the one card (NCCL
+        takes one rank a GPU; gloo stages each fold's buffer through the
+        host): the f64-Gram scores within MESH_F64_ATOL of world 1's, the f32
+        two-pass ridge-lss scores within MESH_F32_RTOL of float64 of the same
+        features (a TF32-Gram control at each world, and a bf16-feature
+        control at world 1, must fail that limit; the l2 scores' distance
+        reported), every rank's coreset ids
+        and weights the same bits, one fold a sweep and one gather pair for
+        the hull, per-rank build_s and fold bytes printed.
+    (c) At world 2, a segmented sweep crashed at chunk 6 and resumed to the
+        uninterrupted bits, both strategies.
+
+    Returns (census, records)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mctm as M
+    from repro_torch.core import scoring
+    from repro_torch.core.bernstein import DataScaler
+    from repro_torch.core.coreset import build_coreset
+    from repro_torch.core.distributed_coreset import DistributedScoringEngine, distributed_build_coreset
+    from repro_torch.core.mctm_fit import fit_mctm_streaming, streamed_nll
+    from repro_torch.data.dgp import generate
+    from repro_torch.distributed import init_mesh, run_world
+
+    errs: list[str] = []
+    census: dict = {}
+    rec: dict = {"world1": {}, "worlds": {}}
+    cfg = M.MCTMConfig(J=2, degree=6)
+    Y = generate("normal_mixture", MAIN_N, seed=0).astype(np.float32)
+    scaler = DataScaler.fit(Y)
+    os.makedirs(scratch, exist_ok=True)
+
+    # ---- (a) world 1 on NCCL
+    t0 = time.perf_counter()
+    mesh = init_mesh(0, 1, backend="nccl", device=dev,
+                     init_method="file://" + os.path.join(scratch, "nccl_store"))
+    log(f"phase 11 world 1: NCCL group of one rank up in {time.perf_counter() - t0:.2f}s")
+    try:
+        same = {}
+        for strategy, sketch in (("two-pass", 0), ("one-pass", SKETCH)):
+            for k in KS:
+                reset_counts()
+                _sync()
+                t0 = time.perf_counter()
+                a = distributed_build_coreset(cfg, scaler, Y, k, mesh=mesh, chunk_size=CHUNK,
+                                              sketch_size=sketch, generator=_mesh_gen(0, k, sketch))
+                _sync()
+                mesh_s = time.perf_counter() - t0
+                census[f"world 1 nccl {strategy} k={k}"] = read_counts()
+                t0 = time.perf_counter()
+                b = build_coreset(cfg, scaler, Y, k, chunk_size=CHUNK, sketch_size=sketch,
+                                  generator=_mesh_gen(0, k, sketch), device=dev)
+                _sync()
+                same[f"{strategy} k={k}"] = {
+                    "same_bits": bool(np.array_equal(a.indices, b.indices)
+                                      and np.array_equal(a.weights, b.weights)),
+                    "build_s": mesh_s, "single_build_s": time.perf_counter() - t0}
+        p0 = M.init_params(cfg, generator=_mesh_gen(2), device=dev)
+        nll_mesh = streamed_nll(cfg, scaler, p0, Y, chunk=CHUNK, eta=1e-9, mesh=mesh)
+        nll_one = streamed_nll(cfg, scaler, p0, Y, chunk=CHUNK, eta=1e-9, device=dev)
+        fits = {}
+        for tag, kw in (("mesh", {"mesh": mesh}), ("single", {"device": dev})):
+            _sync()
+            t0 = time.perf_counter()
+            fits[tag] = fit_mctm_streaming(cfg, scaler, Y, init=p0, steps=MESH_STEPS,
+                                           method="adam", chunk_size=CHUNK, **kw)
+            _sync()
+            fits[tag + "_s"] = time.perf_counter() - t0
+        fit_same = bool(np.array_equal(fits["mesh"].losses, fits["single"].losses) and all(
+            np.array_equal(x, y) for x, y in zip(M.params_to_numpy(fits["mesh"].params),
+                                                 M.params_to_numpy(fits["single"].params))))
+        rec["world1"] = {"builds": same, "nll_same": nll_mesh == nll_one,
+                         "nll_pp": nll_mesh / MAIN_N, "fit_same_bits": fit_same,
+                         "fit_s": fits["mesh_s"], "single_fit_s": fits["single_s"],
+                         "fit_nll_pp": fits["mesh"].final_nll / MAIN_N,
+                         "collectives": dict(mesh.census)}
+        log("phase 11 world 1 (nccl): " + json.dumps(rec["world1"]))
+        if not all(v["same_bits"] for v in same.values()) or not rec["world1"]["nll_same"] \
+                or not fit_same or mesh.census:
+            errs.append(f"world 1 on NCCL is not the single-device run: {rec['world1']}")
+        # world 1's f64 and f32 scores, the float64 of the features and the TF32 control
+        w1_f64 = DistributedScoringEngine(cfg, scaler, mesh=mesh, chunk_size=CHUNK,
+                                          gram_dtype="float64").score(Y, method="l2-only").scores
+        w1_eng = DistributedScoringEngine(cfg, scaler, mesh=mesh, chunk_size=CHUNK)
+        w1_f32 = w1_eng.score(Y, method="l2-only").scores
+        w1_ridge = w1_eng.score(Y, method="ridge-lss").scores
+        X = scoring._mctm_featurize(cfg, scaler)(torch.as_tensor(Y, device=dev))[0]
+        exact = l2_float64_card(X)
+        X64 = X.double()
+        w_, V_ = np.linalg.eigh((X64.T @ X64).cpu().numpy())
+        Vt = torch.as_tensor(V_, device=dev)
+        inv_r = torch.as_tensor(1.0 / (np.maximum(w_, 0.0) + 1.0), device=dev)
+        exact_ridge = (torch.square(X64 @ Vt) @ inv_r).cpu().numpy() + 1.0 / MAIN_N
+        del X, X64
+        gram_kernel = scoring.gram_matrix
+        scoring.gram_matrix = _tf32_gram
+        try:
+            tf32 = w1_eng.score(Y, method="l2-only").scores
+            tf32_ridge = w1_eng.score(Y, method="ridge-lss").scores
+        finally:
+            scoring.gram_matrix = gram_kernel
+        featurize = scoring._mctm_featurize(cfg, scaler)
+
+        def bf16_features(Yc):
+            Xc, Pc = featurize(Yc)
+            return Xc.bfloat16().float(), Pc
+
+        bf16 = DistributedScoringEngine(featurize=bf16_features, rows_per_point=cfg.J, mesh=mesh,
+                                        chunk_size=CHUNK).score(Y, method="ridge-lss").scores
+        controls = {"TF32 Gram": rel_err(tf32_ridge, exact_ridge),
+                    "bf16 features": rel_err(bf16, exact_ridge)}
+        rec["world1"].update(f32_vs_float64=rel_err(w1_ridge, exact_ridge), controls=controls,
+                             l2_f32_vs_float64=rel_err(w1_f32, exact),
+                             l2_tf32_vs_float64=rel_err(tf32, exact))
+        log(f"phase 11 world 1: ridge-lss f32 vs float64 {rec['world1']['f32_vs_float64']:.3e}, "
+            f"controls {json.dumps(controls)} (limit {MESH_F32_RTOL}); l2 (reported) f32 "
+            f"{rec['world1']['l2_f32_vs_float64']:.3e}, TF32 {rec['world1']['l2_tf32_vs_float64']:.3e}")
+        if rec["world1"]["f32_vs_float64"] > MESH_F32_RTOL:
+            errs.append(f"world 1: ridge-lss scores {rec['world1']['f32_vs_float64']} from float64")
+        for name, value in controls.items():
+            if value <= MESH_F32_RTOL:
+                errs.append(f"MESH_F32_RTOL does not separate the {name} control: {value}")
+    finally:
+        mesh.close()
+
+    # ---- (b) and (c): gloo worlds on the shared card
+    from repro_torch.kernels import _lib
+
+    if dev.type == "cuda":
+        _lib.lib()  # built by this process; the ranks load it
+    for world in MESH_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_world(mesh_rank, world, backend="gloo", devices=[dev] * world,
+                          args=(Y, os.path.join(scratch, f"world{world}")), timeout_s=600)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        w = {"wall_s": wall, "f64_vs_world1": float(np.abs(r0["f64"] - w1_f64).max()),
+             "f32_vs_float64": rel_err(r0["f32_ridge"], exact_ridge),
+             "tf32_control_vs_float64": rel_err(r0["tf32_ridge"], exact_ridge),
+             "l2_f32_vs_float64": rel_err(r0["f32"], exact),
+             "l2_f32_vs_world1_f32": rel_err(r0["f32"], w1_f32), "builds": {}}
+        for path, b in r0["builds"].items():
+            same_ranks = all(np.array_equal(r["builds"][path]["indices"], b["indices"])
+                             and np.array_equal(r["builds"][path]["weights"], b["weights"])
+                             for r in ranks)
+            cen = b["census"]
+            w["builds"][path] = {
+                "same_bits_every_rank": same_ranks, "folds": cen.get("fold", {}).get("calls"),
+                "fold_bytes": cen.get("fold", {}).get("bytes"),
+                "hull_gathers": cen.get("hull_gather", {}).get("calls"),
+                "row_gathers": cen.get("row_gather", {}).get("calls"),
+                "staged_bytes": cen.get("staged_bytes"),
+                "build_s_per_rank": [r["builds"][path]["build_s"] for r in ranks]}
+            if not same_ranks:
+                errs.append(f"world {world} {path}: the ranks' coresets differ")
+            if cen.get("fold", {}).get("calls") != 1 or cen.get("hull_gather", {}).get("calls") != 2:
+                errs.append(f"world {world} {path}: collective census {cen} (want one fold, "
+                            "one gather pair)")
+        for r in ranks:
+            census[f"world {world} gloo rank {r['rank']}"] = r["launches"]
+        if "segmented" in r0:
+            w["segmented"] = r0["segmented"]
+            for strategy, s in r0["segmented"].items():
+                if s["crashed_at"] != [MESH_SEG_CRASH] or not s["same_bits"]:
+                    errs.append(f"world {world} segmented {strategy}: {s}")
+        rec["worlds"][world] = w
+        log(f"phase 11 world {world} (gloo, ranks on {ranks[0]['device']}): "
+            + json.dumps({k: v for k, v in w.items() if k != "builds"}))
+        for path, b in w["builds"].items():
+            log(f"  world {world} {path}: " + json.dumps(b))
+        if w["f64_vs_world1"] > MESH_F64_ATOL:
+            errs.append(f"world {world}: f64-Gram scores {w['f64_vs_world1']} from world 1's")
+        if w["f32_vs_float64"] > MESH_F32_RTOL:
+            errs.append(f"world {world}: ridge-lss scores {w['f32_vs_float64']} from float64")
+        if w["tf32_control_vs_float64"] <= MESH_F32_RTOL:
+            errs.append(f"world {world}: MESH_F32_RTOL does not separate the TF32 Gram "
+                        f"control: {w['tf32_control_vs_float64']}")
+    for path, counts in census.items():
+        need = ("bernstein", "sweep") if "one-pass" in path else (
+            ("bernstein", "gram", "extremes") if "two-pass" in path
+            else ("bernstein", "gram", "extremes", "sweep"))
+        if any(counts.get(name, 0) <= 0 for name in need):
+            errs.append(f"phase 11 {path}: the path's kernels did not all run {counts}")
+    for path, counts in census.items():
+        log(f"census {path}: {json.dumps(counts)}")
+    if errs:
+        fail("phase 11: " + "; ".join(errs))
+    return census, rec
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
@@ -3016,6 +3361,12 @@ def main() -> None:
     t0 = time.perf_counter()
     p10_census, p10_rec = phase_serving(dev)
     log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mesh_scratch = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(mesh_scratch, ignore_errors=True)
+    p11_census, p11_rec = phase_mesh(dev, mesh_scratch)
+    shutil.rmtree(mesh_scratch, ignore_errors=True)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
     launches["gram_large"] = p9_census["select D=2048 two-pass"]["gram_large"]
     launches["sweep_wide"] = p9_census["select D=2048 one-pass"]["sweep_wide"]
     for row in kernels:
@@ -3025,7 +3376,7 @@ def main() -> None:
         name = "gram_cluster" if row["name"] == "gram" else row["name"]
         for key, cen in (("launches_phase6", core_census), ("launches_phase7", ft_census),
                          ("launches_phase8", stream_census), ("launches_phase9", p9_census),
-                         ("launches_phase10", p10_census)):
+                         ("launches_phase10", p10_census), ("launches_phase11", p11_census)):
             row[key] = {path: counts[name] for path, counts in cen.items() if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
@@ -3035,7 +3386,8 @@ def main() -> None:
                    "ft_census": ft_census, "streaming": stream_rec,
                    "stream_census": stream_census, "pipeline": p9_rec,
                    "pipeline_census": p9_census, "serving": p10_rec,
-                   "serving_census": p10_census}, f, indent=1, default=float)
+                   "serving_census": p10_census, "mesh": p11_rec, "mesh_census": p11_census},
+                  f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Fault-tolerant checkpointing: atomic, keep-k, optional async — the
-single-host port of ``repro.checkpoint.manager``, in the reference's
-on-disk format.
+"""Fault-tolerant checkpointing: atomic, keep-k, optional async — the port
+of ``repro.checkpoint.manager``, in the reference's on-disk format (on a
+mesh, rank 0 writes and every rank reads: ``CheckpointManager(mesh=)``).
 
 Layout: ``<dir>/step_<N>/`` — one ``.npy`` per leaf (keypath-encoded
 filename) + ``manifest.json`` (step, leaf names, shapes, dtypes). Writes go to
@@ -128,10 +128,18 @@ def unflatten_like(template, leaves: list):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
+    """``mesh=`` (a ``repro_torch.distributed.DataMesh``) is the reference's
+    multi-process branch for a state every rank holds alike (a fit's
+    parameters and moments): rank 0 writes, every rank reads, and every
+    rank waits at a barrier after each save, so a rank that restores reads
+    the save its peers made. Every rank passes the save's failure-injection
+    point, so an injected torn write fails all ranks at the same step."""
+
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False, mesh=None):
         self.directory = str(directory)
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self._thread: threading.Thread | None = None
         os.makedirs(self.directory, exist_ok=True)
 
@@ -176,6 +184,13 @@ class CheckpointManager:
             self._gc()
             return final
 
+        if self.mesh is not None:
+            if self.mesh.rank == 0:
+                _write()
+            else:
+                maybe_inject("checkpoint", step)
+            self.mesh.barrier()
+            return final
         if self.async_save and not block:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()

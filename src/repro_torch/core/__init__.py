@@ -1,7 +1,7 @@
 """The paper's core, ported from ``repro.core``: MCTM models, the fit layer,
 the scoring engine and coreset constructions, leverage scores, hull
-ε-kernels, the conditional model and streaming maintenance. (``repro.core``'s
-distributed names wait for ROADMAP Queue A 9.)
+ε-kernels, the conditional model, streaming maintenance and the
+distributed scoring engine (over ``repro_torch.distributed``'s mesh).
 
 Public API:
   - MCTMConfig / init_params / nll / fit_mctm / log_density / sample
@@ -12,6 +12,8 @@ Public API:
     OnePassSketched)
   - the conditional MCTM (CMCTMConfig / fit_cmctm / build_conditional_coreset)
   - MergeReduceCoreset / StreamingCoresetMaintainer / DriftDetector (streams)
+  - DistributedScoringEngine / distributed_build_coreset (Algorithm 1 on a
+    data mesh)
 
 The names resolve on first use (PEP 562): the kernels' plain versions import
 ``repro_torch.core.bernstein``, so importing every module here eagerly would
@@ -32,6 +34,9 @@ _MODULES = {
     "coreset": (
         "CORESET_METHODS", "CoresetEvaluation", "CoresetResult", "build_coreset",
         "coreset_scores", "evaluate_coreset",
+    ),
+    "distributed_coreset": (
+        "DistributedScoringEngine", "distributed_build_coreset",
     ),
     "hull": (
         "epsilon_kernel_indices", "greedy_hull_projection", "hull_distance",

@@ -15,8 +15,10 @@ Random plans are inputs, as in ``coreset.build_coreset``: the CountSketch
 not given is drawn from ``generator`` in that order (the reference splits
 its key as (draw, hull[, sketch]) instead).
 
-Not ported yet (it raises ``NotImplementedError``): ``mesh=`` (ROADMAP
-Queue A 9).
+``fit_cmctm(mesh=)`` fits data parallel over a ``DataMesh`` through the fit
+layer's mesh (``core.mctm_fit``): each rank its slice of the padded (y, x)
+rows, one fold a step or oracle sweep, and the final NLL's float64 totals
+folded once.
 """
 from __future__ import annotations
 
@@ -186,20 +188,21 @@ def fit_cmctm(
     start. The final NLL is summed chunk by chunk, each chunk's float32 sum
     added to a float total. ``checkpoint=`` (a ``CheckpointManager``) +
     ``resume=True`` restart from the latest saved step (``ckpt_every``
-    steps apart), in both modes."""
+    steps apart), in both modes. ``mesh``: data parallel on the mesh's
+    device (module doc)."""
     from repro_torch.core.mctm_fit import (
         default_fit_optimizer, fit_density_model, fit_featurize, method_batch_plan,
     )
 
-    if mesh is not None:
-        raise NotImplementedError("fit_cmctm(mesh=) is not ported yet (ROADMAP Queue A 9)")
-    dev = resolve_device(device)
+    from repro_torch.core.distributed_coreset import rank_rows
+
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     YX = _stack_yx(cfg, Y, X)
     n = int(YX.shape[0])
     if n == 0:
         raise ValueError("cannot fit an empty dataset")
     w, _, chunk, microbatches, batch_size, norm = method_batch_plan(
-        method, n, weights, chunk_size, microbatches, batch_size)
+        method, n, weights, chunk_size, microbatches, batch_size, mesh)
     if init is None:
         init = init_cparams(cfg, generator=generator, device=dev)
     model = CMCTMDensityModel(cfg, scaler, norm=norm)
@@ -214,15 +217,20 @@ def fit_cmctm(
         model, init, batch, optimizer=default_fit_optimizer(lr, steps), steps=steps,
         method=method, microbatches=microbatches, batch_size=batch_size, history=history,
         gtol=gtol, checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
-        label=f"cmctm-{method}", device=dev,
+        label=f"cmctm-{method}", device=dev, mesh=mesh,
     )
     params = CMCTMParams(*(t.detach() for t in params))
+    lo0, hi0 = 0, n
+    if mesh is not None:  # this rank's rows of the scoring layout
+        lo0, hi0, chunk, _ = rank_rows(mesh, n, chunk)
     final = 0.0
     with torch.no_grad():
-        for lo in range(0, n, chunk):
-            c = {"YX": YXt[lo:lo + chunk]}
-            final += float(torch.sum(wt[lo:lo + chunk] * cnll_terms(
-                cfg, params, *model.features(c))))
+        for lo in range(lo0, hi0, chunk):
+            hi = min(lo + chunk, hi0)
+            c = {"YX": YXt[lo:hi]}
+            final += float(torch.sum(wt[lo:hi] * cnll_terms(cfg, params, *model.features(c))))
+    if mesh is not None:
+        final = float(mesh.fold_host(np.array([final]))[0])
     return M.FitResult(params=params, losses=losses, final_nll=final)
 
 

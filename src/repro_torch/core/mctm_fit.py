@@ -32,10 +32,25 @@ constants of the fit, so no backward kernel is needed).
   state stored in float32 between iterations, as the reference stores it.
 
 No path holds an (n, J, d) basis beyond one chunk otherwise.
+
+With ``mesh=`` (a ``repro_torch.distributed.DataMesh``) every mode runs data
+parallel, one rank per device: rows are padded to a multiple of
+microbatches × shards with zero weight and rank r takes the r-th contiguous
+slice of the padded batch (a minibatch step, the r-th slice of the batch
+every rank draws alike); each adam or minibatch step folds its loss and
+gradient once (``DataMesh.fold``: one gather, summed in rank order, so every
+rank applies the same update), and each lbfgs oracle sweep (value and
+gradient, value, HVP) folds once, after which the host's f64 two-loop and
+Armijo run identically on every rank. The supervisor takes the mesh
+(``RunSupervisor(mesh=)``), and a ``CheckpointManager(mesh=)`` writes from
+rank 0. At world 1 a fold is the identity: the fit is the single-device
+fit, bit for bit.
 ``mctm.fit_mctm(method="scipy-lbfgs")`` is the dense small-n oracle that
 lbfgs is tested against.
 
-``streamed_nll`` computes the total weighted NLL chunk by chunk;
+``streamed_nll`` computes the total weighted NLL chunk by chunk (with
+``mesh=``: each rank its rows of ``distributed_coreset.shard_layout``, one
+fold of the float64 totals);
 ``coreset_epsilon`` measures the realized ε̂ = max_θ |NLL_C(θ) − NLL(θ)| /
 |NLL(θ)| and ``likelihood_ratio`` the ratio checked against the (1±ε̂) band.
 
@@ -50,8 +65,6 @@ the LR backed off by ``optim.scale_updates`` after a non-finite one. Every
 step is a deterministic function of the state, so a resumed fit lands on the
 straight run's bits. A non-finite objective that repeats on every attempt
 (NaN data) ends in the supervisor's "retry budget exhausted" diagnostic.
-
-Not ported yet (``NotImplementedError``): meshes (ROADMAP Queue A 9).
 """
 from __future__ import annotations
 
@@ -64,6 +77,7 @@ import torch
 from repro_torch.core import mctm as M
 from repro_torch.core.scoring import DEFAULT_CHUNK, _mctm_featurize
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.distributed.mesh import DataMesh
 from repro_torch.ft import RunSupervisor
 from repro_torch.ft.config import get_ft_config
 from repro_torch.ft.failure import NonFiniteError
@@ -196,17 +210,30 @@ def batch_plan(n: int, weights, chunk_size: int | None, microbatches: int | None
     return w, float(w.sum()), chunk, microbatches
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the fit layer's mesh= is not ported yet (ROADMAP Queue A 9)")
+def _mesh_world(mesh) -> int:
+    """The shard count: the mesh's world (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, DataMesh):
+        raise TypeError(f"mesh must be a repro_torch.distributed.DataMesh, got {type(mesh)}")
+    return mesh.world
+
+
+def _rank_slice(batch: dict, mesh) -> dict:
+    """Rank r's contiguous 1/shards of a batch whose rows are a multiple of
+    the shard count (the whole batch without a mesh)."""
+    if mesh is None or mesh.world == 1:
+        return batch
+    size = int(batch["weights"].shape[0]) // mesh.world
+    lo = mesh.rank * size
+    return {k: v[lo:lo + size] for k, v in batch.items()}
 
 
 def resolve_batch_size(batch_size: int, microbatches: int = 1, mesh=None) -> int:
-    """Round a requested minibatch size UP to the microbatch multiple the
-    step geometry needs — sampled batches carry no padding, so the size
-    itself must already be divisible."""
-    _check_mesh(mesh)
-    mult = max(1, microbatches)
+    """Round a requested minibatch size UP to the (microbatches × shards)
+    multiple the step geometry needs — sampled batches carry no padding, so
+    the size itself must already be divisible."""
+    mult = max(1, microbatches) * _mesh_world(mesh)
     return -(-int(batch_size) // mult) * mult
 
 
@@ -221,7 +248,7 @@ def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
     batch_size-row draw with replacement makes E[Σ_sampled w·nll] =
     (batch_size/n)·Σ w·nll); ``batch_size`` is None but for minibatch."""
     _check_method(method)
-    _check_mesh(mesh)
+    _mesh_world(mesh)
     w, total_w, chunk, mb_full = batch_plan(n, weights, chunk_size, microbatches)
     if method == "minibatch":
         # clamp to n: past that, extra with-replacement draws only add cost
@@ -282,12 +309,12 @@ def fit_density_model(
     ``CMCTMParams``): its leaves are optimized in the order of its
     ``_fields`` (the order ``ravel_pytree`` flattens a NamedTuple in) and
     the result is of its own type. ``checkpoint``, ``ckpt_every``,
-    ``resume``: see the module doc. Returns ``(params, losses)`` with one
-    float per step of the final attempt."""
-    _check_mesh(mesh)
+    ``resume``, ``mesh``: see the module doc. Returns ``(params, losses)``
+    with one float per step of the final attempt."""
+    _mesh_world(mesh)
     if method == "lbfgs":
         return _fit_lbfgs(
-            model, params0, batch, steps=steps, microbatches=microbatches,
+            model, params0, batch, steps=steps, microbatches=microbatches, mesh=mesh,
             history=history, gtol=gtol, max_linesearch=max_linesearch,
             checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
             log_every=log_every, label=label, device=device,
@@ -298,7 +325,7 @@ def fit_density_model(
     dev = resolve_device(device)
     common = dict(optimizer=optimizer, steps=steps, microbatches=microbatches,
                   checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
-                  log_every=log_every, label=label, device=dev)
+                  log_every=log_every, label=label, device=dev, mesh=mesh)
     if method == "minibatch":
         if not batch_size:
             raise ValueError("method='minibatch' requires batch_size")
@@ -306,7 +333,8 @@ def fit_density_model(
                               sample_seed=sample_seed, sampling=sampling, **common)
     mb = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    mbatches = _microbatches(_pad_batch(batch, mb)[0], mb)
+    padded = _pad_batch(batch, mb * _mesh_world(mesh))[0]
+    mbatches = _microbatches(_rank_slice(padded, mesh), mb)
     # full batch: on the device once, the same microbatches every step
     return _train_state_loop(model, params0, lambda i: mbatches, **common)
 
@@ -325,11 +353,13 @@ def _train_state_loop(
     log_every: int = 0,
     label: str = "fit",
     device=None,
+    mesh=None,
 ):
     """The shared ``TrainState`` driver of the adam and minibatch modes:
     the step, resume, the loop and the supervisor, written once so the two
     first-order modes cannot drift. ``batch_fn(i)`` returns step i's
-    ``microbatches`` equal slices (dicts of tensors on ``device``).
+    ``microbatches`` equal slices (dicts of tensors on ``device``; this
+    rank's rows with a mesh, whose step folds its loss and gradient once).
 
     Supervised (``ft.RunSupervisor``): retryable failures — injected faults,
     non-finite losses or grads (``NonFiniteError`` → LR backoff through
@@ -356,6 +386,9 @@ def _train_state_loop(
                     gi = torch.autograd.grad(li, leaves)
                     loss = loss + li.detach()
                     grads = [a + g for a, g in zip(grads, gi)]
+            if mesh is not None:
+                loss, *grads = mesh.fold([loss, *grads])
+            if mb > 1:
                 grads = [g * scale for g in grads]
                 loss = loss * scale
             moments = {k: list(v) for k, v in state.opt_state.items()}
@@ -384,7 +417,7 @@ def _train_state_loop(
                           mgr=checkpoint, ckpt_every=ckpt_every, log_every=log_every,
                           label=label)
 
-    state, losses = RunSupervisor(label=label).run(attempt)
+    state, losses = RunSupervisor(label=label, mesh=mesh).run(attempt)
     out = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(0)
     return state.params, out
 
@@ -406,6 +439,7 @@ def _fit_minibatch(
     log_every: int = 0,
     label: str = "minibatch",
     device=None,
+    mesh=None,
 ):
     """Sampled-minibatch driver: each step draws ``batch_size`` weighted rows
     through ``data.pipeline.full_data_loader`` over the full index set
@@ -426,7 +460,7 @@ def _fit_minibatch(
     microbatches = max(1, microbatches)
     dev = device
     w = np.asarray(_host(batch["weights"]), np.float32)
-    b = resolve_batch_size(batch_size, microbatches)
+    b = resolve_batch_size(batch_size, microbatches, mesh)
     data = {k: np.asarray(_host(v)) for k, v in batch.items() if k != "weights"}
     sample_fn = full_data_loader(data, w, b, seed=sample_seed, sampling=sampling)
     ft = get_ft_config()
@@ -440,13 +474,14 @@ def _fit_minibatch(
         )
 
     def batch_fn(i):
-        drawn = {k: torch.as_tensor(v, device=dev) for k, v in sample_fn(i).items()}
+        drawn = _rank_slice(sample_fn(i), mesh)
+        drawn = {k: torch.as_tensor(v, device=dev) for k, v in drawn.items()}
         return _microbatches(drawn, microbatches)
 
     return _train_state_loop(model, params0, batch_fn, optimizer=optimizer, steps=steps,
                              microbatches=microbatches, checkpoint=checkpoint,
                              ckpt_every=ckpt_every, resume=resume, log_every=log_every,
-                             label=label, device=dev)
+                             label=label, device=dev, mesh=mesh)
 
 
 def _host(v):
@@ -458,7 +493,7 @@ def _host(v):
 # ---------------------------------------------------------------------------
 
 
-def make_streamed_oracles(model, microbatches: int):
+def make_streamed_oracles(model, microbatches: int, mesh=None):
     """``(value_and_grad, value, hvp)`` over a padded batch (tensors whose
     rows are a multiple of ``microbatches``); ``params`` and ``vec`` are
     sequences of tensors in the field order of ``model.leaf_type``.
@@ -471,7 +506,8 @@ def make_streamed_oracles(model, microbatches: int):
     reference's (``torch.func.jvp`` of ``torch.func.grad``), on features
     evaluated first: it tracks the reference's iterates more closely than
     reverse over reverse (final NLL 1.9e-6 against 7.1e-6 relative after
-    150 iterations at n = 1,000 on the CPU)."""
+    150 iterations at n = 1,000 on the CPU). With ``mesh`` the batch is the
+    rank's rows and each oracle folds its sums once."""
     microbatches = max(1, microbatches)
 
     def _leaves(params, grad: bool):
@@ -485,12 +521,15 @@ def make_streamed_oracles(model, microbatches: int):
             gi = torch.autograd.grad(li, leaves)
             loss = li.detach() if loss is None else loss + li.detach()
             grads = list(gi) if grads is None else [a + g for a, g in zip(grads, gi)]
+        if mesh is not None:
+            loss, *grads = mesh.fold([loss, *grads])
         return loss, grads
 
     def value(params, batch):
         with torch.no_grad():
             leaves = model.leaf_type(*_leaves(params, False))
-            return sum(model.loss_fn(leaves, mb) for mb in _microbatches(batch, microbatches))
+            total = sum(model.loss_fn(leaves, mb) for mb in _microbatches(batch, microbatches))
+        return total if mesh is None else mesh.fold([total])[0]
 
     def hvp(params, vec, batch):
         out = None
@@ -501,7 +540,7 @@ def make_streamed_oracles(model, microbatches: int):
                                    argnums=tuple(range(len(params))))
             _, hv = torch.func.jvp(grad, tuple(p.detach() for p in params), tuple(vec))
             out = list(hv) if out is None else [a + h for a, h in zip(out, hv)]
-        return out
+        return out if mesh is None else mesh.fold(out)
 
     return value_and_grad, value, hvp
 
@@ -568,6 +607,7 @@ def _fit_lbfgs(
     log_every: int = 0,
     label: str = "lbfgs",
     device=None,
+    mesh=None,
 ):
     """Streaming-HVP L-BFGS: quasi-Newton over the streamed oracles, the
     reference's ``_fit_lbfgs`` on one device.
@@ -587,8 +627,9 @@ def _fit_lbfgs(
     dev = resolve_device(device)
     microbatches = max(1, microbatches)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    batch, _, _ = _pad_batch(batch, microbatches)
-    value_and_grad, _, hvp = make_streamed_oracles(model, microbatches)
+    batch, _, _ = _pad_batch(batch, microbatches * _mesh_world(mesh))
+    batch = _rank_slice(batch, mesh)
+    value_and_grad, _, hvp = make_streamed_oracles(model, microbatches, mesh)
     fields = params0._fields
     shapes = [tuple(getattr(params0, f).shape) for f in fields]
     sizes = [int(np.prod(sh)) for sh in shapes]
@@ -694,7 +735,7 @@ def _fit_lbfgs(
         return train_loop(step_fn, state, lambda i: batch, steps, start=start, mgr=checkpoint,
                           ckpt_every=ckpt_every, log_every=log_every, label=label)
 
-    state, losses = RunSupervisor(label=label).run(attempt)
+    state, losses = RunSupervisor(label=label, mesh=mesh).run(attempt)
     LAST_LBFGS_SWEEPS.clear()
     LAST_LBFGS_SWEEPS.update(sweeps)
     return type(params0)(*unravel(state.flat)), np.asarray([float(x) for x in losses], np.float64)
@@ -724,6 +765,7 @@ def fit_mctm_streaming(
     ckpt_every: int = 0,
     resume: bool = False,
     log_every: int = 0,
+    mesh=None,
     device=None,
 ) -> M.FitResult:
     """Weighted maximum-likelihood MCTM fit (``weights`` None → unweighted),
@@ -734,10 +776,11 @@ def fit_mctm_streaming(
     at ``gtol``) or ``"minibatch"`` (``batch_size`` sampled weighted rows a
     step, drawn from ``sample_seed``; ``sampling="importance"`` for
     w-proportional draws with the 1/p correction). ``checkpoint`` /
-    ``ckpt_every`` / ``resume``: the fit layer's supervised checkpoints
-    (module doc)."""
+    ``ckpt_every`` / ``resume``: the fit layer's supervised checkpoints;
+    ``mesh``: data parallel over a ``DataMesh`` on its device (module
+    doc)."""
     _check_method(method)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     Y = np.asarray(Y, np.float32)
     n = int(Y.shape[0])
     if n == 0:
@@ -745,7 +788,7 @@ def fit_mctm_streaming(
     if init is None:
         init = M.init_params(cfg, generator=generator, device=dev)
     w, _, chunk, microbatches, batch_size, norm = method_batch_plan(
-        method, n, weights, chunk_size, microbatches, batch_size
+        method, n, weights, chunk_size, microbatches, batch_size, mesh
     )
     model = MCTMDensityModel(cfg, scaler, norm=norm, featurize=featurize)
     Yt = torch.as_tensor(Y, device=dev)
@@ -763,11 +806,11 @@ def fit_mctm_streaming(
         steps=steps, method=method, microbatches=microbatches, batch_size=batch_size,
         sample_seed=sample_seed, sampling=sampling, history=history, gtol=gtol,
         checkpoint=checkpoint, ckpt_every=ckpt_every, resume=resume,
-        log_every=log_every, label=f"mctm-{method}", device=dev,
+        log_every=log_every, label=f"mctm-{method}", device=dev, mesh=mesh,
     )
     final = streamed_nll(
         cfg, scaler, params, Y, weights=None if weights is None else w,
-        chunk=chunk, featurize=featurize, device=dev,
+        chunk=chunk, featurize=featurize, mesh=mesh, device=dev,
     )
     return M.FitResult(params=params, losses=losses, final_nll=float(final))
 
@@ -782,28 +825,42 @@ def streamed_nll(
     chunk: int | None = DEFAULT_CHUNK,
     featurize: Callable | None = None,
     eta: float | None = None,
+    mesh=None,
+    axis="data",
     device=None,
 ) -> float:
     """Total (weighted) NLL Σ w·nll(θ), streamed chunk by chunk (each
     chunk's f32 sum added to a float64 total). ``eta`` overrides the
-    Jacobian floor (``eta=1e-9``: strict evaluation)."""
-    dev = resolve_device(device)
+    Jacobian floor (``eta=1e-9``: strict evaluation). With ``mesh`` each
+    rank streams its rows of the scoring engine's layout
+    (``shard_layout``) and the totals fold once; every rank returns the
+    same float."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     cfg_eval = dataclasses.replace(cfg, eta=eta) if eta is not None else cfg
     feat = fit_featurize(cfg_eval, scaler, featurize)
-    Y = to_tensor(Y, torch.float32, dev)
-    n = int(Y.shape[0])
-    w = (
-        torch.ones(n, dtype=torch.float32, device=dev)
-        if weights is None
-        else to_tensor(weights, torch.float32, dev)
-    )
+    n = int(np.shape(Y)[0])
     c = int(chunk) if chunk else n
+    lo, hi = 0, n
+    if mesh is not None:
+        from repro_torch.core.distributed_coreset import rank_rows
+
+        lo, hi, c, _ = rank_rows(mesh, n, chunk, axis)
+    Y = to_tensor(Y[lo:hi] if isinstance(Y, torch.Tensor) else np.asarray(Y)[lo:hi],
+                  torch.float32, dev)
+    w = (
+        torch.ones(hi - lo, dtype=torch.float32, device=dev)
+        if weights is None
+        else to_tensor(weights[lo:hi] if isinstance(weights, torch.Tensor)
+                       else np.asarray(weights)[lo:hi], torch.float32, dev)
+    )
     total = 0.0
     with torch.no_grad():
-        for lo in range(0, n, c):
-            hi = min(lo + c, n)
-            A, Ap = feat(Y[lo:hi])
-            total += float(torch.sum(w[lo:hi] * M.nll_terms(cfg_eval, params, A, Ap)))
+        for a in range(0, hi - lo, c):
+            b = min(a + c, hi - lo)
+            A, Ap = feat(Y[a:b])
+            total += float(torch.sum(w[a:b] * M.nll_terms(cfg_eval, params, A, Ap)))
+    if mesh is not None:
+        total = float(mesh.fold_host(np.array([total]))[0])
     return total
 
 
@@ -824,17 +881,22 @@ def coreset_epsilon(
     chunk: int | None = DEFAULT_CHUNK,
     eta: float | None = None,
     full_nlls=None,
+    mesh=None,
+    axis="data",
     device=None,
 ) -> float:
     """Measured ε̂ = max_θ |Σ w·nll_C(θ) − NLL_full(θ)| / |NLL_full(θ)| over
-    ``params_list``; ``full_nlls`` may carry precomputed full-data NLLs."""
+    ``params_list``; ``full_nlls`` may carry precomputed full-data NLLs. The
+    full-data side streams on ``mesh`` when given, the (small) coreset side
+    on every rank alike."""
     if full_nlls is None:
         full_nlls = [None] * len(params_list)
     eps = 0.0
     for p, full in zip(params_list, full_nlls):
         if full is None:
-            full = streamed_nll(cfg, scaler, p, Y, chunk=chunk, eta=eta, device=device)
+            full = streamed_nll(cfg, scaler, p, Y, chunk=chunk, eta=eta, mesh=mesh, axis=axis,
+                                device=device)
         cs = streamed_nll(cfg, scaler, p, cs_Y, weights=cs_weights, chunk=chunk, eta=eta,
-                          device=device)
+                          device=device if mesh is None or device is not None else mesh.device)
         eps = max(eps, abs(cs - full) / max(abs(full), 1e-9))
     return float(eps)

@@ -85,6 +85,7 @@ __all__ = [
     "leverage_chunk",
     "hull_chunk_extremes",
     "projection_from_gram",
+    "gram_projection",
     "directions_from_moments",
     "finalize_scoring",
     "countsketch_add",
@@ -266,16 +267,25 @@ def sketch_plan(n: int, sketch_size: int, *, generator: torch.Generator | None =
 # --------------------------------------------------------------------------
 
 
-def projection_from_gram(G, method: str, ridge_reg: float, rcond: float = 1e-6, device=None):
-    """(V, inv) from a float64 host eigh of the (D, D) Gram, returned as f32
-    tensors on ``device`` (G's device when None)."""
+def gram_projection(G, *, ridge_reg: float = 0.0, rcond: float = 1e-6, device=None):
+    """Factor G into (V, inv) with u_i = Σ_m (X_i V)²_m · inv_m: ``ridge_reg
+    == 0`` gives the pseudo-inverse's leverage, ``ridge_reg > 0`` ridge
+    leverage u_i(λ) = X_i (G + λI)⁻¹ X_iᵀ through the same eigenbasis. The
+    reference's ``gram_projection``; its eigh runs on the host in float64
+    here (as the port's leverage eigh does), returned as f32 tensors on
+    ``device`` (G's device when None)."""
     dev = G.device if device is None and isinstance(G, torch.Tensor) else device
-    G = np.asarray(G.detach().cpu() if isinstance(G, torch.Tensor) else G, np.float64)
-    w, V = np.linalg.eigh(G)
-    reg = ridge_reg if method == "ridge-lss" else 0.0
-    inv = _spectrum_inverse(w, ridge_reg=reg, rcond=rcond)
+    w, V = np.linalg.eigh(np.asarray(_to_np(G), np.float64))
+    inv = _spectrum_inverse(w, ridge_reg=ridge_reg, rcond=rcond)
     f32 = dict(dtype=torch.float32, device=dev)
     return torch.as_tensor(V, **f32), torch.as_tensor(inv, **f32)
+
+
+def projection_from_gram(G, method: str, ridge_reg: float, rcond: float = 1e-6, device=None):
+    """(V, inv) of a scoring method from a float64 host eigh of the (D, D)
+    Gram (``gram_projection``; the ridge applies to ``ridge-lss`` only)."""
+    reg = ridge_reg if method == "ridge-lss" else 0.0
+    return gram_projection(G, ridge_reg=reg, rcond=rcond, device=device)
 
 
 def _to_np(x) -> np.ndarray:
@@ -695,10 +705,24 @@ class ScoringEngine:
         sweep restarts from its cursor and the result is bit-identical to
         the uninterrupted sweep's (module doc).
         """
-        if method not in SCORE_METHODS:
-            raise ValueError(f"unknown scoring method: {method}")
         Y = to_tensor(Y, torch.float32, self.device)
         n = int(Y.shape[0])
+        strat = self._strategy(method, n, generator, sketch_size, hull_k, hull_normals,
+                               hull_dirs, strategy, gram_dtype, plan)
+        sqrt_w = None
+        if weights is not None:
+            sqrt_w = torch.sqrt(to_tensor(weights, torch.float32, self.device))
+        chunk = self.chunk_size if self.chunk_size > 0 else n
+        return self._drive(
+            strat, generator, plan, Y, sqrt_w, n, chunk, method, ridge_reg, hull_k,
+            hull_normals, hull_dirs, sweep_ckpt=sweep_ckpt, resume=resume,
+        )
+
+    def _strategy(self, method, n, generator, sketch_size, hull_k, hull_normals, hull_dirs,
+                  strategy, gram_dtype, plan) -> PassStrategy:
+        """The checks of a ``score`` call; returns its pass strategy."""
+        if method not in SCORE_METHODS:
+            raise ValueError(f"unknown scoring method: {method}")
         if n == 0:
             raise ValueError("cannot score an empty dataset")
         if hull_k > 0 and hull_normals is None and hull_dirs is None and generator is None:
@@ -710,14 +734,7 @@ class ScoringEngine:
         )
         if strat.needs_key and plan is None and generator is None:
             raise ValueError("sketch_size > 0 requires generator or plan")
-        sqrt_w = None
-        if weights is not None:
-            sqrt_w = torch.sqrt(to_tensor(weights, torch.float32, self.device))
-        chunk = self.chunk_size if self.chunk_size > 0 else n
-        return self._drive(
-            strat, generator, plan, Y, sqrt_w, n, chunk, method, ridge_reg, hull_k,
-            hull_normals, hull_dirs, sweep_ckpt=sweep_ckpt, resume=resume,
-        )
+        return strat
 
     def _net(self, build, hull_normals, hull_dirs, generator):
         if hull_dirs is not None:
@@ -726,7 +743,8 @@ class ScoringEngine:
                                device=self.device)
 
     def _drive(self, strat, generator, plan_in, Y, sqrt_w, n, chunk, method, ridge_reg,
-               hull_k, hull_normals, hull_dirs, sweep_ckpt=None, resume=False) -> ScoringResult:
+               hull_k, hull_normals, hull_dirs, sweep_ckpt=None, resume=False,
+               shard=None) -> ScoringResult:
         """The shared chunk loop. Sweep 1 streams every chunk through
         ``strat.fused_update`` (one-pass: with the extremes against the
         upfront net). Two-pass strategies re-stream for leverage and the
@@ -738,14 +756,25 @@ class ScoringEngine:
         cursor covers. Only this path pays a shape-probing featurize of chunk
         0, keeps the z rows in one (n, width) buffer and reads the carry to
         the host at each save; the between-sweep algebra is recomputed from
-        the restored carry."""
+        the restored carry.
+
+        ``shard`` (a ``distributed_coreset._Shard``) runs the loop as one
+        rank of a mesh: ``Y`` holds the rank's rows, its chunk ``ranges``
+        (empty ones included, so every rank counts the same chunks) sit at
+        global row ``base``, the plans are drawn for the global n and
+        sliced by global row, the strategy state is folded once after sweep
+        1, and the extremes and the leverage are gathered at the end."""
         featurize = self.featurize
         dev = self.device
         r = self.rows_per_point
         want_hull = hull_k > 0
         want_P = want_hull or getattr(strat, "track_moments", False)
-        n_chunks = -(-n // chunk)
-        ranges = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+        if shard is None:
+            ranges = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+            base, n_all = 0, n
+        else:
+            ranges, base, n_all = shard.ranges, shard.base, shard.n
+        n_chunks = len(ranges)
 
         def _prep(lo, hi):
             Xc, Pc = featurize(Y[lo:hi])
@@ -765,8 +794,19 @@ class ScoringEngine:
                 cached["c"] = _prep(lo, hi)
             return cached["c"]
 
+        def shapes():
+            """(D, p) of the featurize: from the first chunk, or from the
+            mesh's probe row on a rank that holds no rows."""
+            rows = [rg for rg in ranges if rg[1] > rg[0]]
+            if rows:
+                Xc, Pc, _ = get_chunk(*rows[0])
+            else:
+                Xc, Pc = featurize(shard.probe)
+                Pc = Pc if want_P else None
+            return int(Xc.shape[1]), (int(Pc.shape[1]) if Pc is not None else None)
+
         def begin(D, p):
-            plan = strat.begin(n, D, generator, plan_in, dev)
+            plan = strat.begin(n_all, D, generator, plan_in, dev)
             state = strat.init_state(D, p, dev)
             dirs1 = ext = None
             if strat.one_pass and want_hull:
@@ -791,9 +831,7 @@ class ScoringEngine:
                 else:
                     ck.mgr0.save(0, {"gen": generator.get_state().numpy()})
             # fixed-shape payloads need (D, p) before the loop: probe chunk 0
-            Xc0, Pc0, _ = get_chunk(*ranges[0])
-            D = int(Xc0.shape[1])
-            p = int(Pc0.shape[1]) if Pc0 is not None else None
+            D, p = shapes()
             plan, state, dirs1, ext = begin(D, p)
             if strat.one_pass:
                 width = D if plan[2] is None else int(plan[2].shape[1])
@@ -819,24 +857,29 @@ class ScoringEngine:
         for ci, (lo, hi) in enumerate(ranges):
             if ci < done1:
                 continue
-            Xc, Pc, swc = get_chunk(lo, hi)
-            if state is None:
-                plan, state, dirs1, ext = begin(int(Xc.shape[1]),
-                                                int(Pc.shape[1]) if Pc is not None else None)
-            state, z, extb = strat.fused_update(
-                state, Xc, Pc, swc, strat.slice_plan(plan, lo, hi), dirs=dirs1
-            )
-            if z is not None:
-                if z_buf is not None:
-                    z_buf[lo:hi] = z
-                else:
-                    z_blocks.append(z)
-            if ext is not None:
-                ext.update(*extb, offset=lo * r)
+            if hi > lo:
+                Xc, Pc, swc = get_chunk(lo, hi)
+                if state is None:
+                    plan, state, dirs1, ext = begin(int(Xc.shape[1]),
+                                                    int(Pc.shape[1]) if Pc is not None else None)
+                state, z, extb = strat.fused_update(
+                    state, Xc, Pc, swc, strat.slice_plan(plan, base + lo, base + hi), dirs=dirs1
+                )
+                if z is not None:
+                    if z_buf is not None:
+                        z_buf[lo:hi] = z
+                    else:
+                        z_blocks.append(z)
+                if ext is not None:
+                    ext.update(*extb, offset=(base + lo) * r)
             if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
                 done1 = ci + 1
                 ck.mgr1.save(ci + 1, payload1())
             maybe_inject("scoring", ci + 1)
+        if state is None:  # a rank that holds no rows still takes the draws
+            plan, state, dirs1, ext = begin(*shapes())
+        if shard is not None:  # one collective: the per-rank partials, summed in rank order
+            state = tuple(shard.mesh.fold(state))
 
         # ---- between sweeps: (Jd)²-scale host algebra
         V, inv = projection_from_gram(strat.gram(state, plan), method, ridge_reg, device=dev)
@@ -845,15 +888,16 @@ class ScoringEngine:
         if strat.one_pass:
             if z_buf is not None:
                 # fresh chunk-sized blocks, as the plain path's, for its bits
-                z_blocks = [z_buf[lo:hi].clone() for lo, hi in ranges]
-            u = torch.cat([_z_leverage(z, V, inv) for z in z_blocks])
+                z_blocks = [z_buf[lo:hi].clone() for lo, hi in ranges if hi > lo]
+            u = (torch.cat([_z_leverage(z, V, inv) for z in z_blocks]) if z_blocks
+                 else torch.zeros(0, dtype=torch.float32, device=dev))
         else:
             # ---- sweep 2: leverage + directional extremes
             if want_hull:
                 s1, s2 = strat.moments(state)
                 dirs = self._net(
                     lambda **kw: directions_from_moments(
-                        s1, s2, n * r, hull_k, self.hull_oversample, **kw),
+                        s1, s2, n_all * r, hull_k, self.hull_oversample, **kw),
                     hull_normals, hull_dirs, generator,
                 )
                 ext = RunningExtremes(int(dirs.shape[0]))
@@ -876,23 +920,26 @@ class ScoringEngine:
             for ci, (lo, hi) in enumerate(ranges):
                 if ci < done2:
                     continue
-                Xc, Pc, swc = get_chunk(lo, hi)
-                u[lo:hi] = leverage_chunk(Xc, swc, V, inv)
-                if ext is not None:
-                    ext.update(*hull_chunk_extremes(Pc, dirs), offset=lo * r)
+                if hi > lo:
+                    Xc, Pc, swc = get_chunk(lo, hi)
+                    u[lo:hi] = leverage_chunk(Xc, swc, V, inv)
+                    if ext is not None:
+                        ext.update(*hull_chunk_extremes(Pc, dirs), offset=(base + lo) * r)
                 if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
                     done2 = ci + 1
                     ck.mgr2.save(ci + 1, payload2())
                 maybe_inject("scoring", n_chunks + ci + 1)
         if ext is not None:
-            hull_rows = ext.candidates()
+            hull_rows = ext.candidates() if shard is None else shard.hull_rows(ext)
+        if shard is not None:
+            u = shard.gather_u(u)
 
         moments = None
         if getattr(strat, "track_moments", False) and state[1] is not None:
-            moments = (_to_np(state[1]), _to_np(state[2]), n * r)
+            moments = (_to_np(state[1]), _to_np(state[2]), n_all * r)
         return finalize_scoring(
-            n, n_chunks, method, strat.result_gram(state, plan), u, hull_rows, r,
-            moments=moments,
+            n_all, n_chunks if shard is None else shard.n_chunks, method,
+            strat.result_gram(state, plan), u, hull_rows, r, moments=moments,
         )
 
 

@@ -45,9 +45,10 @@ attached, every pushed window is scored against the engine's live slot
 coreset=result(), generator=…, **refit_kwargs)``, one refit in flight, whose
 publish lands between serving ticks; the next window of the new version
 re-anchors the detector on the refit's recorded ``fit_nll_pp``. The refit's
-draws come from ``stage_generator(seed, REFIT_TAG, window)``. Not ported
-yet (they raise ``NotImplementedError``): meshes (``drift_mesh=``,
-``drift_window_nll(mesh=)``, ROADMAP Queue A 9).
+draws come from ``stage_generator(seed, REFIT_TAG, window)``. With
+``drift_mesh`` (a ``repro_torch.distributed.DataMesh``) each window's NLL
+streams on the mesh, one fold of (Σw·nll, Σw) a window
+(``drift_window_nll(mesh=)``).
 """
 from __future__ import annotations
 
@@ -249,33 +250,40 @@ def drift_window_nll(
 ) -> float:
     """Per-weighted-point NLL of one stream window under ``params``:
     Σw·nll / Σw, streamed chunk by chunk (featurize on the bernstein kernel;
-    each chunk's f32 (Σw·nll, Σw) added to float64 totals)."""
+    each chunk's f32 (Σw·nll, Σw) added to float64 totals). With ``mesh``
+    each rank streams its rows of the scoring layout and the (Σw·nll, Σw)
+    pair folds once a window."""
+    from repro_torch.core.distributed_coreset import rank_rows
     from repro_torch.core.mctm_fit import fit_featurize
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "drift_window_nll(mesh=) is not ported yet (ROADMAP Queue A 9)")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     feat = fit_featurize(cfg, scaler)
-    Y = to_tensor(np.asarray(Y, np.float32), torch.float32, dev)
+    Y = np.asarray(Y, np.float32)
     n = int(Y.shape[0])
     if n == 0:
         raise ValueError("cannot evaluate an empty window")
-    w = (torch.ones(n, dtype=torch.float32, device=dev) if weights is None
-         else to_tensor(np.asarray(weights, np.float32), torch.float32, dev))
+    w = np.ones(n, np.float32) if weights is None else np.asarray(weights, np.float32)
     c = int(chunk) if chunk else n
+    lo0, hi0 = 0, n
+    if mesh is not None:
+        lo0, hi0, c, _ = rank_rows(mesh, n, chunk)
+    Yt = to_tensor(Y[lo0:hi0], torch.float32, dev)
+    wt = to_tensor(w[lo0:hi0], torch.float32, dev)
     parts = []
     with torch.no_grad():
-        for lo in range(0, n, c):
-            hi = min(lo + c, n)
-            A, Ap = feat(Y[lo:hi])
-            parts.append(torch.stack([torch.sum(w[lo:hi] * M.nll_terms(cfg, params, A, Ap)),
-                                      torch.sum(w[lo:hi])]))
+        for lo in range(0, hi0 - lo0, c):
+            hi = min(lo + c, hi0 - lo0)
+            A, Ap = feat(Yt[lo:hi])
+            parts.append(torch.stack([torch.sum(wt[lo:hi] * M.nll_terms(cfg, params, A, Ap)),
+                                      torch.sum(wt[lo:hi])]))
     total = wsum = 0.0
-    for t, sw in torch.stack(parts).double().cpu().tolist():  # one read a window
-        total += t
-        wsum += sw
-    return total / max(wsum, 1e-9)
+    if parts:
+        for t, sw in torch.stack(parts).double().cpu().tolist():  # one read a window
+            total += t
+            wsum += sw
+    if mesh is not None:
+        total, wsum = mesh.fold_host(np.array([total, wsum]))
+    return float(total) / max(float(wsum), 1e-9)
 
 
 class DriftDetector:
@@ -421,9 +429,6 @@ class StreamingCoresetMaintainer:
             raise ValueError("sliding policy requires window >= 1")
         if policy == "decayed" and not (0.0 < decay < 1.0):
             raise ValueError("decayed policy requires 0 < decay < 1")
-        if drift_mesh is not None:
-            raise NotImplementedError(
-                "StreamingCoresetMaintainer(drift_mesh=) is not ported yet (ROADMAP Queue A 9)")
         self.cfg = cfg
         self.scaler = scaler
         self.k = int(k)
@@ -444,6 +449,7 @@ class StreamingCoresetMaintainer:
         self.auto_trigger = bool(auto_trigger)
         self.refit_kwargs = dict(refit_kwargs or {})
         self._drift_chunk = drift_chunk
+        self.drift_mesh = drift_mesh
         self.drift_log: list[dict] = []
         self.triggered = 0
         self._mgr = None
@@ -537,7 +543,9 @@ class StreamingCoresetMaintainer:
         eng = self.serve_engine
         slot = eng.current_slot()
         nll_pp = drift_window_nll(self.cfg, self.scaler, slot.params, chunk,
-                                  chunk=self._drift_chunk, device=self._engine.device)
+                                  chunk=self._drift_chunk, mesh=self.drift_mesh,
+                                  device=None if self.drift_mesh is not None
+                                  else self._engine.device)
         ref_hint = None
         for rec in reversed(eng.refit_log):
             if rec["version"] == slot.version:

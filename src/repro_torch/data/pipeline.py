@@ -22,8 +22,10 @@ Components:
 Random draws: torch cannot replay ``jax.random``, so ``select`` takes its
 draws as a ``plan`` (the uniform ids, the k1 sample ids, the CountSketch
 plan, the hull net's normals or the whole net); what the plan does not
-hold comes from the caller's ``torch.Generator``. Meshes (``mesh=``) are
-not ported yet (ROADMAP Queue A 9).
+hold comes from the caller's ``torch.Generator``. With ``mesh=`` (a
+``repro_torch.distributed.DataMesh``) the selection scores on the mesh
+(``core.distributed_coreset.DistributedScoringEngine``): each rank
+featurizes and scores only its rows, and every rank returns the same subset.
 """
 from __future__ import annotations
 
@@ -130,15 +132,13 @@ class CoresetSelector:
     ):
         if method not in ("l2-hull", "l2-only", "uniform"):
             raise ValueError(method)
-        if mesh is not None:
-            raise NotImplementedError(
-                "CoresetSelector(mesh=) is not ported yet (ROADMAP Queue A 9)")
         self.featurize = featurize
         self.alpha = alpha
         self.method = method
         self.chunk_size = chunk_size
         self.sketch_size = sketch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None and device is None else resolve_device(device)
         self._examples = None
 
         def _feat(Ic):
@@ -148,8 +148,14 @@ class CoresetSelector:
             F = to_tensor(self.featurize(rows), torch.float32, self.device)
             return F, F  # hull queries run on the feature rows themselves
 
-        self._engine = ScoringEngine(featurize=_feat, chunk_size=chunk_size, rows_per_point=1,
-                                     device=self.device)
+        if mesh is None:
+            self._engine = ScoringEngine(featurize=_feat, chunk_size=chunk_size,
+                                         rows_per_point=1, device=self.device)
+        else:
+            from repro_torch.core.distributed_coreset import DistributedScoringEngine
+
+            self._engine = DistributedScoringEngine(featurize=_feat, mesh=mesh, axis=axis,
+                                                    chunk_size=chunk_size, rows_per_point=1)
 
     def select(self, examples, k: int, *, generator: torch.Generator | None = None,
                plan: dict | None = None) -> WeightedSubset:

@@ -22,8 +22,12 @@ compute from a ``RunContext`` and runs it to completion. Contract:
     ``RuntimeError`` carrying the attempt history and, when a
     ``FailureSimulator`` is installed, its injection log.
 
-On one host the mesh is a numpy array of ``torch.device``s in the plan's
-shape; process groups come with ROADMAP Queue A 9.
+The mesh is the caller's: a ``repro_torch.distributed.DataMesh`` (a process
+group, one rank per device), which a ``remesh`` hook rebuilds for the new
+plan, or, without one, the plan's devices of this host in the plan's shape
+(``mesh_from_plan``). Every rank of a mesh runs its own supervisor; the
+injected faults, non-finite steps and checkpoints they recover from are
+deterministic, so the ranks retry in step.
 """
 from __future__ import annotations
 

@@ -1,9 +1,18 @@
-"""End-to-end driver of the paper's experiment on one device: DGP → coreset
+"""End-to-end driver of the paper's experiment on a data mesh: DGP → coreset
 → weighted MCTM fit → streamed full-data (1±ε) NLL validation. The port of
-``repro.launch.train_mctm``, single device (the mesh waits for ROADMAP
-Queue A 9).
+``repro.launch.train_mctm``.
 
 ``PYTHONPATH=src python -m repro_torch.launch.train_mctm --reduced``
+
+Every stage runs on ``launch.stages.data_mesh()``, as the JAX driver's do:
+the builds through ``distributed_build_coreset``, every fit and evaluator
+with ``mesh=``. A plain launch is a world of 1 (no process group; the same
+numbers as a single-device run). On a node, one rank per card over NCCL:
+``torchrun --nproc-per-node=G -m repro_torch.launch.train_mctm``.
+``--fake-devices N`` spawns N ranks on gloo from this process, on
+``--device`` (each rank on the CPU, or all sharing the one card): the
+counterpart of the JAX driver's re-exec onto N fake CPU devices. Rank 0
+prints and writes the record.
 
 Stages (every data-sized computation on the device):
   1. DGP sample (paper §E.1.1 generators) + full-data scaler.
@@ -11,7 +20,7 @@ Stages (every data-sized computation on the device):
      ``lbfgs`` as in the JAX driver: the paper's quasi-Newton full-data
      baseline, early-stopping at ``--gtol``; basis streamed microbatch by
      microbatch) and its strict-η full-data NLL.
-  3. Per k: ``build_coreset`` (``--strategy two-pass`` exact Gram, or
+  3. Per k: ``distributed_build_coreset`` (``--strategy two-pass`` exact Gram, or
      ``one-pass`` with ``--sketch-size``, 0 → 4·(Jd)²), the weighted coreset
      fit (``--fit-method``, adam by default; ``minibatch`` draws
      ``--batch-size`` rows a step), the full-data NLL at the
@@ -48,7 +57,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import mctm as M
 from repro_torch.core.bernstein import DataScaler
-from repro_torch.core.coreset import build_coreset
+from repro_torch.core.distributed_coreset import distributed_build_coreset
 from repro_torch.core.mctm_fit import (
     coreset_epsilon,
     fit_mctm_streaming,
@@ -56,9 +65,10 @@ from repro_torch.core.mctm_fit import (
     streamed_nll,
 )
 from repro_torch.data.dgp import generate
-from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import run_world
 from repro_torch.ft import ElasticPlanner, FailureSimulator, FTConfig, RunSupervisor
 from repro_torch.ft.config import get_ft_config
+from repro_torch.launch.stages import data_mesh
 
 
 def parse_args(argv=None):
@@ -96,6 +106,8 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--fake-devices", type=int, default=0, metavar="N",
+                    help="spawn N ranks on gloo, all on --device (a mesh without torchrun)")
     ap.add_argument("--out", default=None, help="also write the record here (JSON)")
     ap.add_argument("--inject-failures", nargs="?", const="scoring,fit,checkpoint",
                     default=None, metavar="PHASES",
@@ -120,8 +132,15 @@ def _seeded(*parts: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(np.random.SeedSequence(parts).generate_state(1)[0]))
 
 
-def run(args) -> dict:
-    dev = resolve_device(args.device)
+def run(args, mesh=None) -> dict:
+    """The experiment on ``mesh`` (None → ``data_mesh()``)."""
+    if mesh is None:
+        mesh = data_mesh(device=args.device)
+    dev = mesh.device
+
+    def say(msg: str) -> None:
+        if mesh.rank == 0:
+            print(msg, flush=True)
 
     def sync():
         if dev.type == "cuda":
@@ -131,7 +150,8 @@ def run(args) -> dict:
     if args.inject_failures:
         phases = [p.strip() for p in args.inject_failures.split(",") if p.strip()]
         if not args.ckpt_dir:
-            args.ckpt_dir = tempfile.mkdtemp(prefix="ft_ckpt_")
+            args.ckpt_dir = mesh.share(tempfile.mkdtemp(prefix="ft_ckpt_")
+                                       if mesh.rank == 0 else None)
         if not args.ckpt_every:
             args.ckpt_every = 20
         # several chunks so mid-scoring checkpoints exist to resume
@@ -148,14 +168,15 @@ def run(args) -> dict:
         ft_cfg.sweep_ckpt_every_chunks = 2
         # the build has no supervisor of its own: this one replays the sweep
         # from its latest checkpoint through resume=ctx.resume
-        sup = RunSupervisor(label="train_mctm",
-                            planner=ElasticPlanner(model_parallel=1, base_data_parallel=1),
-                            remesh=lambda plan: dev)
+        sup = RunSupervisor(label="train_mctm", mesh=mesh,
+                            planner=ElasticPlanner(model_parallel=1,
+                                                   base_data_parallel=mesh.world),
+                            devices_fn=lambda: mesh.world, remesh=lambda plan: mesh)
 
     def mgr(tag):
         if not args.ckpt_dir:
             return None
-        return CheckpointManager(os.path.join(args.ckpt_dir, tag), keep=2)
+        return CheckpointManager(os.path.join(args.ckpt_dir, tag), keep=2, mesh=mesh)
 
     ks = [int(k) for k in args.ks.split(",")]
     cfg = M.MCTMConfig(J=2, degree=args.degree)
@@ -164,9 +185,9 @@ def run(args) -> dict:
     if args.strategy == "one-pass" and sketch == 0:
         sketch = 4 * D * D
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[train_mctm] dgp={args.dgp} n={args.n} device={name} "
-          f"strategy={args.strategy} sketch={sketch} steps={args.steps} "
-          f"fit={args.fit_method} ref={args.ref_method}", flush=True)
+    say(f"[train_mctm] dgp={args.dgp} n={args.n} device={name} devices={mesh.world} "
+        f"backend={mesh.backend or 'none'} strategy={args.strategy} sketch={sketch} "
+        f"steps={args.steps} fit={args.fit_method} ref={args.ref_method}")
     Y = generate(args.dgp, args.n, seed=args.seed).astype(np.float32)
     scaler = DataScaler.fit(Y)
 
@@ -176,14 +197,13 @@ def run(args) -> dict:
         cfg, scaler, Y, steps=args.steps, lr=args.lr, generator=_seeded(args.seed, 0),
         method=args.ref_method, batch_size=args.batch_size, gtol=args.gtol,
         chunk_size=args.chunk, checkpoint=mgr("full"), ckpt_every=args.ckpt_every,
-        resume=args.resume, log_every=args.log_every, device=dev,
+        resume=args.resume, log_every=args.log_every, mesh=mesh,
     )
     sync()
     full_fit_s = time.perf_counter() - t0
     nll_full_at_full = streamed_nll(cfg, scaler, full.params, Y, chunk=args.chunk, eta=1e-9,
-                                    device=dev)
-    print(f"[train_mctm] full fit {full_fit_s:.2f}s  NLL/pt {nll_full_at_full / args.n:.4f}",
-          flush=True)
+                                    mesh=mesh)
+    say(f"[train_mctm] full fit {full_fit_s:.2f}s  NLL/pt {nll_full_at_full / args.n:.4f}")
 
     per_k = []
     for k in ks:
@@ -192,9 +212,9 @@ def run(args) -> dict:
         gen = _seeded(args.seed, 1, k)
 
         def build(ctx=None):
-            return build_coreset(
-                cfg, scaler, Y, k, "l2-hull", generator=gen, alpha=args.alpha,
-                sketch_size=sketch, chunk_size=args.chunk, device=dev,
+            return distributed_build_coreset(
+                cfg, scaler, Y, k, "l2-hull", mesh=mesh, generator=gen, alpha=args.alpha,
+                sketch_size=sketch, chunk_size=args.chunk,
                 sweep_ckpt=(os.path.join(args.ckpt_dir, f"build_k{k}")
                             if args.inject_failures else None),
                 resume=bool(ctx is not None and ctx.resume),
@@ -210,16 +230,16 @@ def run(args) -> dict:
             generator=_seeded(args.seed, 2, k), method=args.fit_method,
             batch_size=args.batch_size, gtol=args.gtol,
             chunk_size=args.chunk, checkpoint=mgr(f"k{k}"), ckpt_every=args.ckpt_every,
-            resume=args.resume, log_every=args.log_every, device=dev,
+            resume=args.resume, log_every=args.log_every, mesh=mesh,
         )
         sync()
         fit_s = time.perf_counter() - t0
         nll_full_at_cs = streamed_nll(cfg, scaler, fit.params, Y, chunk=args.chunk, eta=1e-9,
-                                      device=dev)
+                                      mesh=mesh)
         eps = coreset_epsilon(
             cfg, scaler, Y, Y[cs.indices], cs_w, [fit.params, full.params],
             chunk=args.chunk, eta=1e-9, full_nlls=[nll_full_at_cs, nll_full_at_full],
-            device=dev,
+            mesh=mesh,
         )
         ratio = likelihood_ratio(nll_full_at_cs, nll_full_at_full)
         lo = 1.0 - eps - args.opt_slack
@@ -238,9 +258,9 @@ def run(args) -> dict:
             "within_band": bool(within),
             "nll_full_at_cs_per_point": nll_full_at_cs / args.n,
         })
-        print(f"[train_mctm] k={k:6d}  build {build_s:6.3f}s fit {fit_s:6.3f}s  "
-              f"eps={eps:.4f}  ratio={ratio:.4f} in ({lo:.3f}, {hi:.3f}) "
-              f"{'OK' if within else 'VIOLATION'}  speedup {speedup:.1f}x", flush=True)
+        say(f"[train_mctm] k={k:6d}  build {build_s:6.3f}s fit {fit_s:6.3f}s  "
+            f"eps={eps:.4f}  ratio={ratio:.4f} in ({lo:.3f}, {hi:.3f}) "
+            f"{'OK' if within else 'VIOLATION'}  speedup {speedup:.1f}x")
 
     rec = {
         "dgp": args.dgp,
@@ -257,6 +277,8 @@ def run(args) -> dict:
         "strategy": args.strategy,
         "sketch_size": sketch,
         "device": name,
+        "devices": mesh.world,
+        "backend": mesh.backend,
         "smoke": bool(args.smoke),
         "reduced": bool(args.reduced),
         "opt_slack": args.opt_slack,
@@ -268,20 +290,36 @@ def run(args) -> dict:
     }
     if sim is not None:
         rec["ft"] = {"injected": list(sim.log), "supervisor_events": list(sup.events)}
-        print(f"[train_mctm] injected {len(sim.log)} failures ({args.inject_failures}); "
-              "all recovered", flush=True)
-    if args.out:
+        say(f"[train_mctm] injected {len(sim.log)} failures ({args.inject_failures}); "
+            "all recovered")
+    if args.out and mesh.rank == 0:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
-        print(f"[train_mctm] wrote {args.out}", flush=True)
+        say(f"[train_mctm] wrote {args.out}")
     return rec
+
+
+def _rank_run(mesh, args) -> dict:
+    return run(args, mesh)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     try:
-        rec = run(args)
+        if args.fake_devices > 1:
+            dev = torch.device(args.device or "cuda")
+            if dev.type == "cuda":
+                from repro_torch.kernels import _lib
+
+                _lib.lib()  # built here once; the ranks load it
+            if args.inject_failures and not args.ckpt_dir:
+                args.ckpt_dir = tempfile.mkdtemp(prefix="ft_ckpt_")
+            rec = run_world(_rank_run, args.fake_devices, backend="gloo",
+                            devices=[dev] * args.fake_devices, args=(args,),
+                            timeout_s=24 * 3600.0)[0]
+        else:
+            rec = run(args)
     finally:
         if args.inject_failures:
             cfg = get_ft_config()

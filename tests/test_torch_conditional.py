@@ -180,7 +180,9 @@ def test_build_conditional_coreset_exact_k_low_diversity_hull():
 
 
 def test_unported_fit_options_raise(cond_data, tmp_path):
-    """mesh= still waits for its ROADMAP item; minibatch is ported (a
+    """mesh= is ported (a world of 1 fits to the bits of no mesh; worlds
+    of 2 and 4 are held to the reference in tests/test_torch_mesh_fit.py);
+    minibatch is ported (a
     sampled fit runs its steps to a finite NLL; its parity with the
     reference is in tests/test_torch_minibatch.py); checkpoint= and resume=
     are ported: a fit that crashes at
@@ -191,8 +193,14 @@ def test_unported_fit_options_raise(cond_data, tmp_path):
 
     X, Y, _, _, tscaler = cond_data
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=1, device="cpu", mesh=object())
+    from repro_torch.distributed import DataMesh
+
+    init0 = TCo.init_cparams(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    on_mesh = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=2, init=init0,
+                            mesh=DataMesh(device="cpu"))
+    plain = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=2, init=init0, device="cpu")
+    np.testing.assert_array_equal(on_mesh.losses, plain.losses)
+    assert on_mesh.final_nll == plain.final_nll
     mini = TCo.fit_cmctm(tcfg, tscaler, Y[:50], X[:50], steps=3, method="minibatch",
                          batch_size=16, device="cpu",
                          init=TCo.init_cparams(tcfg, generator=torch.Generator().manual_seed(0),

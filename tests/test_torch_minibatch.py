@@ -74,8 +74,16 @@ def test_batch_size_and_plan_row_match_reference(data):
         ref = RF.method_batch_plan("minibatch", n, ww, chunk, mb, bs)
         assert got[1:5] == tuple(ref[1:5])
         assert got[5] == pytest.approx(ref[5], rel=1e-7)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        TF.resolve_batch_size(8, mesh=object())
+    # on a mesh the size rounds to microbatches × shards, as the reference's
+    # (which reads only the mesh's shape)
+    import types
+
+    from repro_torch.distributed import DataMesh
+
+    for shards, mb in ((2, 1), (4, 3)):
+        mesh = DataMesh(world=shards, group=object(), device="cpu")
+        assert TF.resolve_batch_size(1000, mb, mesh=mesh) == RF.resolve_batch_size(
+            1000, mb, mesh=types.SimpleNamespace(shape={"data": shards}))
     with pytest.raises(ValueError, match="batch_size"):
         TF.fit_density_model(TF.MCTMDensityModel(TM.MCTMConfig(J=2)), _port_params(
             RM.init_params(jax.random.PRNGKey(0), RM.MCTMConfig(J=2))),

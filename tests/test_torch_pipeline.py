@@ -193,7 +193,8 @@ def test_coreset_selector_matches_reference(D, method, sketch):
 
 def test_coreset_selector_draws_from_a_generator_and_takes_tensors():
     """Without a plan the draws come from the generator (reproducible);
-    tensor examples reach featurize as tensors; ``mesh=`` raises."""
+    tensor examples reach featurize as tensors; ``mesh=`` takes a world of 1
+    to the same subset (worlds of 2 and 4: tests/test_torch_distributed_coreset.py)."""
     tokens = _data()["tokens"]
     emb = torch.tensor(np.random.default_rng(5).normal(size=(VOCAB, 8)).astype(np.float32))
     seen = []
@@ -209,8 +210,13 @@ def test_coreset_selector_draws_from_a_generator_and_takes_tensors():
     np.testing.assert_array_equal(a.weights, b.weights)
     assert set(seen) == {torch.Tensor} and a.size == 100
     assert np.all(a.indices < N) and np.all(a.weights > 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        TP.CoresetSelector(featurize, mesh=object(), device="cpu")
+    from repro_torch.distributed import DataMesh
+
+    c = TP.CoresetSelector(featurize, sketch_size=SK, chunk_size=400,
+                           mesh=DataMesh(device="cpu")).select(
+        torch.tensor(tokens), 100, generator=torch.Generator().manual_seed(1))
+    np.testing.assert_array_equal(c.indices, a.indices)  # a world of 1: the same subset
+    np.testing.assert_array_equal(c.weights, a.weights)
     with pytest.raises(ValueError):
         TP.CoresetSelector(featurize, method="kmeans", device="cpu")
 

@@ -136,8 +136,10 @@ def test_policy_validation_and_unported_options():
     m = _maintainer(cfg, scaler, 32, 0, serve_engine=eng, detector=TSt.DriftDetector(),
                     refit_kwargs={"steps": 3})
     assert m.serve_engine is eng and m.auto_trigger and m.refit_kwargs == {"steps": 3}
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        _maintainer(cfg, scaler, 32, 0, drift_mesh=object())
+    from repro_torch.distributed import DataMesh
+
+    mesh = DataMesh(device="cpu")
+    assert _maintainer(cfg, scaler, 32, 0, drift_mesh=mesh).drift_mesh is mesh
 
 
 def test_sliding_evicts_and_decayed_matches_closed_form():
@@ -306,8 +308,12 @@ def test_drift_window_nll_matches_reference():
     shifted = TSt.drift_window_nll(cfg, scaler, tp, Y * 1.6 + 2 * Y.std(0), chunk=512,
                                    device="cpu")
     assert shifted > got
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        TSt.drift_window_nll(cfg, scaler, tp, Y, mesh=object(), device="cpu")
+    from repro_torch.distributed import DataMesh
+
+    # a world of 1: the same float as without a mesh (worlds of 2 and 4 are
+    # held to the reference's mesh in tests/test_torch_mesh_fit.py)
+    assert TSt.drift_window_nll(cfg, scaler, tp, Y, w, chunk=512,
+                                mesh=DataMesh(device="cpu")) == got
 
 
 def _drift_loop(maintainer, engine, windows):

@@ -41,6 +41,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.models import build_model, model_from_jax
     from repro_torch.data.pipeline import CoresetSelector
     from repro_torch.launch import serve_mctm
+    from repro_torch.distributed import DataMesh, run_world
+    from repro_torch.launch.stages import data_mesh
     from repro_torch.serve import DensityServeEngine, ServeEngine
 
     lm_cfg = get_reduced_config("tinyllama_1b")
@@ -88,6 +90,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: TF.streamed_nll(cfg, scaler, TM.init_params(cfg, device="cpu"), Y),
         lambda: TM.init_params(cfg),
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1"]),
+        lambda: DataMesh(),
+        lambda: data_mesh(),
+        lambda: run_world(print, 2, backend="gloo"),
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1",
                                  "--inject-failures"]),
         lambda: TF.fit_density_model(TF.MCTMDensityModel(cfg, scaler),
@@ -178,17 +183,19 @@ def _lm_cache_case(branch):
 def test_unported_parts_raise_not_implemented(what):
     """What the port does not carry raises NotImplementedError naming the
     ROADMAP item — never plain code on a detour around a kernel. The
-    maintainer's ``serve_engine=`` is ported now: its case checks that it
-    is taken."""
+    maintainer's ``serve_engine=`` and ``drift_mesh=`` and
+    ``drift_window_nll(mesh=)`` are ported now: their cases check that they
+    are taken."""
     from repro_torch import configs
     from repro_torch.core import mctm as TM
     from repro_torch.core import streaming as TSt
     from repro_torch.core.bernstein import DataScaler
     from repro_torch.models import build_model
 
-    if what == "streaming:serve_engine":
-        # ported (the drift → refit loop): the maintainer takes a serving
-        # engine, and only its mesh option still raises
+    if what.startswith("streaming:"):
+        # ported (the drift → refit loop, and its mesh): the maintainer takes
+        # a serving engine and a drift mesh, and drift_window_nll a mesh (a
+        # world of 1: the same float as without one)
         from repro_torch.core import mctm as TM
         from repro_torch.core import streaming as TSt
         from repro_torch.core.bernstein import DataScaler
@@ -200,10 +207,19 @@ def test_unported_parts_raise_not_implemented(what):
         eng = DensityServeEngine(cfg, TM.init_params(cfg, device="cpu"), scaler, device="cpu")
         m = TSt.StreamingCoresetMaintainer(cfg, scaler, 8, device="cpu", serve_engine=eng,
                                            detector=TSt.DriftDetector())
-        assert m.serve_engine is eng
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSt.StreamingCoresetMaintainer(cfg, scaler, 8, device="cpu", serve_engine=eng,
-                                           drift_mesh=object())
+        from repro_torch.distributed import DataMesh
+
+        mesh = DataMesh(device="cpu")
+        if what == "streaming:serve_engine":
+            assert m.serve_engine is eng
+        elif what == "streaming:drift_mesh":
+            m = TSt.StreamingCoresetMaintainer(cfg, scaler, 8, device="cpu", serve_engine=eng,
+                                               drift_mesh=mesh)
+            assert m.drift_mesh is mesh
+        else:
+            p = TM.init_params(cfg, device="cpu")
+            assert TSt.drift_window_nll(cfg, scaler, p, Y, mesh=mesh) == \
+                TSt.drift_window_nll(cfg, scaler, p, Y, device="cpu")
         return
     kind, arg = what.split(":")
     tiny = configs.get_reduced_config("tinyllama_1b")
@@ -211,19 +227,12 @@ def test_unported_parts_raise_not_implemented(what):
     Y = np.random.default_rng(0).normal(size=(20, 2)).astype(np.float32)
     scaler = DataScaler.fit(Y)
 
-    def streaming(arg):
-        if arg == "mesh":
-            return TSt.drift_window_nll(mcfg, scaler, TM.init_params(mcfg, device="cpu"), Y,
-                                        mesh=object(), device="cpu")
-        return TSt.StreamingCoresetMaintainer(mcfg, scaler, 8, device="cpu",
-                                              **{arg: object()})
     call = {
         "config": lambda: configs.get_config(arg),
         "reduced": lambda: configs.get_reduced_config(arg),
         "family": lambda: build_model(tiny.replace(family=arg), device="cpu"),
         "modality": lambda: build_model(tiny.replace(modality=arg), device="cpu"),
         "attention": lambda: _lm_cache_case(arg)(),
-        "streaming": lambda: streaming(arg),
     }[kind]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
