@@ -225,6 +225,7 @@ REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
               "bernstein_featurize_kernel": ("6", "15"), "extremes_score_kernel": ("7",),
               "extremes_fold_kernel": ("7", "0"), "extremes_wide_kernel": None,
+              "gram_large_kernel": None,
               "sweep_main_kernel": ("7",),
               "sweep_fold_kernel": ("7",)}
 
@@ -503,15 +504,16 @@ def phase_kernels(dev):
             errs.append(f"gram D={Dw} ran {prof['device_launches']} device kernels over {calls}")
         nbytes = 4 * (CHUNK * Dw + CHUNK + 2 * Dw * Dw)
         flops = CHUNK * (Dw + Dw * (Dw + 1))
-        # the tiled body's own arithmetic: three TF32 tensor-core products
-        # (lo·hi, hi·lo, hi·hi) for each product of the upper triangle
+        # the tiled body's own arithmetic, its bound: three TF32 tensor-core
+        # products (lo·hi, hi·lo, hi·hi) for each product of the upper
+        # triangle; the f32 FMA bound of the same Gram beside it
         b3, by3 = bound_ms(nbytes, 3 * CHUNK * Dw * (Dw + 1), H100_TF32_FLOPS)
         if J == WIDE_J[0]:
             row("gram_tiled", "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/kernel.py:30",
                 err, lambda: gram_matrix(Xw, sww, acc=Ga), lambda: gram_ref(Xw, sww, acc=Ga),
-                lambda: torch.mm(Xw.T, Xw), nbytes=nbytes, flops=flops)
+                lambda: torch.mm(Xw.T, Xw), nbytes=nbytes, flops=3 * CHUNK * Dw * (Dw + 1),
+                peak=H100_TF32_FLOPS)
             r = rows_all[-1]
-            r["bound_tf32x3_ms"] = b3
             t = {k: r[k] for k in ("ms", "library_ms", "device_ms", "library_device_ms")}
             t["device_ratio"] = r["device_ms"] / r["library_device_ms"]
             t["turns_device_ms"] = r["turns_device_ms"]
@@ -636,18 +638,20 @@ def phase_kernels(dev):
 
 # the wide extremes body (d > 16): the J = 10 and J = 20 feature chunks (the
 # hull queries data/pipeline.py's CoresetSelector runs on feature rows) with
-# the path's 1,614 directions, and d = 1,024 with 128 directions
-WIDE_EXTREMES = ((70, 1614), (140, 1614), (1024, 128))
+# the path's 1,614 directions, d = 1,024 with 128 directions, and the greedy
+# hull walk's one direction at d = 70
+WIDE_EXTREMES = ((70, 1614), (140, 1614), (1024, 128), (70, 1))
 
 
 def phase_wide_extremes(dev):
     """The extremes kernel's wide body beside phase 2 (profiler windows
     after phase 4 drop records): each case held to its plain version to the
     bit (whole, ragged validity, repeated), timed in turns with ``dirs @
-    P.T`` + ``max``/``min``; then its own path, the hull API on the J = 10
-    feature rows (ε-kernel k = 400 and a 64-step greedy projection), counted
-    and held to the plain version. Returns (the ``extremes_wide`` row of the
-    kernels line, records)."""
+    P.T`` + ``max``/``min``, its tile plan recorded; then its own path, the
+    hull API on the J = 10 feature rows (ε-kernel k = 400 and a 64-step
+    greedy projection), counted and held to the plain version. Returns (the
+    ``extremes_wide`` row of the kernels line, from the first case;
+    records)."""
     import torch
 
     from repro_torch.core import hull as H
@@ -660,6 +664,7 @@ def phase_wide_extremes(dev):
     feats = {70: featurized_chunk(dev, 10)[0].contiguous(),
              140: featurized_chunk(dev, 20)[0].contiguous(),
              1024: torch.randn((CHUNK, 1024), generator=gen).to(dev)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rec, row = {}, None
     for d, m in WIDE_EXTREMES:
         P = feats[d]
@@ -688,7 +693,7 @@ def phase_wide_extremes(dev):
         nbytes, flops = 4 * (P.numel() + dirs.numel() + 4 * m), 2 * m * CHUNK * d
         kernel = lambda P=P, dirs=dirs: directional_extremes(P, dirs)  # noqa: E731
         plain = lambda P=P, dirs=dirs: directional_extremes_ref(P, dirs)  # noqa: E731
-        if d == 70:
+        if (d, m) == WIDE_EXTREMES[0]:
             row = kernel_row("extremes_wide", "src/repro_torch/csrc/extremes.cu",
                              "src/repro/kernels/extremes/kernel.py:66", err, kernel, plain,
                              library, nbytes=nbytes, flops=flops)
@@ -701,9 +706,10 @@ def phase_wide_extremes(dev):
             t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
             t["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
         t["same_bits"] = bits
+        t["plan"] = ext.wide_launch_plan(CHUNK, m, sms)._asdict()
         rec[f"d{d}_m{m}"] = t
-        log(f"  extremes wide body d={d} ({CHUNK:,} rows, {m:,} directions): bit-identical "
-            f"{bits}; device {t['device_ms']:.5f} ms vs dirs @ P.T + max/min "
+        log(f"  extremes wide body d={d} ({CHUNK:,} rows, {m:,} directions, plan {t['plan']}): "
+            f"bit-identical {bits}; device {t['device_ms']:.5f} ms vs dirs @ P.T + max/min "
             f"{t['library_device_ms']:.5f} ms (in turns {[round(x, 5) for x in t['turns_device_ms']]}); "
             f"events {t['ms']:.5f} vs {t['library_ms']:.5f} ms; plain {t['plain_ms']:.3f} ms; "
             f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), {t['bound_ms'] / t['device_ms']:.3f} "
@@ -2622,15 +2628,50 @@ def phase_kernels_wide_d(dev):
                     f"{torch.equal(G, again)}")
     if gram.PATH_LAUNCHES["large"] - large0 != 2:
         errs.append("gram D=2048 did not take the large body")
+    # its bound: its own instructions, three TF32 tensor-core products of
+    # the upper triangle; the f32 FMA bound of the same Gram beside it
+    nbytes = 4 * (n * D + n + 2 * D * D)
     r = kernel_row("gram_large", "src/repro_torch/csrc/gram.cu",
                    "src/repro/kernels/gram/kernel.py:30", err,
                    lambda: gram.gram_matrix(X, sw, acc=acc), lambda: gram_ref(X, sw, acc=acc),
-                   lambda: torch.mm(X.T, X),
-                   nbytes=4 * (n * D + n + 2 * D * D), flops=n * (D + D * (D + 1)))
+                   lambda: torch.mm(X.T, X), nbytes=nbytes, flops=3 * n * D * (D + 1),
+                   peak=H100_TF32_FLOPS)
     r["device_kernels_per_call"] = kernels_per_call(lambda: gram.gram_matrix(X, sw, acc=acc),
                                                     errs, "gram large body", 2, calls=5)
-    r["splits"] = gram.large_plan(n, D)[1]
     rows.append(r)
+    # the kernels line carries the TF32×3 bound alone; the f32 FMA bound and
+    # the plan stay in the phase's record
+    rec["gram_D2048"] = {"bound_tf32x3_ms": r["bound_ms"], "splits": gram.large_plan(n, D)[1],
+                         "fma_bound_ms": bound_ms(nbytes, n * (D + D * (D + 1)))[0]}
+    # the Gram of the rows [P, 1] (D 2,049: the wrapper pads it with zero
+    # columns to the kernel's D 2,052), alone and as the wide-P route's
+    # moments (_gram_moments), each in turns with torch.mm of its rows
+    ones = torch.ones(n, 1, device=dev)
+    X1 = torch.cat([X, ones], 1)
+    Xp = torch.cat([X1, torch.zeros(n, 3, device=dev)], 1)
+    s1, s2 = torch.zeros(D, device=dev), torch.zeros(D, D, device=dev)
+    G1 = gram.gram_matrix(X1)
+    mom = scoring._gram_moments(s1, s2, X)
+    G1r = gram_ref(X1.double())
+    torch.cuda.synchronize()
+    err1 = max_err(G1, G1r)
+    mom_err = max(max_err(mom[0], G1r[:D, D]), max_err(mom[1], G1r[:D, :D]))
+    if (err1 > 1e-5 * float(G1r.abs().max()) or not torch.equal(G1, gram.gram_matrix(X1))
+            or mom_err > 1e-5 * float(G1r.abs().max())):
+        errs.append(f"gram of [P, 1]: err {err1}, moments err {mom_err}")
+    for tag, call, Xl in (("gram_D2049", lambda: gram.gram_matrix(X1), X1),
+                          ("gram_moments_D2052", lambda: scoring._gram_moments(s1, s2, X), Xp)):
+        t = in_turns(call, lambda Xl=Xl: torch.mm(Xl.T, Xl))
+        Dl = Xl.shape[1]
+        t["bound_ms"], t["bound_by"] = bound_ms(4 * (n * Dl + 2 * Dl * Dl), 3 * n * Dl * (Dl + 1),
+                                                H100_TF32_FLOPS)
+        t["fma_bound_ms"] = bound_ms(4 * (n * Dl + 2 * Dl * Dl), n * Dl * (Dl + 1))[0]
+        t["max_abs_err"] = err1 if Dl == D + 1 else mom_err
+        rec[tag] = t
+        log(f"  {tag}: device {t['device_ms']:.5f} ms vs torch.mm {t['library_device_ms']:.5f} ms "
+            f"(in turns {[round(x, 5) for x in t['turns_device_ms']]}); events {t['ms']:.5f} vs "
+            f"{t['library_ms']:.5f} ms; TF32x3 bound {t['bound_ms']:.5f} ms, f32 FMA bound "
+            f"{t['fma_bound_ms']:.5f} ms")
     rec["gram D=161"] = {"err_rel": max_err(gram.gram_matrix(X[:, :161].contiguous()),
                                             gram_ref(X[:, :161].double())) / scale}
     # ---- the sweep at D = 2,048: the one-pass selector's chunk (no P rows)
@@ -2662,7 +2703,6 @@ def phase_kernels_wide_d(dev):
     # with the hull and the moments
     k2 = SELECT_K - int(SELECT_ALPHA * SELECT_K)
     dirs = torch.as_tensor(upfront_directions(D, k2, generator=gen), device=dev)
-    s1, s2 = torch.zeros(D, device=dev), torch.zeros(D, D, device=dev)
 
     def route():
         return scoring._sweep_update(SX0, X, X, sw, rws, sgn, dirs=dirs, moments=(s1, s2))
@@ -2701,7 +2741,15 @@ def phase_kernels_wide_d(dev):
         lambda: ext.directional_extremes(X, dirs))]
     rec["wide_p_route"]["extremes_in_turns"] = {
         "ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
-        "turns_ms": turns, "ratio": (turns[0] + turns[3]) / (turns[1] + turns[2])}
+        "turns_ms": turns, "ratio": (turns[0] + turns[3]) / (turns[1] + turns[2]),
+        "plan": ext.wide_launch_plan(n, m, torch.cuda.get_device_properties(dev)
+                                     .multi_processor_count)._asdict(),
+        "bound_ms": bound_ms(4 * (n * D + m * D + 4 * m), 2 * m * n * D)[0]}
+    # the route's time by kernel: the sweep (its row above, the same call),
+    # the extremes (events, above) and the moments' Gram (device, above)
+    rec["wide_p_route"]["split_ms"] = {
+        "sweep": rows[-1]["device_ms"], "extremes": rec["wide_p_route"]["extremes_in_turns"]["ms"],
+        "gram_moments": rec["gram_moments_D2052"]["device_ms"]}
     log(f"  the wide-P route at d = {D} ({m:,} directions): {json.dumps(rec['wide_p_route'])}")
     if errs:
         fail("phase 9 kernels: " + "; ".join(errs))

@@ -61,7 +61,8 @@ _MODULES = {
         "sensitivity_sample",
     ),
     "streaming": (
-        "DriftDetector", "MergeReduceCoreset", "StreamingCoresetMaintainer",
+        "DriftDetector", "MergeReduceCoreset", "StreamingCoresetMaintainer", "WeightedSet",
+        "drift_window_nll",
     ),
 }
 _EXPORTS = {name: mod for mod, names in _MODULES.items() for name in names}

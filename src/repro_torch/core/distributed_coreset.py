@@ -306,11 +306,14 @@ class DistributedScoringEngine:
         plan=None,
         sweep_ckpt=None,
         resume: bool = False,
+        n_valid: int | None = None,
     ) -> ScoringResult:
         """Score all n points on the mesh: ``ScoringEngine.score``'s
         arguments and result, the same on every rank. ``Y`` is the whole
         input (each rank takes its rows) or this rank's ``StagedRows``;
-        ``weights`` are the n points' weights. ``sweep_ckpt``/``resume``:
+        ``weights`` are the n points' weights. ``n_valid``, the reference's
+        true row count of a staged input, must be the n that ``Y`` carries
+        (the staged rows hold no padding). ``sweep_ckpt``/``resume``:
         resumable sweeps, per rank (module doc)."""
         eng = self._engine
         dev = self.mesh.device
@@ -324,6 +327,8 @@ class DistributedScoringEngine:
             lo, hi, chunk, cps = self._rows(n)
             Y_loc = to_tensor(Y[lo:hi], torch.float32, dev)
             probe = to_tensor(Y[:1], torch.float32, dev)
+        if n_valid is not None and int(n_valid) != n:
+            raise ValueError(f"n_valid={n_valid} but the input carries {n} rows")
         strat = eng._strategy(method, n, generator, sketch_size, hull_k, hull_normals,
                               hull_dirs, strategy, gram_dtype, plan)
         if not isinstance(strat, TwoPassExact) and getattr(strat, "gram_dtype", "") == "float64":

@@ -185,6 +185,7 @@ def fit_mctm(
     steps: int = 1500,
     lr: float = 5e-2,
     method: str = "adam",
+    mesh=None,
     chunk_size: int | None = None,
     microbatches: int | None = None,
     batch_size: int | None = None,
@@ -199,8 +200,10 @@ def fit_mctm(
     ``"minibatch"`` (``batch_size`` sampled rows a step) dispatches to
     ``mctm_fit.fit_mctm_streaming``; ``"scipy-lbfgs"`` is the dense small-n oracle kept for
     tests (scipy's L-BFGS-B on the flat float64 vector, featurizing inside
-    the objective). ``checkpoint`` / ``ckpt_every`` / ``resume`` pass to the
-    fit layer (``mctm_fit``)."""
+    the objective). ``mesh`` (a ``DataMesh``: each rank fits on its rows, one
+    fold a step), ``checkpoint`` / ``ckpt_every`` / ``resume`` pass to the
+    fit layer (``mctm_fit``); the ``scipy-lbfgs`` oracle ignores ``mesh``, as
+    the reference's does."""
     from repro_torch.core import mctm_fit
     from repro_torch.core.scoring import DEFAULT_CHUNK
 
@@ -211,7 +214,7 @@ def fit_mctm(
             method=method,
             chunk_size=DEFAULT_CHUNK if chunk_size is None else chunk_size,
             microbatches=microbatches, batch_size=batch_size, checkpoint=checkpoint,
-            ckpt_every=ckpt_every, resume=resume, device=device,
+            ckpt_every=ckpt_every, resume=resume, mesh=mesh, device=device,
         )
     if method != "scipy-lbfgs":
         raise ValueError(f"unknown fit method: {method}")

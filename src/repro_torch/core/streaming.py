@@ -48,7 +48,8 @@ re-anchors the detector on the refit's recorded ``fit_nll_pp``. The refit's
 draws come from ``stage_generator(seed, REFIT_TAG, window)``. With
 ``drift_mesh`` (a ``repro_torch.distributed.DataMesh``) each window's NLL
 streams on the mesh, one fold of (Σw·nll, Σw) a window
-(``drift_window_nll(mesh=)``).
+(``drift_window_nll(mesh=)``); ``drift_axis`` names its data axes, checked
+against the mesh's as every ``axis=`` is.
 """
 from __future__ import annotations
 
@@ -246,13 +247,16 @@ def drift_window_nll(
     *,
     chunk: int | None = DEFAULT_CHUNK,
     mesh=None,
+    axis=None,
     device=None,
 ) -> float:
     """Per-weighted-point NLL of one stream window under ``params``:
     Σw·nll / Σw, streamed chunk by chunk (featurize on the bernstein kernel;
     each chunk's f32 (Σw·nll, Σw) added to float64 totals). With ``mesh``
     each rank streams its rows of the scoring layout and the (Σw·nll, Σw)
-    pair folds once a window."""
+    pair folds once a window; ``axis`` must then be the mesh's data axes
+    (``DataMesh.check_axis``; None: the mesh's own). Without a mesh
+    ``axis`` is not read, as in the reference."""
     from repro_torch.core.distributed_coreset import rank_rows
     from repro_torch.core.mctm_fit import fit_featurize
 
@@ -266,7 +270,7 @@ def drift_window_nll(
     c = int(chunk) if chunk else n
     lo0, hi0 = 0, n
     if mesh is not None:
-        lo0, hi0, c, _ = rank_rows(mesh, n, chunk)
+        lo0, hi0, c, _ = rank_rows(mesh, n, chunk, axis=axis)
     Yt = to_tensor(Y[lo0:hi0], torch.float32, dev)
     wt = to_tensor(w[lo0:hi0], torch.float32, dev)
     parts = []
@@ -418,6 +422,7 @@ class StreamingCoresetMaintainer:
         refit_kwargs: dict | None = None,
         drift_chunk: int | None = DEFAULT_CHUNK,
         drift_mesh=None,
+        drift_axis=None,
         ckpt_dir: str | None = None,
         plan_hook: Callable | None = None,
         device=None,
@@ -450,6 +455,9 @@ class StreamingCoresetMaintainer:
         self.refit_kwargs = dict(refit_kwargs or {})
         self._drift_chunk = drift_chunk
         self.drift_mesh = drift_mesh
+        self.drift_axis = drift_axis
+        if drift_mesh is not None and drift_axis is not None:
+            drift_mesh.check_axis(drift_axis)
         self.drift_log: list[dict] = []
         self.triggered = 0
         self._mgr = None
@@ -544,6 +552,7 @@ class StreamingCoresetMaintainer:
         slot = eng.current_slot()
         nll_pp = drift_window_nll(self.cfg, self.scaler, slot.params, chunk,
                                   chunk=self._drift_chunk, mesh=self.drift_mesh,
+                                  axis=self.drift_axis,
                                   device=None if self.drift_mesh is not None
                                   else self._engine.device)
         ref_hint = None

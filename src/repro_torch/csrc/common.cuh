@@ -58,6 +58,21 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Asynchronous copies global → shared of 16, 8 and 4 bytes (the cp.async
+// rings of gram.cu and extremes.cu); both addresses aligned to the size.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 // Largest P-row width (Bernstein degree + 1) the templated kernels take.
 #define REPRO_MAX_DP 16
 
@@ -284,19 +299,20 @@ __device__ __forceinline__ bool beats_min(float v, int i, float bv, int bi) {
 }
 
 // A fold CTA (kExtFoldWarps warps) for directions dir0 + lane, lane < 32,
-// over nblk partials [b·m + dir] of a score launch over P (rows × DP; DP = 0:
-// rows × dp, the wide body's runtime width). Warp w reads blocks w, w + 16,
-// ... (each read covers 32 consecutive directions: coalesced); warp 0 folds
-// the warps' results; then warp w rescans the winning tiles of directions
-// 2w and 2w + 1, lanes 0–15 the max's tile and lanes 16–31 the min's, a row
-// a lane. smem: 4·16·32 words.
+// over nblk partials [b·m + dir] of a score launch over P (rows × DP). Warp
+// w reads blocks w, w + 16, ... (each read covers 32 consecutive
+// directions: coalesced); warp 0 folds the warps' results; then warp w
+// rescans the winning tiles of directions 2w and 2w + 1, lanes 0–15 the
+// max's tile and lanes 16–31 the min's, a row a lane. DP = 0 (the wide
+// body, whose partials hold the exact row): warp 0 writes its fold, no
+// rescan. smem: 4·16·32 words.
 template <int DP>
 __device__ __forceinline__ void extremes_fold_cta(
     const float* __restrict__ pvmax, const int* __restrict__ pimax,
     const float* __restrict__ pvmin, const int* __restrict__ pimin, int nblk, int m, int dir0,
     const float* __restrict__ P, int rows, const float* __restrict__ dirs,
     float* __restrict__ smem, float* __restrict__ vmax, int* __restrict__ imax,
-    float* __restrict__ vmin, int* __restrict__ imin, int dp = DP) {
+    float* __restrict__ vmin, int* __restrict__ imin) {
   constexpr int kNone = 0x7fffffff;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float bx = -CUDART_INF_F, bn = CUDART_INF_F;
@@ -348,6 +364,15 @@ __device__ __forceinline__ void extremes_fold_cta(
       }
     }
   }
+  if constexpr (DP == 0) {  // the wide body's partials name the exact row: no rescan
+    if (warp == 0 && dir0 + lane < m) {
+      vmax[dir0 + lane] = bx;
+      imax[dir0 + lane] = jx == kNone ? 0 : jx;
+      vmin[dir0 + lane] = bn;
+      imin[dir0 + lane] = jn == kNone ? 0 : jn;
+    }
+    return;
+  }
   __syncthreads();  // warp 0's results replace row 0 of the tables
   if (warp == 0) {
     sx[lane] = bx;
@@ -375,11 +400,6 @@ __device__ __forceinline__ void extremes_fold_cta(
           p[k] = P[(long long)row * DP + k];
         }
         s = dir_score<DP>(dv, p);
-      } else {  // dir_score's chain at the runtime width
-        const float* dd = dirs + (long long)dir * dp;
-        const float* pp = P + (long long)row * dp;
-        s = dd[0] * pp[0];
-        for (int k = 1; k < dp; ++k) s = fmaf(dd[k], pp[k], s);
       }
       hit = s == v;
     }

@@ -75,23 +75,35 @@
 //
 // For D > 160 (any D: feature rows of a generic featurize, such as a
 // 2,048-wide mean-pooled embedding) the large body takes the call, in two
-// launches. Bound: f32 FMA work, n·D(D+1)/2 multiply-adds over the upper
-// triangle (70 GFLOP at n = 16,384, D = 2,048: 1.0 ms at 67 TFLOP/s); the
-// body is simple and untuned.
+// launches. Its instructions: three TF32 products over the upper triangle,
+// 2·3·n·D(D+1)/2 flops (206 GFLOP at n = 16,384, D = 2,048: 0.42 ms at
+// 495 TFLOP/s; the f32 FMA bound of the same Gram is 1.0 ms at 67 TFLOP/s).
 //
-//  - G's upper triangle is cut into 64×64 tiles (bi ≤ bj), nb(nb+1)/2 of
-//    them over blockIdx.x, and the rows into `splits` contiguous spans over
-//    blockIdx.y (ops.py:large_plan, a pure function of n and D: enough
-//    CTAs for two an SM, at least kLargeMinRows rows a span).
-//  - A CTA of 256 threads stages 32 rows of its tile's two 64-column blocks
-//    (√w applied as a value lands; past D or the span, zeros), and each
-//    thread sums a 4×4 block of the tile (rows ty + 16i, columns tx + 16j)
-//    in f32 FMAs over the stage, then adds the stage's sum into compensated
-//    (Kahan) sums. It stores the (sum, compensation) pair of every entry of
-//    its tile to its split's row of the scratch (torch.empty in ops.py).
-//  - A fold launch sums each upper entry over the splits in split order,
-//    compensated, adds acc last and writes both triangles. No float
-//    atomics: every sum is taken in the same order on every call.
+//  - Tensor cores at f32 accuracy, as in the tiled body: each √w·x split
+//    into hi + lo (split_tf32), each mma.sync m16n8k8 tile summing lo·hi +
+//    hi·lo + hi·hi.
+//  - G's upper triangle in 128 × 128 tiles (bi ≤ bj), nb(nb+1)/2 of them
+//    over blockIdx.x, and the rows in `splits` contiguous spans over
+//    blockIdx.y (ops.py:large_plan, a pure function of n and D that sizes
+//    the spans for whole waves of CTAs). A CTA of 16 warps takes a tile,
+//    each warp 32 × 32 of it (2 × 4 mma tiles, issued product by product so
+//    8 independent mma separate two into one accumulator); on a diagonal
+//    tile the six warps wholly below the diagonal do nothing, and one side
+//    is staged.
+//  - A 4-deep cp.async ring of 32-row stages of the tile's two 128-column
+//    sides, 16 bytes a copy (D % 4 == 0: ops.py pads X with zero columns
+//    otherwise, as 4-byte copies would take the body ~1.6× as long), rows
+//    padded to a stride ≡ 8 (mod 32) words so the fragment loads hit 32
+//    banks; √w rides with them and scales a value as it is split.
+//  - Fixed-order sums, no float atomics: the mma sums a stage in its
+//    accumulators (its f32 accumulation is not rounded to nearest, so it
+//    sums no more); each stage sum goes into a compensated (Kahan) pair per
+//    entry, the sum in registers and the compensation in shared memory (so
+//    one CTA an SM), which the CTA stores once to its split's row of a
+//    scratch (torch.empty in ops.py). A fold launch sums each
+//    upper entry over the splits in split order, compensated, adds acc last
+//    and writes both triangles, so the result has the bits of acc +
+//    gram(X) on every call.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -139,18 +151,6 @@ __device__ __forceinline__ void block_of(int k, int nb, int& ba, int& bb) {
   bb = ba + k;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
 // Copy n floats (src and dst 16-byte aligned) with 16-byte cp.async, the
 // ragged tail by element.
 __device__ __forceinline__ void stage_copy(float* dst, const float* src, int n, int tid, int T) {
@@ -417,13 +417,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
 }
 
 // Compensated (Kahan) f32 sum of a few terms in a fixed order.
@@ -770,7 +763,10 @@ int launch_tiled_as(const float* X, const float* sw, int n, int D, const TiledPl
 int launch_tiled(const float* X, const float* sw, int n, int D, const float* acc, float* G,
                  float* scratch, int* tickets, cudaStream_t st) {
   const TiledPlan plan = make_tiled_plan(D);
-  if (plan.runs == 0 || scratch == nullptr || tickets == nullptr)
+  // every cluster's row of (sum, compensation) pairs fits the scratch the
+  // wrapper allocates (kWideScratchFloats)
+  if (plan.runs == 0 || scratch == nullptr || tickets == nullptr ||
+      kWideMaxClusters * 2 * tiled_slots(plan.tiles, plan.runs) > kWideScratchFloats)
     return (int)cudaErrorInvalidValue;
   switch (plan.tiles) {
     case 2: return launch_tiled_as<2>(X, sw, n, D, plan, acc, G, scratch, tickets, st);
@@ -783,15 +779,21 @@ int launch_tiled(const float* X, const float* sw, int n, int D, const float* acc
 }
 
 
-constexpr int kLargeTile = 64;         // G's tiles: kLargeTile × kLargeTile
-constexpr int kLargeStageRows = 32;    // rows a stage
-constexpr int kLargeThreads = 256;     // 16 × 16 threads, a 4×4 block of the tile each
-constexpr int kLargeTargetCtas = 264;  // two CTAs an SM of the H100's 132
+constexpr int kLargeTile = 128;         // G's tiles: kLargeTile × kLargeTile
+constexpr int kLargeStageRows = 32;     // rows a stage: four k-steps of eight
+constexpr int kLargeStages = 4;         // cp.async ring
+constexpr int kLargeThreads = 512;      // 16 warps, 4 × 4, a 32 × 32 warp tile each
+constexpr int kLargeCtasPerSm = 1;      // (sums in registers, compensations in shared memory)
+constexpr int kLargeLd = kLargeTile + 8;  // floats a staged row of a side: ≡ 8 (mod 32)
 constexpr int kLargeMaxSplits = 64;
-constexpr int kLargeMinRows = 1024;    // rows a split at least
 constexpr int kLargeTileFloats = kLargeTile * kLargeTile;
-constexpr int kLargeStageFloats = kLargeStageRows * kLargeTile;
-static_assert(kLargeThreads == 256 && kLargeTile == 64, "the 4×4 blocks below assume 16 × 16 threads");
+constexpr int kLargeSideFloats = kLargeStageRows * kLargeLd;
+constexpr int kLargeSlots = 32;         // entries a thread: 2 × 4 mma tiles × 4
+constexpr size_t kLargeSmemBytes =
+    4 * ((size_t)kLargeStages * (2 * kLargeSideFloats + kLargeStageRows) +
+         (size_t)kLargeSlots * kLargeThreads);
+static_assert(kLargeLd % 32 == 8, "fragment loads of rows t, columns g hit 32 banks");
+static_assert(kLargeThreads == 16 * 32 && kLargeTile == 4 * 32, "16 warps of 32 × 32 cover a tile");
 
 // t-th tile of the upper triangle of an nb×nb tile grid, row by row
 __device__ __forceinline__ void large_tile_of(int t, int nb, int& bi, int& bj) {
@@ -804,75 +806,168 @@ __device__ __forceinline__ void large_tile_of(int t, int nb, int& bi, int& bj) {
 }
 
 // The large body's products: tile blockIdx.x over the rows of split
-// blockIdx.y, [y·span, (y+1)·span), into its (sum, compensation) pair of
-// scratch rows.
-__global__ void __launch_bounds__(kLargeThreads)
+// blockIdx.y, [y·span, (y+1)·span), into its (sum, compensation) planes of
+// the scratch, the tile's entries row-major. Warp (wm, wn) = (w / 4, w % 4)
+// takes the tile's rows 32·wm.. and columns 32·wn.. in 2 × 4 mma tiles of
+// 16 × 8; on a diagonal tile the warps wm > wn lie below the diagonal and do
+// nothing. D % 4 == 0: rows are staged 16 bytes a copy (ops.py pads X with
+// zero columns otherwise). Weighted: sw given.
+template <bool Weighted>
+__global__ void __launch_bounds__(kLargeThreads, kLargeCtasPerSm)
     gram_large_kernel(const float* __restrict__ X, const float* __restrict__ sw, int n, int D,
                       int span, float* __restrict__ scratch) {
-  __shared__ float as[kLargeStageRows][kLargeTile];
-  __shared__ float bs[kLargeStageRows][kLargeTile];
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                         // stages × (side A, side B) rows
+  float* wring = ring + kLargeStages * 2 * kLargeSideFloats;  // stages × rows: √w
   const int nb = (D + kLargeTile - 1) / kLargeTile;
-  const int ntiles = nb * (nb + 1) / 2;
   int bi, bj;
   large_tile_of((int)blockIdx.x, nb, bi, bj);
+  const bool diag = bi == bj;  // side B is side A: staged once
   const int a0 = bi * kLargeTile, b0 = bj * kLargeTile;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int na = min(kLargeTile, D - a0), nbc = min(kLargeTile, D - b0);  // real columns a side
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const bool busy = !diag || wm <= wn;
   const long long first = (long long)blockIdx.y * span;
   const int row0 = (int)min((long long)n, first);
   const int row_end = (int)min((long long)n, first + span);
-  float s[4][4], c[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = c[i][j] = 0.f;
-  for (int r0 = row0; r0 < row_end; r0 += kLargeStageRows) {
-    const int cnt = min(kLargeStageRows, row_end - r0);
-    for (int i = tid; i < 2 * kLargeStageFloats; i += kLargeThreads) {
-      const int side = i / kLargeStageFloats, k = (i % kLargeStageFloats) / kLargeTile;
-      const int col = i % kLargeTile, gc = (side ? b0 : a0) + col;
-      float v = 0.f;
-      if (k < cnt && gc < D) {
-        v = X[(long long)(r0 + k) * D + gc];
-        if (sw != nullptr) v = __fmul_rn(v, sw[r0 + k]);
+  const int nst = (row_end - row0 + kLargeStageRows - 1) / kLargeStageRows;
+
+  // stage s: a side's rows as kLargeTile / 4 pieces, a thread one piece
+  // column (no divisions); rows past the span zeroed and their √w 0 (stale
+  // shared memory may hold a NaN, and 0·NaN reaches every product)
+  auto issue = [&](int s) {
+    if (s < nst) {
+      const int r0 = row0 + s * kLargeStageRows;
+      const int cnt = min(kLargeStageRows, row_end - r0);
+      float* dst = ring + (s % kLargeStages) * 2 * kLargeSideFloats;
+      const int sides = diag ? 1 : 2;
+      constexpr int pl = kLargeTile / 4;  // pieces a row of a side
+      const int q = (tid % pl) * 4;
+      for (int l = tid / pl; l < sides * kLargeStageRows; l += kLargeThreads / pl) {
+        const int side = l / kLargeStageRows, r = l - side * kLargeStageRows;
+        float* d = dst + side * kLargeSideFloats + r * kLargeLd + q;
+        if (r >= cnt) {
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (q < (side ? nbc : na)) {
+          cp_async16(d, X + (long long)(r0 + r) * D + (side ? b0 : a0) + q);
+        }
       }
-      if (side)
-        bs[k][col] = v;
-      else
-        as[k][col] = v;
+      if (Weighted && warp == kLargeThreads / 32 - 1) {
+        float* wdst = wring + (s % kLargeStages) * kLargeStageRows;
+        if (lane < cnt)
+          cp_async4(wdst + lane, sw + r0 + lane);
+        else
+          wdst[lane] = 0.f;
+      }
     }
-    __syncthreads();
-    float acc[4][4];
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kLargeStageRows; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // the stage is read before the next one lands
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kahan_add(s[i][j], c[i][j], acc[i][j]);
+  for (int s = 0; s < kLargeStages - 1; ++s) issue(s);
+  // while they land: a side's columns past D are zero in every ring slot
+  // and stay so (the copies never touch them)
+  for (int i = tid; i < kLargeStages * 2 * kLargeStageRows * kLargeTile; i += kLargeThreads) {
+    const int c = i % kLargeTile, line = i / kLargeTile;
+    const int side = (line / kLargeStageRows) % 2;
+    if (c >= (side ? nbc : na)) ring[line * kLargeLd + c] = 0.f;
   }
-  float* part = scratch + ((long long)blockIdx.y * ntiles + blockIdx.x) * 2 * kLargeTileFloats;
+
+  // each stage's sums (the mma's accumulators acc: its 32 rows) go into a
+  // compensated (Kahan) pair per entry, the sum in registers and its
+  // compensation in shared memory (slot q·kLargeThreads + tid): the tensor
+  // core's f32 accumulation is not rounded to nearest, so it sums no more
+  // than a stage
+  float acc[2][4][4], sum[2][4][4];
+  float* comp = wring + kLargeStages * kLargeStageRows;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = (ty + 16 * i) * kLargeTile + tx + 16 * j;
-      part[e] = s[i][j];
-      part[kLargeTileFloats + e] = c[i][j];
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = sum[i][j][v] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kLargeSlots; ++q) comp[q * kLargeThreads + tid] = 0.f;
+  auto stage_sum = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          float& c = comp[((i * 4 + j) * 4 + v) * kLargeThreads + tid];
+          float cc = c;
+          kahan_add(sum[i][j][v], cc, acc[i][j][v]);
+          c = cc;
+          acc[i][j][v] = 0.f;
+        }
+  };
+
+  for (int s = 0; s < nst; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kLargeStages - 2) : "memory");
+    __syncthreads();  // stage s landed for every thread; stage s − 1 is read
+    issue(s + kLargeStages - 1);
+    if (!busy) continue;
+    const float* xa = ring + (s % kLargeStages) * 2 * kLargeSideFloats;
+    const float* xb = diag ? xa : xa + kLargeSideFloats;
+    const float* ws = wring + (s % kLargeStages) * kLargeStageRows;
+#pragma unroll
+    for (int k0 = 0; k0 < kLargeStageRows; k0 += 8) {
+      // this lane's rows k0 + t and k0 + t + 4; A(i) from side A's columns
+      // 32·wm + 16·i + g (+ 8), B(j) from side B's 32·wn + 8·j + g
+      const float w0 = Weighted ? ws[k0 + t] : 1.f, w1 = Weighted ? ws[k0 + t + 4] : 1.f;
+      const float* a0p = xa + (k0 + t) * kLargeLd + wm * 32 + g;
+      const float* b0p = xb + (k0 + t) * kLargeLd + wn * 32 + g;
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = a0p + 16 * i;
+        split_tf32(Weighted ? p[0] * w0 : p[0], ah[i][0], al[i][0]);
+        split_tf32(Weighted ? p[8] * w0 : p[8], ah[i][1], al[i][1]);
+        split_tf32(Weighted ? p[4 * kLargeLd] * w1 : p[4 * kLargeLd], ah[i][2], al[i][2]);
+        split_tf32(Weighted ? p[4 * kLargeLd + 8] * w1 : p[4 * kLargeLd + 8], ah[i][3],
+                   al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split_tf32(Weighted ? b0p[8 * j] * w0 : b0p[8 * j], bh[j][0], bl[j][0]);
+        split_tf32(Weighted ? b0p[8 * j + 4 * kLargeLd] * w1 : b0p[8 * j + 4 * kLargeLd],
+                   bh[j][1], bl[j][1]);
+      }
+      // product by product over the 8 tiles, so 8 independent mma lie
+      // between two into one accumulator: the two small products first
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
     }
+    stage_sum();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!busy) return;
+  // the CTA's (sum, compensation) pair of each entry, row-major in the tile
+  float* part = scratch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kLargeTileFloats;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = (wm * 32 + i * 16 + g + 8 * h) * kLargeTile + wn * 32 + j * 8 + 2 * t;
+        const int q = (i * 4 + j) * 4 + 2 * h;
+        *reinterpret_cast<float2*>(part + e) = make_float2(sum[i][j][2 * h], sum[i][j][2 * h + 1]);
+        *reinterpret_cast<float2*>(part + kLargeTileFloats + e) =
+            make_float2(comp[q * kLargeThreads + tid], comp[(q + 1) * kLargeThreads + tid]);
+      }
 }
 
 // The large body's fold: entry (a, b ≥ a) of G summed over the splits in
@@ -900,21 +995,36 @@ __global__ void __launch_bounds__(256)
   if (a != b) G[ba] = acc != nullptr ? acc[ba] + total : total;
 }
 
-int launch_large(const float* X, const float* sw, int n, int D, int splits, const float* acc,
-                 float* G, float* scratch, cudaStream_t st) {
-  if (splits < 1 || splits > kLargeMaxSplits || scratch == nullptr)
-    return (int)cudaErrorInvalidValue;
+template <bool Weighted>
+int launch_large_as(const float* X, const float* sw, int n, int D, int splits, const float* acc,
+                    float* G, float* scratch, cudaStream_t st) {
+  auto kernel = gram_large_kernel<Weighted>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLargeSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
   const int nb = (D + kLargeTile - 1) / kLargeTile;
   const int span = ((n + splits - 1) / splits + kLargeStageRows - 1) / kLargeStageRows *
-                   kLargeStageRows;
-  gram_large_kernel<<<dim3(nb * (nb + 1) / 2, splits), kLargeThreads, 0, st>>>(X, sw, n, D,
-                                                                               span, scratch);
+                   kLargeStageRows;  // whole stages
+  kernel<<<dim3(nb * (nb + 1) / 2, splits), kLargeThreads, kLargeSmemBytes, st>>>(
+      X, sw, n, D, span, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long entries = (long long)D * D;
   gram_large_fold_kernel<<<(unsigned)((entries + 255) / 256), 256, 0, st>>>(scratch, D, splits,
                                                                            acc, G);
   return (int)cudaGetLastError();
+}
+
+int launch_large(const float* X, const float* sw, int n, int D, int splits, const float* acc,
+                 float* G, float* scratch, cudaStream_t st) {
+  if (D % 4 != 0 || splits < 1 || splits > kLargeMaxSplits || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return sw != nullptr ? launch_large_as<true>(X, sw, n, D, splits, acc, G, scratch, st)
+                       : launch_large_as<false>(X, sw, n, D, splits, acc, G, scratch, st);
 }
 
 }  // namespace
@@ -924,8 +1034,8 @@ int launch_large(const float* X, const float* sw, int n, int D, int splits, cons
 // (D, D) f32. G must not alias X, sw or acc. D ≤ 64: the cluster body,
 // which reads neither scratch nor tickets. 64 < D ≤ 160 (the tiled body):
 // scratch kWideScratchFloats f32 of device memory, tickets kWideCluster
-// int32 that are 0 (the kernel leaves them 0). D > 160 (the large body):
-// `splits` row spans (ops.py:large_plan) and scratch of splits ·
+// int32 that are 0 (the kernel leaves them 0). D > 160 (the large body,
+// D % 4 == 0): `splits` row spans (ops.py:large_plan) and scratch of splits ·
 // nb(nb+1)/2 · 2 · kLargeTile² f32, nb = ⌈D/kLargeTile⌉; two launches.
 REPRO_EXPORT int repro_gram(const void* X, const void* sw, int n, int D, const void* acc,
                             void* G, void* scratch, void* tickets, int splits, void* stream) {

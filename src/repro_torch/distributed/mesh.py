@@ -276,13 +276,20 @@ def host_gather(x, mesh: DataMesh | None = None) -> np.ndarray:
     return np.concatenate(_gather_objects(mesh, x, "kv_gather"), axis=0)
 
 
-def kv_allreduce(tree, mesh: DataMesh | None = None):
+def kv_allreduce(tree, mesh: DataMesh | None = None, *, timeout_ms: int | None = None):
     """Sum a tree (dict, list or tuple) of host arrays across ranks, in rank
-    order. Collective. A peer that does not arrive within ``kv_timeout_ms``
-    raises ``RuntimeError`` (the supervisor's retryable signal). Without a
-    mesh, or at world 1: the tree itself."""
+    order. Collective. A peer that does not arrive within ``timeout_ms``
+    (default the ``ft`` config's ``kv_timeout_ms``, which the kv group was
+    made with) raises ``RuntimeError`` (the supervisor's retryable signal).
+    Without a mesh, or at world 1: the tree itself."""
     if mesh is None or mesh.world == 1:
         return tree
+    if timeout_ms is not None:  # the call's own deadline: every peer arrives first
+        import torch.distributed as dist
+
+        dist.monitored_barrier(group=mesh.kv_group,
+                               timeout=datetime.timedelta(milliseconds=int(timeout_ms)))
+        mesh._count("kv_barrier", 0)
     if isinstance(tree, dict):
         keys = sorted(tree)
         leaves = [np.asarray(tree[k]) for k in keys]

@@ -64,10 +64,12 @@ _SIGNATURES = {
 CUDA_CONSTANTS = {
     "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
-    "extremes.cu": {"kExtWideWarps": 8, "kExtWideRows": 128, "kExtWideDirs": 128},
+    "extremes.cu": {"kExtWideRd": 8, "kExtWideRr": 8, "kExtWideTileDirs": 128,
+                    "kExtWideTileRows": 128, "kExtWideCtasPerSm": 2, "kExtWideOneWarps": 4,
+                    "kExtWideOneCtasPerSm": 4},
     "gram.cu": {"kMaxD": 64, "kWideMaxD": 160, "kWideCluster": 8, "kWideMaxGroups": 16,
-                "kWideScratchFloats": 458_752, "kLargeTile": 64, "kLargeTargetCtas": 264,
-                "kLargeMaxSplits": 64, "kLargeMinRows": 1024},
+                "kWideScratchFloats": 458_752, "kLargeTile": 128, "kLargeStageRows": 32,
+                "kLargeCtasPerSm": 1, "kLargeMaxSplits": 64},
     "sweep.cu": {"kSlabCols": 160, "kXwStageFloats": 12_288},
 }
 

@@ -39,3 +39,13 @@ def bernstein_featurize(
     )
     LAUNCHES += 1
     return A, Ap
+
+
+def bernstein_basis_deriv(t: torch.Tensor, degree: int, *, backend: str | None = None):
+    """t (n,) in [0, 1] → (basis, deriv), each (n, degree+1): the reference's
+    kernel entry point, as ``bernstein_featurize`` of one column under the
+    identity scaler (low 0, high 1)."""
+    t = t.to(torch.float32).reshape(-1, 1).contiguous()
+    bounds = torch.tensor([[0.0], [1.0], [1.0]], dtype=torch.float32, device=t.device)
+    A, Ap = bernstein_featurize(t, bounds, degree, backend=backend)
+    return A[:, 0], Ap[:, 0]

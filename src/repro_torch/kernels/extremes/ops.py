@@ -2,8 +2,11 @@
 for a CUDA tensor, on ``ref.py`` for a CPU tensor. Row validity is a count:
 rows at or past ``n_valid`` are never extreme. Points of d ≤ ``MAX_DP``
 coordinates take the kernel's template body, wider ones its wide body
-(``PATH_LAUNCHES`` counts each)."""
+(``PATH_LAUNCHES`` counts each; ``wide_launch_plan`` picks its tile)."""
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -18,9 +21,13 @@ TILE_ROWS = _C["kExtTile"]          # rows of the tile-max loop; a block is whol
 MAX_BLOCK_ROWS = _C["kExtMaxBlockRows"]
 CTAS_PER_SM = _C["kExtCtasPerSm"]   # score CTAs an SM holds: the grid the plan aims at
 _W = _lib.CUDA_CONSTANTS["extremes.cu"]
-WIDE_WARPS = _W["kExtWideWarps"]    # warps of a wide score CTA: partials a row block
-WIDE_ROWS = _W["kExtWideRows"]      # rows of a wide CTA's step; a block is whole steps
-WIDE_DIRS = _W["kExtWideDirs"]      # directions of a wide CTA
+# the wide body's tiles (csrc/extremes.cu:launch_wide): (directions, rows,
+# CTAs an SM); tile 1 is m = 1's
+WIDE_TILES = (
+    (_W["kExtWideTileDirs"], _W["kExtWideTileRows"], _W["kExtWideCtasPerSm"]),
+    (1, 32 * _W["kExtWideOneWarps"], _W["kExtWideOneCtasPerSm"]),
+)
+WARP_DIRS = 4 * _W["kExtWideRd"]  # directions of a warp of tile 0
 LAUNCHES = 0
 PATH_LAUNCHES = {"template": 0, "wide": 0}
 
@@ -40,15 +47,35 @@ def launch_plan(rows: int, m: int, sms: int) -> tuple[int, int, int]:
     return rb, warps, -(-rows // rb)
 
 
-def wide_launch_plan(rows: int, m: int, sms: int) -> tuple[int, int]:
-    """(rb, nrb) of a wide-body launch (d > MAX_DP): CTA rows of WIDE_DIRS
-    directions cover m, and rows are cut into ``nrb`` blocks of ``rb`` rows
-    (whole WIDE_ROWS steps) so the grid is about CTAS_PER_SM CTAs an SM."""
-    cta_rows = -(-m // WIDE_DIRS)
-    target = max(1, CTAS_PER_SM * sms // cta_rows)
-    rb = -(-max(rows, 1) // target)
-    rb = -(-rb // WIDE_ROWS) * WIDE_ROWS
-    return rb, -(-rows // rb)
+class WidePlan(NamedTuple):
+    """A wide-body launch: ``tile`` (0 or 1), blocks of ``rb`` rows (whole
+    tiles), ``nrb`` of them, a partial each."""
+    tile: int
+    rb: int
+    nrb: int
+
+
+@functools.lru_cache(maxsize=256)
+def wide_launch_plan(rows: int, m: int, sms: int) -> WidePlan:
+    """The wide body's launch (d > MAX_DP) over ``rows`` rows of P and ``m``
+    directions on a card of ``sms`` SMs: tile 1 for m = 1, else tile 0; then
+    blocks of t tiles of rows, t the largest of those that take the fewest
+    waves × t tile times (CTAs of tiles of directions × blocks, the tile's
+    CTAs an SM at once): a whole wave where the work allows one. (Timed at
+    m = 1, d 70 and 1,024 over 16,384 rows: blocks of 2–128 tiles, fewer
+    partials to fold, take longer than the plan's one tile a block.)"""
+    tile = 1 if m == 1 else 0
+    dirs, trows, per_sm = WIDE_TILES[tile]
+    dir_tiles = -(-m // dirs)
+    row_tiles = max(1, -(-rows // trows))
+    slots = per_sm * sms
+    best, tpb = None, 1
+    for t in range(1, row_tiles + 1):
+        cost = -(-dir_tiles * -(-row_tiles // t) // slots) * t
+        if best is None or cost <= best:
+            best, tpb = cost, t
+    rb = tpb * trows
+    return WidePlan(tile, rb, -(-rows // rb))
 
 
 def directional_extremes(
@@ -74,18 +101,17 @@ def directional_extremes(
     dev = P.device
     sms = _lib.sm_count(dev.index or 0)
     if d > MAX_DP:
-        path, warps = "wide", 0
-        rb, nrb = wide_launch_plan(rows, m, sms)
-        nblk = nrb * WIDE_WARPS
+        path = "wide"
+        shape, rb, nblk = wide_launch_plan(rows, m, sms)
     else:
         path = "template"
-        rb, warps, nblk = launch_plan(rows, m, sms)
+        rb, shape, nblk = launch_plan(rows, m, sms)
     scratch = torch.empty(max(1, 4 * nblk * m), dtype=torch.float32, device=dev)
     out = torch.empty(4 * m, dtype=torch.float32, device=dev)
     ints = out[2 * m:].view(torch.int32)
     _lib.check(
         _lib.lib().repro_extremes(
-            _lib.ptr(P), rows, d, nv, _lib.ptr(dirs), m, rb, warps, _lib.ptr(scratch),
+            _lib.ptr(P), rows, d, nv, _lib.ptr(dirs), m, rb, shape, _lib.ptr(scratch),
             scratch.data_ptr() + 8 * nblk * m, _lib.ptr(out), _lib.ptr(ints),
             out.data_ptr() + 4 * m, ints.data_ptr() + 4 * m, _lib.stream_ptr(dev),
         ),

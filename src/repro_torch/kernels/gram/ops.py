@@ -1,8 +1,11 @@
 """Gram wrapper: G = acc + (√w·X)ᵀ(√w·X) on the CUDA kernel
 (``csrc/gram.cu``: the cluster body for D ≤ 64 and the tiled body up to
-TILED_MAX_D, one launch each; the large body above, any D, two launches) for
-a CUDA tensor, on ``ref.py`` for a CPU tensor."""
+TILED_MAX_D, one launch each; the large body above, any D, two launches, X
+padded to a multiple of 4 columns) for a CUDA tensor, on ``ref.py`` for a
+CPU tensor."""
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,16 +33,33 @@ def tiled_plan(D: int) -> tuple[int, list[tuple[int, int, int, int]]]:
     return W, [tuple(int(v) for v in out[2 + 4 * k:6 + 4 * k]) for k in range(runs)]
 
 
+# the large plan's model of the card: CTAs of the large body at once (those
+# an SM holds, on the H100's 132 SMs), and a CTA's cost beyond its stages
+# (its first loads and its store of a tile's pairs), in stage times. At n
+# 16,384, D 2,048 it picks 9 splits; scripts/torch_plan_timings.py times 1–24
+LARGE_SLOTS = 132 * _C["kLargeCtasPerSm"]
+LARGE_CTA_STAGES = 5
+
+
+@functools.lru_cache(maxsize=256)
 def large_plan(n: int, D: int) -> tuple[int, int]:
     """The large body's launch for D > TILED_MAX_D: ``(tiles, splits)``,
     the nb(nb+1)/2 upper tiles of kLargeTile² (nb = ⌈D/kLargeTile⌉) and the
-    row spans, enough CTAs for kLargeTargetCtas in all but at least
-    kLargeMinRows rows a span (at most kLargeMaxSplits). A pure function of
-    (n, D), so the summation order is too."""
+    row spans (whole kLargeStageRows stages, at most kLargeMaxSplits): the
+    fewest splits among those that take the least time in waves of
+    LARGE_SLOTS CTAs, each CTA its span's stages and LARGE_CTA_STAGES more.
+    A pure function of (n, D), so the summation order is too."""
     nb = -(-D // _C["kLargeTile"])
     tiles = nb * (nb + 1) // 2
-    splits = max(1, min(_C["kLargeMaxSplits"], -(-_C["kLargeTargetCtas"] // tiles),
-                        -(-n // _C["kLargeMinRows"])))
+    rows = _C["kLargeStageRows"]
+    best, splits = None, 1
+    for s in range(1, _C["kLargeMaxSplits"] + 1):
+        span = -(-(-(-n // s)) // rows)  # stages a span: ⌈⌈n/s⌉ / rows⌉
+        if s > 1 and span * rows * (s - 1) >= n:
+            break  # the last span would be empty
+        cost = -(-tiles * s // LARGE_SLOTS) * (span + LARGE_CTA_STAGES)
+        if best is None or cost < best:
+            best, splits = cost, s
     return tiles, splits
 
 
@@ -73,12 +93,18 @@ def gram_matrix(
     if acc is not None and acc.shape != (D, D):
         raise ValueError(f"acc must be ({D}, {D}), got {tuple(acc.shape)}")
     _lib.require_cuda(X, sw, acc)
+    path = "cluster" if D <= SMALL_MAX_D else ("tiled" if D <= TILED_MAX_D else "large")
+    if path == "large" and D % 4:
+        # the large body stages whole 16-byte pieces of a row: zero columns
+        # pad D to a multiple of 4 (an entry of G reads its own two columns)
+        pad = 4 - D % 4
+        acc = None if acc is None else torch.nn.functional.pad(acc, (0, pad, 0, pad))
+        return gram_matrix(torch.nn.functional.pad(X, (0, pad)), sw, acc=acc)[:D, :D].contiguous()
     # the kernel copies X and sw 16 bytes at a time
     X = X if X.data_ptr() % 16 == 0 else X.clone()
     sw = sw if sw is None or sw.data_ptr() % 16 == 0 else sw.clone()
     G = torch.empty((D, D), dtype=torch.float32, device=X.device)
     stream = _lib.stream_ptr(X.device)
-    path = "cluster" if D <= SMALL_MAX_D else ("tiled" if D <= TILED_MAX_D else "large")
     scratch = tickets = None
     splits = 0
     if path == "tiled":

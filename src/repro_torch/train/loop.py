@@ -54,11 +54,13 @@ def train_loop(
     ckpt_every: int = 0,
     log_every: int = 0,
     label: str = "train",
+    keep_losses: bool = True,
 ):
     """Drive ``step_fn(state, batch_fn(i))`` from ``start`` to ``steps``.
 
     Returns ``(state, losses)`` with one loss per executed step (tensors
-    stay on the device; callers convert once). Checkpoints every
+    stay on the device; callers convert once); ``keep_losses=False`` keeps
+    only the latest (long runs: one live loss, not one a step). Checkpoints every
     ``ckpt_every`` steps plus a final
     save when ``mgr`` is given and any step ran (skipped when the last
     periodic save already covered ``steps``).
@@ -80,7 +82,10 @@ def train_loop(
             loss_v, gn_v = _finite_pair(metrics)
             if not (np.isfinite(loss_v) and np.isfinite(gn_v)):
                 raise NonFiniteError(i, loss=loss_v, grad_norm=gn_v)
-        losses.append(metrics["loss"])
+        if keep_losses:
+            losses.append(metrics["loss"])
+        else:
+            losses = [metrics["loss"]]
         if log_every and (i + 1) % log_every == 0:
             print(
                 f"[{label}] step {i + 1:5d} loss {float(metrics['loss']):.4f} "

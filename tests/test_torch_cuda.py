@@ -199,10 +199,12 @@ def test_gram_tiled_plan_is_the_model(dev, D):
 @pytest.mark.parametrize("with_acc", [False, True])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("n", [0, 1, 1000, 16_387, 70_001])
-@pytest.mark.parametrize("D", [161, 256, 2048])
+@pytest.mark.parametrize("D", [161, 256, 2048, 300, 2049])
 def test_gram_large_body(dev, monkeypatch, D, n, weighted, with_acc):
-    """The large body (D > 160, any D): D past one 64-column tile and
-    ragged, n from none to many row splits with a ragged last stage. Within
+    """The large body (D > 160, any D): D past one 128-column tile and
+    ragged (161, 300, 2,049; 161 and 2,049 padded by the wrapper to a
+    multiple of 4 columns), n from none to many row
+    splits with a ragged last stage. Within
     1e-5·max|G| of float64; the same bits on repeated calls and, with acc=,
     those of the separate add; one wrapper launch a call, on the large body;
     torch.mm and the plain version are never reached."""
@@ -270,12 +272,15 @@ def test_extremes_kernel(dev, rows, m, d, n_valid):
 
 
 @pytest.mark.parametrize("d", [17, 33, 70, 140, 1024, 4096])
-@pytest.mark.parametrize("rows,m,valid", [(3001, 130, 3001), (3001, 130, 2900), (700, 1, 513)])
+@pytest.mark.parametrize("rows,m,valid", [(3001, 130, 3001), (3001, 130, 2900), (700, 1, 513),
+                                          (3001, 8, 2999), (5003, 1614, 4711)])
 def test_extremes_wide_body(dev, d, rows, m, valid):
     """The wide body (d > 16): values to the bit (±0 included) and
     first-occurrence indices of the plain version, exact ties in the second
-    half, ragged validity, one direction as the greedy hull walk asks; the
-    same bits on a repeated call; the wide body counted, the template not."""
+    half, ragged validity, one direction as the greedy hull walk asks; every
+    tile of ``wide_launch_plan`` (m = 1: a lane a row; 8, 130 and 1,614:
+    128 directions × 128 rows), several row blocks; the same
+    bits on a repeated call; the wide body counted, the template not."""
     from repro_torch.kernels.extremes import ops, ref
 
     P = torch.randn(rows, d, generator=_g(rows + d)).to(dev)

@@ -45,10 +45,9 @@ def _t(x):
 def test_bernstein_ref_matches_pallas_kernel(n, degree):
     t = np.random.default_rng(n).random(n).astype(np.float32)
     basis, deriv = bernstein_basis_deriv(jnp.asarray(t), degree, interpret=True)
-    bounds = torch.tensor([[0.0], [1.0], [1.0]])
-    A, Ap = tbern.bernstein_featurize(_t(t)[:, None], bounds, degree)
-    np.testing.assert_allclose(A[:, 0].numpy(), np.asarray(basis), atol=1e-6)
-    np.testing.assert_allclose(Ap[:, 0].numpy(), np.asarray(deriv), atol=1e-6)
+    got_basis, got_deriv = tbern.bernstein_basis_deriv(_t(t), degree)
+    np.testing.assert_allclose(got_basis.numpy(), np.asarray(basis), atol=1e-6)
+    np.testing.assert_allclose(got_deriv.numpy(), np.asarray(deriv), atol=1e-6)
 
 
 @pytest.mark.parametrize("n,D", [(64, 4), (777, 14), (300, 64)])
@@ -200,16 +199,102 @@ def test_extremes_ref_matches_reference_at_wide_d(d, rows, m, n_valid):
                                        err_msg=name)
 
 
-def test_extremes_wide_launch_plan_covers_every_direction_and_row():
-    """The wide body's plan: blocks of whole 128-row steps covering the
-    rows, about two CTAs an SM, CTA rows of 128 directions covering m."""
-    assert text.wide_launch_plan(16_384, 1614, 132) == (896, 19)
-    assert text.wide_launch_plan(16_384, 128, 132) == (128, 128)
-    for rows in (1, 7, 513, 16_384, 327_680):
-        for m in (1, 127, 128, 129, 1614, 5000):
-            rb, nrb = text.wide_launch_plan(rows, m, 132)
-            assert rb % text.WIDE_ROWS == 0 and nrb * rb >= rows > (nrb - 1) * rb
-            assert nrb * -(-m // text.WIDE_DIRS) <= 2 * 132 or rb == text.WIDE_ROWS
+def _wide_schedule(rows: int, n_valid: int, m: int, plan) -> tuple[np.ndarray, int, np.ndarray]:
+    """What ``csrc/extremes.cu``'s wide body does under ``plan``, by warp:
+    (the times each (direction, row) enters the extremes, the most padded
+    directions a working warp scores, the times each (row block, direction)
+    partial is written). A warp of tile 0 takes 32 directions × 64 rows of
+    a tile, of tile 1 the one direction × 32 rows; it works only when it has
+    a direction and a scored row; a CTA writes its partial of each of its
+    directions once, after folding its warps along the rows."""
+    td, tr, _ = text.WIDE_TILES[plan.tile]
+    wdirs = text.WARP_DIRS if plan.tile == 0 else 1
+    wd = td // wdirs
+    wrows = 8 * text._W["kExtWideRr"] if plan.tile == 0 else 32  # rows a warp: 8 lanes × Rr, or 32 × 1
+    parts = tr // wrows
+    scored = np.zeros((m, rows), np.int32)
+    written = np.zeros((plan.nrb, m), np.int32)
+    padded = 0
+    for bx in range(plan.nrb):
+        base = bx * plan.rb
+        nv = max(0, min(plan.rb, rows - base, n_valid - base))
+        for by in range(-(-m // td)):
+            nd = min(td, m - by * td)
+            for w in range(wd * parts):
+                k, r = w % wd, w // wd
+                d0, d1 = by * td + k * wdirs, min(m, by * td + (k + 1) * wdirs)
+                if k * wdirs >= nd:
+                    continue
+                if r == 0:
+                    written[bx, d0:d1] += 1
+                for t in range(-(-nv // tr)):
+                    r0 = t * tr + r * wrows
+                    if r0 < nv:
+                        scored[d0:d1, base + r0:base + min(r0 + wrows, nv)] += 1
+                        padded = max(padded, (k + 1) * wdirs - (d1 - by * td))
+    return scored, padded, written
+
+
+@pytest.mark.parametrize("rows,n_valid,m", [
+    (16_384, 16_384, 1614), (16_384, 16_384, 128), (16_384, 16_384, 1), (1_000, 1_000, 5736),
+    (3001, 2900, 130), (700, 513, 1), (3001, 2999, 8), (5003, 4711, 1614), (7, 7, 9), (0, 0, 5),
+    (327_680, 327_680, 3)])
+def test_extremes_wide_launch_plan_covers_every_direction_and_row(rows, n_valid, m):
+    """The wide body's plan on the H100's 132 SMs: every scored row of
+    every direction enters the extremes once; no direction past m is
+    scored but those of the last warp of a 32-direction tile (none at m =
+    1, whose tile is one direction); the scratch's nrb·m partials are each
+    written once; blocks are whole tiles of rows, and the path's shapes
+    take the tiles and grids the kernel was timed with."""
+    plan = text.wide_launch_plan(rows, m, 132)
+    _, tr, _ = text.WIDE_TILES[plan.tile]
+    assert plan.rb % tr == 0 and plan.nrb * plan.rb >= rows > (plan.nrb - 1) * plan.rb
+    assert plan.tile == (1 if m == 1 else 0)
+    scored, padded, written = _wide_schedule(rows, n_valid, m, plan)
+    assert (scored[:, :n_valid] == 1).all() and not scored[:, n_valid:].any()
+    assert padded < (text.WARP_DIRS if plan.tile == 0 else 1)
+    assert (written == 1).all()
+    want = {(16_384, 1614): (0, 896, 19), (16_384, 128): (0, 128, 128),
+            (16_384, 1): (1, 128, 128), (3001, 130): (0, 128, 24)}
+    if (rows, m) in want:
+        assert tuple(plan) == want[(rows, m)]
+
+
+def test_extremes_wide_plan_at_the_route():
+    """The wide-P route's 5,736 directions at d = 2,048: tiles of 128 × 128
+    rows, two tiles a block, 2,880 CTAs (11 waves of 264)."""
+    assert tuple(text.wide_launch_plan(16_384, 5736, 132)) == (0, 256, 64)
+
+
+@pytest.mark.parametrize("n,D", [(16_384, 2048), (16_384, 2052), (16_387, 161), (70_001, 256),
+                                 (1000, 300), (0, 161), (1, 2048), (16_384, 4096)])
+def test_gram_large_plan_covers_every_upper_tile_and_row(n, D):
+    """The large body's plan: the tiles of blockIdx.x (the kernel's row-by-
+    row walk) are G's upper triangle of 128-tiles, each entry a ≤ b < D in
+    one; the splits' spans of whole 32-row stages cover the rows once, none
+    empty but at n = 0; the scratch holds the (sum, compensation) planes of
+    every (split, tile) the kernel writes, at the index the fold reads."""
+    T = tgram._C["kLargeTile"]
+    tiles, splits = tgram.large_plan(n, D)
+    nb = -(-D // T)
+    walk = [(bi, bj) for bi in range(nb) for bj in range(bi, nb)]
+    assert tiles == len(walk) and 1 <= splits <= tgram._C["kLargeMaxSplits"]
+    for t, (bi, bj) in enumerate(walk):  # the fold's index of a tile is the walk's
+        assert bi * nb - bi * (bi - 1) // 2 + bj - bi == t
+    cover = np.zeros((D, D), np.int32)
+    for bi, bj in walk:
+        cover[bi * T:(bi + 1) * T, bj * T:(bj + 1) * T] += 1
+    assert (cover[np.triu_indices(D)] == 1).all()
+    rows = tgram._C["kLargeStageRows"]
+    span = -(-(-(-n // splits)) // rows) * rows
+    spans = [(min(n, s * span), min(n, (s + 1) * span)) for s in range(splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a < b for a, b in spans) or n == 0
+    # the kernel's writes: split s, tile t at (s·tiles + t)·2·T², two planes of T²
+    last = ((splits - 1) * tiles + tiles - 1) * 2 * T * T + 2 * T * T
+    assert last == splits * tiles * 2 * T * T
+    if (n, D) == (16_384, 2048):
+        assert (tiles, splits) == (136, 9)
 
 
 def _sweep_case(c, D, d, r, m, sk, q, seed):

@@ -128,6 +128,16 @@ def test_a_peer_that_never_arrives_raises():
     assert got[1] == "slept"
 
 
+def test_kv_allreduce_takes_its_own_deadline():
+    """``timeout_ms=`` overrides ``kv_timeout_ms`` for the call: the config's
+    deadline is a minute, the call's 1.5 s."""
+    got = run_world(dead_peer, 2, backend="gloo", devices=["cpu"] * 2, timeout_s=120,
+                    args=(1500,), env={"REPRO_FT_KV_TIMEOUT_MS": "60000"})
+    status, waited = got[0]
+    assert status == "raised" and 1.0 <= waited < 3.4
+    assert got[1] == "slept"
+
+
 def test_driver_on_two_fake_devices_matches_world_one(tmp_path):
     from repro_torch.launch import train_mctm
 

@@ -9,7 +9,9 @@ minibatch (10 steps of 256 drawn rows, the reference's draws) with
 tests/test_torch_fit.py's limits (params atol 1e-4, losses rtol 1e-4, final
 NLL rtol 1e-5), lbfgs (10 iterations) with test_torch_lbfgs.py's (the first
 5 losses rtol 1e-5, the final NLL 1e-4 relative); ``fit_cmctm(mesh=)`` with
-test_torch_conditional.py's (leaves atol 5e-4, final NLL rtol 1e-5). Every
+test_torch_conditional.py's (leaves atol 5e-4, final NLL rtol 1e-5);
+``fit_mctm(mesh=)`` (adam) as ``fit_mctm_streaming``, and
+``drift_window_nll(axis=)`` refusing an axis that is not the mesh's. Every
 rank ends on the same bits, each step or oracle sweep folds once, and the
 world-R fits stay within the same limits of the port's single-device fits.
 """
@@ -59,6 +61,13 @@ for R in (2, 4):
         out[f"R{R}_{meth}_theta"] = np.asarray(f.params.theta_raw)
         out[f"R{R}_{meth}_lam"] = np.asarray(f.params.lam)
         out[f"R{R}_{meth}_final"] = f.final_nll
+    if R == 2:
+        f = M.fit_mctm(cfg, scaler, Y, w, init=p0, steps=20, method="adam", chunk_size=300,
+                       mesh=mesh)
+        out["R2_fit_mctm_losses"] = f.losses
+        out["R2_fit_mctm_theta"] = np.asarray(f.params.theta_raw)
+        out["R2_fit_mctm_lam"] = np.asarray(f.params.lam)
+        out["R2_fit_mctm_final"] = f.final_nll
     f = C.fit_cmctm(ccfg, cscaler, inp["Yc"], inp["Xc"], weights=w, key=jax.random.PRNGKey(4), steps=20,
                     chunk_size=300, mesh=mesh)
     for i, leaf in enumerate(f.params):
@@ -178,3 +187,45 @@ def test_world_one_fits_are_the_single_device_fits(both, single):
                                   method=meth, chunk_size=300, device="cpu")
         np.testing.assert_array_equal(f.losses, single[f"{meth}_losses"])
         assert f.final_nll == single[f"{meth}_final"]
+
+
+@pytest.mark.parametrize("R", WORLDS)
+def test_fit_mctm_takes_the_mesh(both, R):
+    """``fit_mctm(mesh=)`` fits on the mesh: at world 2 within the adam
+    limits of the reference's ``fit_mctm(mesh=)``, at every world the bits
+    of ``fit_mctm_streaming(mesh=)``, the same on every rank."""
+    ref, port, _ = both
+    got = port[R][0]
+    losses, params, final = got["fit_mctm"]
+    if R == 2:
+        _check_fit({"adam_params": params, "adam_losses": losses, "adam_final": final},
+                   ref["R2_fit_mctm_losses"], ref["R2_fit_mctm_theta"], ref["R2_fit_mctm_lam"],
+                   float(ref["R2_fit_mctm_final"]), "adam")
+    np.testing.assert_array_equal(losses, got["adam_losses"])
+    for a, b in zip(params, got["adam_params"]):
+        np.testing.assert_array_equal(a, b)
+    for other in port[R][1:]:
+        np.testing.assert_array_equal(other["fit_mctm"][0], losses)
+
+
+@pytest.mark.parametrize("R", WORLDS)
+def test_drift_window_nll_takes_the_axis(both, R):
+    ref, port, _ = both
+    got = port[R][0]
+    assert got["drift_axis"] == got["drift"]
+    assert got["drift_axis"] == pytest.approx(float(ref[f"R{R}_drift"]), rel=1e-6)
+    assert got["drift_bad_axis"] == "raised"
+
+
+def test_world_one_fit_mctm_is_the_plain_fit(both, single):
+    """``fit_mctm(mesh=)`` at world 1 gives the bits of the fit without a mesh."""
+    inp = both[2]
+    tscaler = TDataScaler(low=inp["low"], high=inp["high"])
+    p0 = TM.params_from_numpy(*inp["p0"], device="cpu")
+    f = TM.fit_mctm(cfg(), tscaler, inp["Y"], inp["w"], init=p0, steps=20, method="adam",
+                    chunk_size=300, device="cpu")
+    losses, params, final = single["fit_mctm"]
+    np.testing.assert_array_equal(f.losses, losses)
+    for a, b in zip(TM.params_to_numpy(f.params), params):
+        np.testing.assert_array_equal(a, b)
+    assert f.final_nll == final

@@ -190,6 +190,17 @@ def fit_all(mesh, inp) -> dict:
         out[f"{meth}_final"] = f.final_nll
         if meth == "lbfgs":
             out["lbfgs_sweeps"] = dict(TF.LAST_LBFGS_SWEEPS)
+    # the reference's fit_mctm(mesh=) and drift_window_nll(axis=)
+    f = TM.fit_mctm(c, scaler, Y, w, init=p0, steps=20, method="adam", chunk_size=300,
+                    mesh=mesh)
+    out["fit_mctm"] = (f.losses, TM.params_to_numpy(f.params), f.final_nll)
+    out["drift_axis"] = TSt.drift_window_nll(c, scaler, p0, Y, w, chunk=100, mesh=mesh,
+                                             axis="data")
+    try:
+        TSt.drift_window_nll(c, scaler, p0, Y, w, chunk=100, mesh=mesh, axis="model")
+        out["drift_bad_axis"] = "accepted"
+    except ValueError:
+        out["drift_bad_axis"] = "raised"
     ccfg = TCo.CMCTMConfig(J=2, n_features=2, degree=5)
     cscaler = DataScaler(low=inp["clow"], high=inp["chigh"])
     f = TCo.fit_cmctm(ccfg, cscaler, inp["Yc"], inp["Xc"], weights=w, steps=20,
@@ -280,9 +291,10 @@ def mesh_all(mesh, scratch) -> dict:
     return out
 
 
-def dead_peer(mesh):
+def dead_peer(mesh, timeout_ms=None):
     """A kv exchange whose peer never arrives: rank 1 sleeps past the
-    deadline, rank 0's ``kv_allreduce`` must raise ``RuntimeError``."""
+    deadline, rank 0's ``kv_allreduce`` must raise ``RuntimeError``. The
+    deadline is the ``ft`` config's, or the call's ``timeout_ms``."""
     import time
 
     from repro_torch.distributed import kv_allreduce
@@ -292,7 +304,10 @@ def dead_peer(mesh):
         return "slept"
     t0 = time.monotonic()
     try:
-        kv_allreduce([np.ones(1)], mesh)
+        if timeout_ms is None:
+            kv_allreduce([np.ones(1)], mesh)
+        else:
+            kv_allreduce([np.ones(1)], mesh, timeout_ms=timeout_ms)
     except RuntimeError:
         return ("raised", time.monotonic() - t0)
     return "no error"
