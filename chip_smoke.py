@@ -170,7 +170,7 @@ KS = (500, 2000)
 # records (NVIDIA H100 80GB HBM3 at 700.00 W): logged in brackets beside this
 # run's, never in the kernels line, which holds this run's measurements only
 PARENT_DEVICE_MS = {"extremes": 0.06264, "sweep": 0.11590, "gram D=70": 0.02606,
-                    "gram D=140": 0.04617}
+                    "gram D=140": 0.04617, "sweep D=2048": 0.70837}
 WIDE_J = (10, 20)            # table2_covertype.py (J = 10), table5_equity.py (J = 20)
 
 
@@ -2695,10 +2695,16 @@ def phase_kernels_wide_d(dev):
                    lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn),
                    lambda: fused_sweep_ref(SX0, X, None, sw, rws, sgn), library,
                    nbytes=4 * (2 * n * D + 2 * sk * D + 3 * n), flops=3 * n * D)
+    # the front launch (the partition) and the tiles
     r["device_kernels_per_call"] = kernels_per_call(
-        lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn), errs, "sweep D=2048", 1,
+        lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn), errs, "sweep D=2048", 2,
         calls=5)
+    log(f"  sweep D={D}: device {r['device_ms']:.5f} ms (parent "
+        f"[{PARENT_DEVICE_MS['sweep D=2048']}]), {r['device_ms'] / r['library_device_ms']:.3f}× "
+        f"index_add_, {r['bound_ms'] / r['device_ms']:.3f} of its bound; plan "
+        f"{sweep.launch_plan(n, D, 1, 1, sk, 0, torch.cuda.get_device_properties(dev).multi_processor_count)}")
     rows.append(r)
+    rec["sweep_D2048"] = _sweep_wide_cases(X, sw, rws, sgn, SX0, gen, errs)
     # ---- the wide-P route (P = X, d = 2,048) beside the sweep: one-pass
     # with the hull and the moments
     k2 = SELECT_K - int(SELECT_ALPHA * SELECT_K)
@@ -2754,6 +2760,86 @@ def phase_kernels_wide_d(dev):
     if errs:
         fail("phase 9 kernels: " + "; ".join(errs))
     return rows, rec
+
+
+SWEEP_WIDE_Q = 256          # Ω's columns in phase 9's D = 2,048 sweep with Ω
+SWEEP_WIDE_P = (7, 1614)    # P rows' width and directions in the one with P rows
+
+
+def _sweep_wide_cases(X, sw, rws, sgn, SX0, gen, errs) -> dict:
+    """The sweep at D = 2,048 with Ω (q = SWEEP_WIDE_Q: the block CTAs write
+    z) and with P rows (d = 7 beside 1,614 directions and the moments: the
+    block CTAs and the fold), each held to the plain version's bits (SX' on
+    the CPU; z = √w·X or fma_matmul's chain, the extremes, on the card,
+    elementwise or dense as on the CPU), the moments within rtol 1e-6 /
+    atol 1e-4 of float64, a repeated call to the same bits; then the three
+    calls timed in turns by device ms (none, Ω, P, P, Ω, none), with their
+    device kernels a call and bounds."""
+    import torch
+
+    from repro_torch.kernels.extremes.ref import directional_extremes_ref, fma_matmul
+    from repro_torch.kernels.sweep import ops as sweep
+    from repro_torch.kernels.sweep.ref import fused_sweep_ref
+
+    n, D = X.shape
+    sk = SX0.shape[0]
+    q, (d, m) = SWEEP_WIDE_Q, SWEEP_WIDE_P
+    dev = X.device
+    omega = (torch.randn(D, q, generator=gen) / D ** 0.5).to(dev)
+    P = torch.randn(n, d, generator=gen).to(dev)
+    dirs = torch.randn(m, d, generator=gen).to(dev)
+    mom = (torch.zeros(d, device=dev), torch.zeros(d, d, device=dev))
+    calls = {
+        "none": lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn),
+        "omega": lambda: sweep.fused_sweep_update(SX0, X, None, sw, rws, sgn, omega=omega),
+        "p_rows": lambda: sweep.fused_sweep_update(SX0, X, P, sw, rws, sgn, dirs=dirs,
+                                                   moments=mom),
+    }
+    sx_plain = fused_sweep_ref(SX0.cpu(), X.cpu(), None, sw.cpu(), rws.cpu(), sgn.cpu(),
+                               want_z=False)[0].to(dev)
+    Xw = X * sw[:, None]
+    plain_z = {"omega": fma_matmul(Xw, omega), "p_rows": Xw}
+    ext_plain = directional_extremes_ref(P, dirs)
+    P64 = P.double()
+    mom64 = (P64.sum(0), P64.T @ P64)
+    out = {}
+    for tag in ("omega", "p_rows"):
+        got, again = calls[tag](), calls[tag]()
+        torch.cuda.synchronize()
+        flat = lambda o: [o[0], o[1], *(o[2] or ()), *(o[3] or ())]  # noqa: E731
+        res = {"sx_bits": same_bits(got[0], sx_plain), "z_bits": same_bits(got[1], plain_z[tag]),
+               "z_elements_differ": int((got[1].view(torch.int32)
+                                         != plain_z[tag].view(torch.int32)).sum()),
+               "repeat_bits": all(same_bits(a, b) for a, b in zip(flat(got), flat(again))),
+               "max_abs_err": max(max_err(got[0], sx_plain), max_err(got[1], plain_z[tag]))}
+        ok = res["sx_bits"] and res["z_bits"] and res["repeat_bits"]
+        if tag == "p_rows":
+            res["extremes_bits"] = all(same_bits(a, b) for a, b in zip(got[2], ext_plain))
+            res["moments_err"] = max(max_err(a, b) for a, b in zip(got[3], mom64))
+            ok = ok and res["extremes_bits"] and all(
+                close(a, b, rtol=1e-6, atol=1e-4) for a, b in zip(got[3], mom64))
+        if not ok:
+            errs.append(f"sweep D={D} with {tag} disagrees with its plain version: {res}")
+        out[tag] = res
+    order = ("none", "omega", "p_rows", "p_rows", "omega", "none")
+    turns = [device_ms(calls[k], 5) for k in order]
+    for i, tag in enumerate(("none", "omega", "p_rows")):
+        rec = out.setdefault(tag, {})
+        rec["device_ms"] = (turns[i] + turns[5 - i]) / 2
+        rec["ms"] = cuda_ms(calls[tag], iters=5, warmup=1)
+        want = {"none": 2, "omega": 2, "p_rows": 3}[tag]
+        rec["device_kernels_per_call"] = kernels_per_call(calls[tag], errs, f"sweep D={D} {tag}",
+                                                          want, calls=5)
+    io = 2 * n * D + 2 * sk * D + 3 * n  # X, z, SX read and written, sw, rows, signs
+    out["none"]["bound_ms"], out["none"]["bound_by"] = bound_ms(4 * io, 3 * n * D)
+    out["omega"]["bound_ms"], out["omega"]["bound_by"] = bound_ms(
+        4 * (io - n * D + n * q + D * q), 2 * n * D * q + 2 * n * D)
+    out["p_rows"]["bound_ms"], out["p_rows"]["bound_by"] = bound_ms(
+        4 * (io + n * d + m * d + 4 * m), 3 * n * D + 2 * m * n * d + n * d * (d + 3))
+    out["turns_device_ms"] = turns
+    log(f"  sweep D={D} beside Ω (q = {q}) and P rows (d = {d}, {m:,} directions): "
+        f"{json.dumps(out)}")
+    return out
 
 
 def _phase9_select(dev, census, errs):

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "repro_extremes": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "repro_sweep": (
         _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     "repro_flash_attention": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F,
@@ -70,7 +70,8 @@ CUDA_CONSTANTS = {
     "gram.cu": {"kMaxD": 64, "kWideMaxD": 160, "kWideCluster": 8, "kWideMaxGroups": 16,
                 "kWideScratchFloats": 458_752, "kLargeTile": 128, "kLargeStageRows": 32,
                 "kLargeCtasPerSm": 1, "kLargeMaxSplits": 64},
-    "sweep.cu": {"kSlabCols": 160, "kXwStageFloats": 12_288},
+    "sweep.cu": {"kSlabCols": 160, "kXwStageFloats": 12_288, "kTileMaxThreads": 256,
+                 "kTileEntries": 256, "kMaxParts": 64, "kPartPoints": 128},
 }
 
 

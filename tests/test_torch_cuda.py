@@ -333,18 +333,26 @@ def test_sweep_kernel(dev, c, r, m, q, moments):
         ops.fused_sweep_update(SX.double(), X, P, sw, rows, signs)
 
 
-def _device_kernels(fn, calls=4):
-    """Device kernels launched per call of ``fn`` (torch.profiler)."""
+def _device_kernels(fn, calls=4, tries=5):
+    """Device kernels launched per call of ``fn`` (torch.profiler). A window
+    with no kernel, or a count that is no multiple of ``calls``, lost kernel
+    records (the profiler drops some late in a long run, as
+    chip_smoke.clean_window finds), so it is taken again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        if n and n % calls == 0:
+            break
+    return n / calls
 
 
 def _same_bits(a, b):
@@ -622,17 +630,33 @@ def test_leverage_and_sample_on_the_card(dev):
     assert bool(torch.isfinite(got).all())
 
 
-def test_sweep_kernel_with_every_point_in_one_bucket(dev):
-    """All 16,384 points in bucket 3 of 784: one sketch CTA flushes its range
-    in parts, and SX' keeps the plain version's bits."""
+@pytest.mark.parametrize("D", [14, 2048])
+def test_sweep_kernel_with_every_point_in_one_bucket(dev, D):
+    """All points in bucket 3 of 784: at D = 14 (16,384 points) one sketch CTA
+    flushes its range in parts; at D = 2,048 (4,096 points) one range's
+    tiles take every point of every partition unit. SX' (and z past D =
+    160) keep the plain version's bits, and a repeated call its own."""
     from repro_torch.kernels.sweep import ops, ref
 
-    SX, X, P, sw, rows, signs, _, _, _ = _sweep_inputs(2, 16_384, 784, 0, None, 3)
+    if D == 14:
+        SX, X, P, sw, rows, signs, _, _, _ = _sweep_inputs(2, 16_384, 784, 0, None, 3)
+    else:
+        g = _g(D)
+        X, sw = torch.rand(4096, D, generator=g), torch.rand(4096, generator=g)
+        signs = (torch.randint(0, 2, (4096,), generator=g) * 2 - 1).float()
+        SX, rows = torch.randn(784, D, generator=g), torch.zeros(4096, dtype=torch.int32)
     rows[:] = 3
+    want_z = D > 160
+    wide = ops.PATH_LAUNCHES["wide"]
     got = ops.fused_sweep_update(SX.to(dev), X.to(dev), None, sw.to(dev), rows.to(dev),
-                                 signs.to(dev), want_z=False)
-    assert _same_bits(got[0], ref.fused_sweep_ref(SX, X, None, sw, rows, signs,
-                                                  want_z=False)[0])
+                                 signs.to(dev), want_z=want_z)
+    exp = ref.fused_sweep_ref(SX, X, None, sw, rows, signs, want_z=want_z)
+    assert _same_bits(got[0], exp[0])
+    assert not want_z or _same_bits(got[1], exp[1])
+    again = ops.fused_sweep_update(SX.to(dev), X.to(dev), None, sw.to(dev), rows.to(dev),
+                                   signs.to(dev), want_z=want_z)
+    assert _same_bits(again[0], got[0])
+    assert ops.PATH_LAUNCHES["wide"] - wide == (2 if want_z else 0)
 
 
 def test_scoring_on_the_card_matches_the_cpu_path(dev):
@@ -915,44 +939,65 @@ def test_resumed_stream_is_bit_identical_on_the_card(dev, tmp_path):
     np.testing.assert_array_equal(a.weights, b.weights)
 
 
-@pytest.mark.parametrize("D,d,m,q", [(176, 7, 40, None), (176, 16, 0, 9), (2048, 4, 33, None),
-                                     (2048, 1, 0, 5)])
-def test_sweep_kernel_at_any_width(dev, D, d, m, q):
-    """X wider than one 160-column slab of the sketch CTAs (D = 176, and
-    2,048, where the block CTAs stage no √w·X): SX' to the bit and z within
-    1e-6 of the plain version on the CPU (the bucket order of index_add,
-    the fma chain of z), the extremes to the bit and the moments within
-    rtol 1e-6 / atol 1e-4 of float64; the same bits on a repeated call."""
+@pytest.mark.parametrize("D,d,m,q,c,sk", [
+    (176, 7, 40, None, 3001, 512), (176, 16, 0, 9, 3001, 512), (2048, 4, 33, None, 3001, 512),
+    (2048, 1, 0, 5, 3001, 512), (2050, 7, 40, None, 3001, 512), (2048, 0, 0, None, 4096, 16_384),
+    (2048, 0, 0, 16, 3001, 512), (2048, 7, 33, 16, 3001, 512),
+])
+def test_sweep_kernel_at_any_width(dev, monkeypatch, D, d, m, q, c, sk):
+    """X wider than kSlabCols (D = 176, 2,048, and 2,050: the tiles' columns
+    predicated one by one), through the partition and the sketch tiles: SX'
+    and z to the bit against the plain version on the CPU (the bucket order
+    of index_add, the fma chain of z), from a 4,096-point chunk into a
+    16,384-bucket sketch (most buckets empty) too, and with Ω with and
+    without P rows (d = 0: no P); the extremes to the bit and the moments
+    within rtol 1e-6 / atol 1e-4 of float64; the same bits on a repeated
+    call; one wide call each, and the device kernels it launches (the front
+    and the tiles, and a fold with P rows). No library sort, product or
+    index_add and no plain version is reached on the card."""
     from repro_torch.kernels.sweep import ops, ref
 
-    c, sk = 3001, 512
     g = _g(D + d)
-    X, P = torch.rand(c, D, generator=g), torch.randn(c, d, generator=g)
+    X, P = torch.rand(c, D, generator=g), torch.randn(c, d, generator=g) if d else None
     sw = torch.rand(c, generator=g)
     rows = torch.randint(0, sk, (c,), generator=g).int()
     signs = (torch.randint(0, 2, (c,), generator=g) * 2 - 1).float()
     dirs = torch.randn(m, d, generator=g) if m else None
     omega = torch.randn(D, q, generator=g) if q else None
     SX = torch.randn(sk, D, generator=g)
-    mom = (torch.zeros(d), torch.zeros(d, d))
+    mom = (torch.zeros(d), torch.zeros(d, d)) if d else None
     cuda = [None if t is None else t.to(dev) for t in (SX, X, P, sw, rows, signs, dirs, omega)]
-    momc = tuple(t.to(dev) for t in mom)
-    got = ops.fused_sweep_update(*cuda[:6], dirs=cuda[6], omega=cuda[7], n_valid=c - 5,
-                                 moments=momc)
+    momc = None if mom is None else tuple(t.to(dev) for t in mom)
+
+    def call():
+        return ops.fused_sweep_update(*cuda[:6], dirs=cuda[6], omega=cuda[7], n_valid=c - 5,
+                                      moments=momc)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the sweep past kSlabCols left its kernels")
+
+    wide = ops.PATH_LAUNCHES["wide"]
+    with monkeypatch.context() as mp:
+        for name in ("sort", "argsort", "matmul", "mm", "index_add"):
+            mp.setattr(torch, name, refuse)
+        for name in ("index_add_", "index_add", "sort", "argsort", "__matmul__"):
+            mp.setattr(torch.Tensor, name, refuse)
+        mp.setattr(ops, "fused_sweep_ref", refuse)
+        got, again = call(), call()
+    assert ops.PATH_LAUNCHES["wide"] - wide == 2
     exp = ref.fused_sweep_ref(SX, X, P, sw, rows, signs, omega=omega)
-    assert _same_bits(got[0], exp[0])
-    torch.testing.assert_close(got[1].cpu(), exp[1], rtol=1e-6, atol=1e-6)
+    assert _same_bits(got[0], exp[0]) and _same_bits(got[1], exp[1])
     if m:
         ext = ref.fused_sweep_ref(*cuda[:6], dirs=cuda[6], n_valid=c - 5, want_z=False)[2]
         assert all(_same_bits(a, b) for a, b in zip(got[2], ext))
-    e64 = ref.fused_sweep_ref(SX.double(), X.double(), P.double(), sw.double(), rows,
-                              signs.double(), moments=tuple(t.double() for t in mom),
-                              want_z=False)[3]
-    for a, b in zip(got[3], e64):
-        torch.testing.assert_close(a.cpu().double(), b, rtol=1e-6, atol=1e-4)
-    again = ops.fused_sweep_update(*cuda[:6], dirs=cuda[6], omega=cuda[7], n_valid=c - 5,
-                                   moments=momc)
+    if d:
+        e64 = ref.fused_sweep_ref(SX.double(), X.double(), P.double(), sw.double(), rows,
+                                  signs.double(), moments=tuple(t.double() for t in mom),
+                                  want_z=False)[3]
+        for a, b in zip(got[3], e64):
+            torch.testing.assert_close(a.cpu().double(), b, rtol=1e-6, atol=1e-4)
     assert _same_bits(again[0], got[0]) and _same_bits(again[1], got[1])
+    assert _device_kernels(call) == 2 + (1 if d else 0)
 
 
 @pytest.mark.parametrize("strategy", ["one-pass", "two-pass-sketched"])

@@ -27,6 +27,7 @@ from repro.kernels.extremes.ops import directional_extremes  # noqa: E402
 from repro.kernels.gram.ops import gram_matrix  # noqa: E402
 from repro.kernels.sweep.ops import fused_sweep_update  # noqa: E402
 from repro_torch.core import scoring as TS  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.bernstein import ops as tbern  # noqa: E402
 from repro_torch.kernels.extremes import ops as text  # noqa: E402
 from repro_torch.kernels.extremes.ref import direction_scores  # noqa: E402
@@ -436,6 +437,119 @@ def test_bucket_owner_sketch_order_equals_plain_version(sk, D, r, skew):
                                step=8 * max(256, 32 * plan["warps"]))
     ref = fused_sweep_ref(SX, X, None, sw, rows, signs, want_z=False)[0]
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _partition_tiles_sketch(SX, X, sw, rows, signs, plan):
+    """(SX', z) in the order of csrc/sweep.cu past kSlabCols. The partition:
+    unit g is W warps, warp w taking part_pts points from (g·W + w)·part_pts;
+    each warp counts its points by range row // bk into cell (range, w), the
+    unit scans its cells in (range, warp) order, and each warp walks its
+    points again 32 at a time (a step), a point's place its cell's cursor
+    plus its rank among the step's points of that range; cell (r, W − 1)
+    ends as range r's segment end. The tiles: per (range, slab of 4·T
+    columns), the segment of every unit in unit order (the bisection over
+    the scanned segment lengths), each entry's x once: z = √w·x, and
+    sign·(√w·x) added to its bucket's row in list order, from the carry.
+    SX' and z start as NaN, so a column no slab covers shows."""
+    bk, nr, T, slabs = plan["bk"], plan["ns"], plan["tile_threads"], plan["slabs"]
+    parts, W, S = plan["parts"], plan["part_warps"], plan["part_pts"]
+    Xn, swn, sgn = X.numpy(), sw.numpy(), signs.numpy()
+    rows = rows.numpy().astype(np.int64)
+    c, D = Xn.shape
+    sk = SX.shape[0]
+    lst = np.full(max(c, 1), -1, dtype=np.int64)
+    end = np.zeros((parts, nr), dtype=np.int64)
+    for g in range(parts):
+        base = g * W * S
+        cells = np.zeros((nr, W), dtype=np.int64)
+        for w in range(W):
+            p0 = base + w * S
+            cells[:, w] = np.bincount(rows[p0:min(c, p0 + S)] // bk, minlength=nr)
+        cur = (np.cumsum(cells.ravel()) - cells.ravel()).reshape(nr, W)
+        for w in range(W):
+            p0, p1 = base + w * S, min(c, base + w * S + S)
+            for t0 in range(p0, max(p0, p1), 32):
+                step = rows[t0:min(p1, t0 + 32)] // bk
+                for lane, r in enumerate(step):
+                    lst[base + cur[r, w] + int((step[:lane] == r).sum())] = t0 + lane
+                for r in np.unique(step):
+                    cur[r, w] += int((step == r).sum())
+        end[g] = cur[:, W - 1]
+    out = np.full(SX.shape, np.nan, dtype=np.float32)
+    z = np.full(Xn.shape, np.nan, dtype=np.float32)
+    SXn = SX.numpy()
+    for r in range(nr):
+        lo, nb = r * bk, min(bk, sk - r * bk)
+        beg = end[:, r - 1] if r else np.zeros(parts, dtype=np.int64)
+        pre = np.concatenate([[0], np.cumsum(end[:, r] - beg)])
+        ents = []
+        for e in range(int(pre[-1])):
+            u = int(np.searchsorted(pre[:-1], e, side="right")) - 1
+            ents.append(int(lst[u * W * S + beg[u] + e - pre[u]]))
+        for s_ in range(slabs):
+            cols = slice(s_ * 4 * T, min(D, (s_ + 1) * 4 * T))
+            acc = SXn[lo:lo + nb, cols].copy()
+            for pt in ents:
+                xw = Xn[pt, cols] * swn[pt]
+                z[pt, cols] = xw
+                acc[rows[pt] - lo] = acc[rows[pt] - lo] + sgn[pt] * xw
+            out[lo:lo + nb, cols] = acc
+    return torch.from_numpy(out), torch.from_numpy(z)
+
+
+@pytest.mark.parametrize("D,sk,c,case", [
+    (161, 16_384, 4096, "sk = 4c"), (176, 16_384, 300, "more buckets than points"),
+    (2048, 512, 1200, "one bucket"), (2050, 512, 777, "n_valid < c"), (176, 512, 4096, "skew"),
+    (161, 512, 0, "empty chunk"),
+])
+def test_partition_tiles_sketch_order_equals_plain_version(D, sk, c, case):
+    """Past kSlabCols: the stable partition by bucket range and the sketch
+    tiles, with the plan the wrapper hands the kernel, give the bits of
+    ``fused_sweep_ref``'s SX' and z from a nonzero carry: a sketch 4× the
+    chunk, more buckets than points, every point in one bucket, D no
+    multiple of 4 with n_valid < c (the sketch takes every row), 8 buckets
+    for 4,096 points, and an empty chunk."""
+    rng = np.random.default_rng(D + sk + c)
+    X = torch.from_numpy(rng.standard_normal((c, D)).astype(np.float32))
+    sw = torch.from_numpy(rng.uniform(0.0, 2.0, c).astype(np.float32))
+    hi = {"one bucket": 1, "skew": 8}.get(case, sk)
+    rows = torch.from_numpy((rng.integers(0, hi, c) + (sk - hi) // 2).astype(np.int32))
+    signs = torch.from_numpy((rng.integers(0, 2, c) * 2 - 1).astype(np.float32))
+    SX = torch.from_numpy(rng.standard_normal((sk, D), dtype=np.float32))
+    plan = tsweep.launch_plan(c, D, 1, 1, sk, 0, 132)
+    got = _partition_tiles_sketch(SX, X, sw, rows, signs, plan)
+    ref = fused_sweep_ref(SX, X, None, sw, rows, signs, n_valid=max(0, c - 5))
+    for g, e in zip(got, ref[:2]):
+        assert torch.equal(g.view(torch.int32), e.view(torch.int32))
+
+
+@pytest.mark.parametrize("c,D,sk", [(16_384, 2048, 16_384), (16_384, 300, 4096), (3001, 176, 512),
+                                    (3001, 2048, 512), (4096, 161, 16_384), (777, 2050, 512),
+                                    (0, 161, 512), (65_536, 2048, 16_384), (16_384, 2048, 1)])
+def test_sweep_wide_plan_covers_every_bucket_and_column(c, D, sk):
+    """The plan past kSlabCols at the phase-9 shape (D 2,048, sketch 16,384),
+    the timed D 300 shape and the test shapes: ranges of 4, 8 or 16 buckets
+    cover every bucket once, slabs of 4·T columns cover D, the units cover
+    the chunk, and the front launch's block CTAs (with P rows of d = 16 and
+    staged √w·X at worst) and a tile's static shared memory fit the H100."""
+    const = _lib.CUDA_CONSTANTS["sweep.cu"]
+    tile_smem = 4 * (2 * const["kMaxParts"] + 1) + 16 * const["kTileEntries"]
+    for r, d, m in ((1, 1, 0), (1, 7, 1614), (2, 16, 130)):
+        plan = tsweep.launch_plan(c, D, r, d, sk, m, 132)
+        bk, nr, T, slabs = plan["bk"], plan["ns"], plan["tile_threads"], plan["slabs"]
+        assert bk in (4, 8, 16) and nr * bk >= sk > (nr - 1) * bk
+        assert T % 32 == 0 and 32 <= T <= tsweep.WIDE_TILE_THREADS
+        assert slabs * 4 * T >= D > (slabs - 1) * 4 * T
+        assert 1 <= plan["parts"] <= 64 and plan["part_pts"] % 32 == 0
+        assert plan["parts"] * plan["part_warps"] * plan["part_pts"] >= c
+        threads = max(256, 32 * plan["warps"]) if m else 256
+        assert plan["part_warps"] == threads // 32  # the front launch's warps
+        assert plan["nblk"] * plan["pb"] >= c and plan["pb"] * r <= tsweep.MAX_BLOCK_ROWS
+        staged = plan["pb"] * D if plan["pb"] * D <= 12_288 else 0
+        front = 4 * (plan["pb"] * r * (-(-d // 4) * 4) + staged + threads)
+        assert front <= 232_448 and tile_smem <= 48 * 1024  # a tile's is static
+    if (c, D, sk) == (16_384, 2048, 16_384):
+        assert (bk, nr, T, slabs, plan["parts"], plan["part_pts"]) == (16, 1024, 128, 4, 16, 128)
 
 
 def _tile_rescan_extremes(P, dirs, n_valid, *, rb, tile, reverse_fold):
