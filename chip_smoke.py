@@ -2,9 +2,10 @@
 NVIDIA H100: builds the kernels from this checkout's sources, holds each
 kernel against its plain PyTorch version at its path's shapes, drives the
 Algorithm 1 path end to end through ``repro_torch.launch.train_mctm``
-(two-pass, then one-pass) and the LM serving path through ``ServeEngine`` at
-full width (tinyllama-1.1b, then mamba2-370m), and checks that every kernel
-of each path ran.
+(two-pass, then one-pass), the LM serving path through ``ServeEngine`` and
+the LM training path through ``repro_torch.launch.train`` at full width
+(tinyllama-1.1b, then mamba2-370m), and checks that every kernel of each
+path ran.
 
     python3 chip_smoke.py
 
@@ -138,9 +139,26 @@ Phases (any failure exits nonzero):
      coresets to the same bits on every rank and their collectives to one
      fold a sweep and one gather pair; a crashed segmented sweep at world
      2 resumes to the same bits; per-rank ``build_s`` and fold bytes;
+ 12. LM training through ``launch/train.py``: tinyllama-1.1b and mamba2-370m
+     at their published widths and depths, bf16 activations and float32
+     masters (``--coreset l2-hull --coreset-k 512 --batch 8 --seq 64``, 30
+     steps at lr 1e-3): finite losses, the last 5 steps' mean below the
+     first 5's, no launch of flash_attention or ssd (training runs the plain
+     attention and SSD scan, as the reference trains through its jnp twins)
+     and gram and extremes launched in the coreset stage; step ms (median of
+     steps 5–30), tokens/s, peak memory, the device's busy share over a
+     3-step profiler window, ``select_s``; ``examples/train_lm_coreset.py``'s
+     comparison at tinyllama's full width (k = 256 of 2,048 examples
+     featurized by the mean of the embeddings, D = 2,048: gram's large body
+     and the wide-P route; l2-hull against uniform from the same weights,
+     the gap printed, no gate on its sign); a crash-and-resume drill on
+     mamba2-370m (crashed at step 7 of 10, resumed from step 5's checkpoint
+     to the straight run's bits); the reduced configs in f32, 5 steps on the
+     card and on the CPU from the same weights and batches, losses within
+     1e-4 relative;
   5. launch census: each kernel counted over its own path's run, and over
-     each of phases 6–11's paths (``launches_phase6`` to
-     ``launches_phase11``; graph replays of the serving engine counted
+     each of phases 6–12's paths (``launches_phase6`` to
+     ``launches_phase12``; graph replays of the serving engine counted
      apart).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
@@ -3451,6 +3469,268 @@ def phase_mesh(dev, scratch: str):
     return census, rec
 
 
+# ---------------------------------------------------------------- phase 12
+
+TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m")
+TRAIN_STEPS = 30
+TRAIN_LR = 1e-3                      # the phase's learning rate (launch/train.py's default: 3e-3)
+TRAIN_ARGV = ["--coreset", "l2-hull", "--coreset-k", "512", "--batch", "8", "--seq", "64",
+              "--lr", str(TRAIN_LR), "--log-every", "0"]
+TRAIN_REDUCED = False                # a CPU rehearsal sets True (and the argv's --device)
+TRAIN_PROFILE_STEPS = 3
+EXAMPLE_CORPUS = (16, 128, 32)       # examples/train_lm_coreset.py: 16 batches of 128 × 32 tokens
+EXAMPLE_K = 256
+EXAMPLE_BATCH = 16
+EXAMPLE_STEPS = 30
+DRILL_STEPS, DRILL_EVERY, DRILL_CRASH = 10, 5, 7   # mamba2-370m: crash at step 7, resume from 5
+SMALL_STEPS = 5
+SMALL_REL = 1e-4                     # reduced f32 losses, card against CPU
+
+
+def lm_kernel_modules() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd
+
+    return {"flash_attention": fa, "ssd": ssd}
+
+
+def reset_all_counts() -> None:
+    reset_counts()
+    for mod in lm_kernel_modules().values():
+        mod.LAUNCHES = 0
+        mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
+
+
+def read_all_counts() -> dict:
+    out = read_counts()
+    out.update({k: mod.LAUNCHES for k, mod in lm_kernel_modules().items()})
+    return out
+
+
+def _lm_config(arch: str):
+    from repro_torch.configs import get_config, get_reduced_config
+
+    return get_reduced_config(arch) if TRAIN_REDUCED else get_config(arch)
+
+
+def _train_argv(arch: str, steps: int) -> list:
+    return TRAIN_ARGV + ["--arch", arch, "--steps", str(steps)] + (
+        ["--reduced"] if TRAIN_REDUCED else [])
+
+
+def _falling(losses) -> bool:
+    import numpy as np
+
+    losses = np.asarray(losses)
+    return bool(np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean())
+
+
+def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
+    """``launch/train.py``'s path for TRAIN_STEPS steps, then a profiler
+    window over TRAIN_PROFILE_STEPS more steps of the same run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.run(train.parse_args(_train_argv(arch, TRAIN_STEPS)))
+    _sync()
+    run_s = time.perf_counter() - t0
+    counts = read_all_counts()
+    census[f"train {arch}"] = counts
+    rec = dict(run.record)
+    step_ms = np.asarray(rec.pop("step_s")) * 1e3
+    rec.update({
+        "run_s": run_s, "step_ms_first": float(step_ms[0]),
+        "step_ms_median_5_30": float(np.median(step_ms[4:])),
+        "tokens_per_s": rec["tokens_per_step"] / float(np.median(step_ms[4:])) * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "params": sum(p.numel() for p in run.model.parameters()),
+        "launches": counts,
+    })
+    if not _falling(rec["losses"]):
+        errs.append(f"{arch}: losses not finite or not falling {rec['losses']}")
+    if counts["ssd"] or counts["flash_attention"]:
+        errs.append(f"{arch}: the LM kernels launched in training {counts}")
+    if counts["gram"] <= 0 or counts["extremes"] <= 0:
+        errs.append(f"{arch}: the coreset stage's kernels did not all run {counts}")
+    state = run.state
+
+    def steps():
+        nonlocal state
+        for i in range(TRAIN_PROFILE_STEPS):
+            state, m = run.step_fn(state, run.batch_fn(TRAIN_STEPS + i))
+        float(m["loss"])
+
+    prof = profile_window(steps)
+    rec["profile_3_steps"] = prof
+    rec["device_busy_share"] = 1.0 - prof["device_idle_share"]
+    # the profiler slows the host's issue, so the window's wall exceeds the
+    # unprofiled steps': the device's time a step against those too
+    rec["device_ms_per_step"] = prof["device_busy_ms"] / TRAIN_PROFILE_STEPS
+    rec["device_share_of_step"] = rec["device_ms_per_step"] / rec["step_ms_median_5_30"]
+    if read_all_counts()["ssd"] or read_all_counts()["flash_attention"]:
+        errs.append(f"{arch}: the LM kernels launched in the profiled steps")
+    del run, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _example_comparison(dev, census: dict, errs: list) -> dict:
+    """``examples/train_lm_coreset.py`` at tinyllama-1.1b's full width: a
+    2,048-example corpus featurized by the mean of the embeddings (D =
+    d_model), k = 256 by l2-hull and by uniform, each trained from the same
+    weights; the gap of the last-10 means, no gate on its sign."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import CoresetSelector, subset_loader
+    from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, cosine_warmup
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = _lm_config("tinyllama-1.1b")
+    n_batches, per, seq = EXAMPLE_CORPUS
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq)
+    corpus = [sample_batch(stream, per, s) for s in range(n_batches)]
+    data = {k: np.concatenate([c[k] for c in corpus]) for k in ("tokens", "labels")}
+    out = {"D": cfg.d_model, "n": int(data["tokens"].shape[0]), "k": EXAMPLE_K}
+    for method in ("l2-hull", "uniform"):
+        model = build_model(cfg, device=dev, seed=0, train=True)
+        emb = model.emb["embed"].detach()
+
+        def featurize(toks):
+            return emb[torch.as_tensor(toks, device=emb.device).long()].mean(1)
+
+        sel = CoresetSelector(featurize=featurize, method=method, device=dev)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        sub = sel.select(data["tokens"], k=EXAMPLE_K, generator=torch.Generator().manual_seed(1))
+        _sync()
+        sel_s = time.perf_counter() - t0
+        census[f"example {method}"] = counts = read_all_counts()
+        fn = subset_loader(data, sub, batch=EXAMPLE_BATCH)
+        opt = chain(clip_by_global_norm(1.0), adamw(cosine_warmup(TRAIN_LR, 20, EXAMPLE_STEPS)))
+        state, step = init_train_state(model.param_tree(), opt), make_train_step(model, opt)
+        losses = []
+        for i in range(EXAMPLE_STEPS):
+            state, m = step(state, fn(i))
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        out[method] = {"select_s": sel_s, "subset": sub.size, "first_loss": losses[0],
+                       "last10_mean": float(np.mean(losses[-10:])), "launches": counts}
+        if sub.size != EXAMPLE_K or not np.isfinite(losses).all():
+            errs.append(f"example {method}: {sub.size} examples, losses {losses}")
+        if method == "l2-hull" and (counts["gram_large"] <= 0 or counts["extremes_wide"] <= 0):
+            errs.append(f"example l2-hull at D = {cfg.d_model}: gram's large body or the "
+                        f"wide-P route did not run {counts}")
+        del model, state, emb, sel
+        torch.cuda.empty_cache()
+    out["gap_uniform_minus_l2hull"] = out["uniform"]["last10_mean"] - out["l2-hull"]["last10_mean"]
+    return out
+
+
+def _resume_drill(dev, scratch: str, census: dict, errs: list) -> dict:
+    """mamba2-370m through the driver: a straight run of DRILL_STEPS steps;
+    the same run with a checkpoint every DRILL_EVERY steps crashed at step
+    DRILL_CRASH by the ft layer's injection, then resumed from its
+    checkpoint: the resumed losses must equal the straight run's bits."""
+    import torch
+
+    from repro_torch.ft import FailureSimulator, InjectedFailure
+    from repro_torch.ft.config import ft_overrides
+    from repro_torch.launch import train
+
+    argv = _train_argv("mamba2-370m", DRILL_STEPS) + ["--ckpt-every", str(DRILL_EVERY)]
+    ckpt = os.path.join(scratch, "lm_drill")
+    t0 = time.perf_counter()
+    straight = train.main(argv)["losses"]
+    straight_s = time.perf_counter() - t0
+    crashed = False
+    t0 = time.perf_counter()
+    with ft_overrides(simulator=FailureSimulator().inject("fit", DRILL_CRASH)):
+        try:
+            train.main(argv + ["--ckpt-dir", ckpt])
+        except InjectedFailure:
+            crashed = True
+    rec = train.main(argv + ["--ckpt-dir", ckpt, "--resume"])
+    _sync()
+    drill_s = time.perf_counter() - t0
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    same = rec["losses"] == straight[DRILL_EVERY:]
+    out = {"crashed_at": DRILL_CRASH, "resumed_from": rec["start"], "same_bits": same,
+           "straight_s": straight_s, "crash_and_resume_s": drill_s,
+           "checkpoint_bytes": ckpt_bytes, "losses": rec["losses"]}
+    if not crashed or rec["start"] != DRILL_EVERY or not same:
+        errs.append(f"resume drill: crashed {crashed}, resumed from {rec['start']}, "
+                    f"losses {rec['losses']} vs straight {straight[DRILL_EVERY:]}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_agreement(dev, errs: list) -> dict:
+    """The reduced configs in f32, SMALL_STEPS train steps on the card and on
+    the CPU from the same weights and batches: losses within SMALL_REL."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, cosine_warmup
+    from repro_torch.train import init_train_state, make_train_step
+
+    out = {}
+    for arch in TRAIN_MODELS:
+        cfg = get_reduced_config(arch).replace(dtype="float32")
+        stream = TokenStreamConfig(cfg.vocab_size, 64)
+        losses = {}
+        for where in ("cpu", str(dev)):
+            model = build_model(cfg, device="cpu", seed=0, train=True).to(where)
+            opt = chain(clip_by_global_norm(1.0), adamw(cosine_warmup(3e-3, 2, SMALL_STEPS)))
+            state, step = init_train_state(model.param_tree(), opt), make_train_step(model, opt)
+            ls = []
+            for i in range(SMALL_STEPS):
+                state, m = step(state, sample_batch(stream, 8, i))
+                ls.append(float(m["loss"]))
+            losses[where] = np.asarray(ls)
+        rel = float(np.max(np.abs(losses[str(dev)] - losses["cpu"]) / np.abs(losses["cpu"])))
+        out[arch] = {"max_rel_err": rel, "cpu": losses["cpu"].tolist()}
+        log(f"small LM training {arch}: card vs CPU max rel err {rel:.3e}")
+        if rel > SMALL_REL:
+            errs.append(f"reduced {arch} training on the card disagrees with the CPU: {rel}")
+    return out
+
+
+def phase_lm_training(dev, scratch: str):
+    """Phase 12: the LM training path (launch/train.py) at full width with
+    the coreset stage, the example's comparison, the resume drill and the
+    reduced configs card against CPU; returns the census and the record."""
+    census, errs = {}, []
+    rec = {"small": _small_agreement(dev, errs)}
+    for arch in TRAIN_MODELS:
+        rec[arch] = r = _train_driver(dev, arch, census, errs)
+        log(f"train {arch}: step {r['step_ms_median_5_30']:.2f} ms (median of steps 5–30), "
+            f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_memory_gb']:.2f} GB, busy share "
+            f"{r['device_busy_share']:.3f} (device {r['device_ms_per_step']:.2f} ms a step, "
+            f"{r['device_share_of_step']:.3f} of an unprofiled one), select_s "
+            f"{r['select_s']:.3f}, losses "
+            f"{r['losses'][0]:.4f} → {r['losses'][-1]:.4f}, stage launches "
+            f"{json.dumps(r['launches'])}")
+    rec["example"] = _example_comparison(dev, census, errs)
+    log("example (l2-hull vs uniform, k = 256 of 2,048): " + json.dumps(rec["example"]))
+    rec["drill"] = _resume_drill(dev, scratch, census, errs)
+    log("resume drill mamba2-370m: " + json.dumps(
+        {k: v for k, v in rec["drill"].items() if k != "losses"}))
+    if errs:
+        fail("phase 12: " + "; ".join(errs))
+    return census, rec
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
@@ -3501,6 +3781,12 @@ def main() -> None:
     p11_census, p11_rec = phase_mesh(dev, mesh_scratch)
     shutil.rmtree(mesh_scratch, ignore_errors=True)
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    lm_scratch = os.path.join(ROOT, "build", "chip_smoke_lm")
+    shutil.rmtree(lm_scratch, ignore_errors=True)
+    p12_census, p12_rec = phase_lm_training(dev, lm_scratch)
+    shutil.rmtree(lm_scratch, ignore_errors=True)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
     launches["gram_large"] = p9_census["select D=2048 two-pass"]["gram_large"]
     launches["sweep_wide"] = p9_census["select D=2048 one-pass"]["sweep_wide"]
     for row in kernels:
@@ -3510,7 +3796,8 @@ def main() -> None:
         name = "gram_cluster" if row["name"] == "gram" else row["name"]
         for key, cen in (("launches_phase6", core_census), ("launches_phase7", ft_census),
                          ("launches_phase8", stream_census), ("launches_phase9", p9_census),
-                         ("launches_phase10", p10_census), ("launches_phase11", p11_census)):
+                         ("launches_phase10", p10_census), ("launches_phase11", p11_census),
+                         ("launches_phase12", p12_census)):
             row[key] = {path: counts[name] for path, counts in cen.items() if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
@@ -3520,7 +3807,8 @@ def main() -> None:
                    "ft_census": ft_census, "streaming": stream_rec,
                    "stream_census": stream_census, "pipeline": p9_rec,
                    "pipeline_census": p9_census, "serving": p10_rec,
-                   "serving_census": p10_census, "mesh": p11_rec, "mesh_census": p11_census},
+                   "serving_census": p10_census, "mesh": p11_rec, "mesh_census": p11_census,
+                   "lm_training": p12_rec, "lm_training_census": p12_census},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

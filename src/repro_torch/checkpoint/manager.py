@@ -16,7 +16,9 @@ keypath as the reference's ``jax.tree_util`` keypaths do (dict keys, field
 names, list indices), so a state of the same structure has the same leaf
 names in both packages and either restores the other's checkpoint.
 ``None`` is an empty subtree, as in jax. ``restore(target)`` validates
-shapes and puts each leaf back on the target leaf's device and dtype.
+shapes and puts each leaf back on the target leaf's device and dtype; an
+``nn.Parameter`` leaf (a model's weight) is restored in place, so the
+model that holds it computes with the restored values.
 """
 from __future__ import annotations
 
@@ -96,6 +98,10 @@ def _to_host(x) -> np.ndarray:
 def _like(target, arr: np.ndarray):
     """``arr`` in the flavour of the target leaf: a tensor on its device and
     dtype, a numpy array of its dtype, or a Python/numpy scalar of its type."""
+    if isinstance(target, torch.nn.Parameter):
+        with torch.no_grad():
+            target.copy_(torch.as_tensor(arr))
+        return target
     if isinstance(target, torch.Tensor):
         return torch.as_tensor(arr).to(device=target.device, dtype=target.dtype)
     if isinstance(target, np.ndarray):

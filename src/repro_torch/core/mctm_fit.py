@@ -82,7 +82,7 @@ from repro_torch.ft import RunSupervisor
 from repro_torch.ft.config import get_ft_config
 from repro_torch.ft.failure import NonFiniteError
 from repro_torch.optim import Optimizer, adamw, apply_updates, scale_updates
-from repro_torch.train.loop import restore_train_state, train_loop
+from repro_torch.train import TrainState, restore_train_state, train_loop
 
 __all__ = [
     "MCTMDensityModel",
@@ -260,17 +260,6 @@ def method_batch_plan(method: str, n: int, weights, chunk_size: int | None,
     if method == "lbfgs":
         return w, total_w, chunk, mb_full, None, total_w
     return w, total_w, chunk, mb_full, None, total_w / mb_full
-
-
-class TrainState(NamedTuple):
-    """The adam fit's state: the step (the schedule and the bias correction
-    read it), the parameters (the caller's tuple type) and the optimizer's
-    moments, each a ``model.leaf_type`` of the parameters' fields — the
-    reference's ``TrainState`` layout, leaf for leaf."""
-
-    step: int
-    params: object
-    opt_state: dict
 
 
 def fit_density_model(

@@ -45,7 +45,9 @@ def flash_attention(
     (B, S, H, d) in q's dtype. Causal masks key j > query i. Inputs are read
     through their strides (unit stride along d); where the tensor-core body
     takes them, an input whose base or strides are not 16-byte aligned is
-    copied first. The output is contiguous."""
+    copied first. The output is contiguous. The kernel has no backward: an
+    input on the CUDA route that requires grad raises (training attends
+    through ``models.layers._sdpa``)."""
     global LAUNCHES
     if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(
@@ -58,6 +60,9 @@ def flash_attention(
         raise ValueError(f"H = {H} is not a multiple of KV = {KV}")
     if _lib.resolve_backend(backend, q, "flash_attention") == "torch":
         return flash_attention_ref(q, k, v, causal=causal)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash_attention kernel has no backward: an input requires grad "
+                           "(train through models.layers._sdpa)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the flash_attention kernel takes bf16 or f32, got {q.dtype}")
     if d > MAX_D:

@@ -49,7 +49,9 @@ def ssd_chunked(
     (y (B, T, H, P) in x's dtype, state_T (B, H, P, N) f32). The scan runs
     in chunks of ``chunk`` steps, in f32; T need not be a multiple of it.
     Where the mma body takes the call, an x, Bm or Cm whose base or (b, t)
-    strides are not 16-byte aligned is copied first."""
+    strides are not 16-byte aligned is copied first. The kernel has no
+    backward: an input on the CUDA route that requires grad raises (train
+    through ``ssd_chunked_ref``, as ``models.ssm`` does)."""
     global LAUNCHES
     Bt, T, H, P = x.shape
     N = Bm.shape[-1]
@@ -64,6 +66,9 @@ def ssd_chunked(
         raise ValueError(f"state0 must be {(Bt, H, P, N)}, got {tuple(state0.shape)}")
     if _lib.resolve_backend(backend, x, "ssd") == "torch":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, state0, chunk=chunk)
+    if any(t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, state0)):
+        raise RuntimeError("the ssd kernel has no backward: an input requires grad "
+                           "(train through ssd_chunked_ref)")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"the ssd kernel takes x, Bm, Cm in bf16 or f32 alike, got {x.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32 or (

@@ -1,7 +1,10 @@
 """Plain PyTorch version of the SSD kernel: the chunked scan of
 ``repro/models/ssm.py::_ssd_chunked`` in f32 (as the Pallas kernel computes),
 with the state carried in and out and T padded to a chunk multiple with
-dt = 0 steps (``repro/kernels/ssd/ops.py``)."""
+dt = 0 steps (``repro/kernels/ssd/ops.py``). It is also the scan the
+training forward differentiates; its within-chunk decay is masked before
+the exp, so its gradient stays finite where the reference's ``where``
+after the exp gives NaN (a chunk whose decay overflows f32)."""
 from __future__ import annotations
 
 import torch
@@ -42,7 +45,10 @@ def ssd_chunked_ref(
         la = torch.cumsum(dtq * Af, dim=1)  # (B, Q, H)
         cb = torch.einsum("bin,bjn->bij", Cq, Bq)
         diff = la[:, :, None, :] - la[:, None, :, :]  # (B, i, j, H)
-        decay = torch.exp(diff).masked_fill(~mask[None, :, :, None], 0.0)
+        # masked before the exp: the same forward as zeroing exp(diff) after it,
+        # but exp of a masked (j > i) difference, which overflows f32 once a
+        # chunk's decay passes e^88, no longer meets a zero gradient (0·inf)
+        decay = torch.exp(diff.masked_fill(~mask[None, :, :, None], float("-inf")))
         xdt = xq * dtq[..., None]
         y = torch.einsum("bijh,bjhp->bihp", cb[..., None] * decay, xdt)
         y = y + torch.einsum("bin,bhpn->bihp", Cq, state) * torch.exp(la)[..., None]

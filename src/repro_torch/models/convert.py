@@ -1,7 +1,10 @@
-"""Weights carried across from the JAX package: its parameter pytree, as
-numpy arrays with layer-stacked leading axes (``jax.tree.map(np.asarray,
-params)``), becomes the port's :class:`Model`, so both compute the same
-function on the same numbers."""
+"""Weights and training states carried across from the JAX package: its
+parameter pytree, as numpy arrays with layer-stacked leading axes
+(``jax.tree.map(np.asarray, params)``), becomes the port's :class:`Model`,
+so both compute the same function on the same numbers; a reference
+``TrainState`` (step, params, optimizer moments as numpy) becomes a
+training model and the port's ``TrainState``, so one more step in each
+package computes the same thing."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,11 +13,14 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model, check_supported
+from repro_torch.train.state import TrainState
 
 
-def model_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> Model:
+def model_from_jax(cfg: ModelConfig, np_params: dict, device=None, *, train: bool = False,
+                   remat: str = "none", xent_chunk: int = 512) -> Model:
     """``np_params`` = {"emb": {...}, "layers": {part: {leaf: (L, ...)}},
-    "ln_f": {...}} of the reference's ``build_model(cfg).init``."""
+    "ln_f": {...}} of the reference's ``build_model(cfg).init``. ``train``,
+    ``remat``, ``xent_chunk``: as ``build_model``'s."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -31,4 +37,53 @@ def model_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> Model:
                    for i in range(cfg.n_layers)],
         "ln_f": tensors(np_params["ln_f"]),
     }
-    return Model(cfg, tree)
+    return Model(cfg, tree, train=train, remat=remat, xent_chunk=xent_chunk)
+
+
+def _leaf_paths(tree, path: tuple = ()) -> list[tuple]:
+    """The key paths of a tree of dicts, in flatten order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], path + (k,))]
+    return [path]
+
+
+def _subtree(tree, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _carry(port, ref, paths: list[tuple]):
+    """``ref`` (the reference's optimizer state, numpy leaves) in the
+    structure of ``port`` (the port's freshly initialised one): a list with
+    an entry a parameter leaf takes the reference's subtree at each
+    parameter's path; tuples and dicts map onto themselves."""
+    if isinstance(port, tuple):
+        return tuple(_carry(p, r, paths) for p, r in zip(port, ref, strict=True))
+    if isinstance(port, dict):
+        if set(port) != set(ref):
+            raise ValueError(f"optimizer state keys differ: {sorted(port)} vs {sorted(ref)}")
+        return {k: _carry(port[k], ref[k], paths) for k in port}
+    if isinstance(port, list):
+        return [_carry(p, _subtree(ref, path), paths) for p, path in zip(port, paths, strict=True)]
+    arr = np.asarray(ref)
+    if tuple(arr.shape) != tuple(port.shape):
+        raise ValueError(f"shape mismatch: {tuple(port.shape)} vs {arr.shape}")
+    return torch.tensor(arr, dtype=port.dtype, device=port.device)
+
+
+def train_state_from_jax(cfg: ModelConfig, np_state, optimizer, device=None, *,
+                         remat: str = "none", xent_chunk: int = 512) -> tuple[Model, TrainState]:
+    """A reference ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) → (a training model holding its params, the port's
+    ``TrainState`` with its step and the optimizer's state carried across).
+    ``optimizer`` is the port's counterpart of the one that made the state
+    (``chain`` nests as the reference's; its moments are lists in the
+    parameters' flatten order)."""
+    model = model_from_jax(cfg, np_state.params, device, train=True, remat=remat,
+                           xent_chunk=xent_chunk)
+    params = model.param_tree()
+    paths = _leaf_paths(params)
+    opt_state = _carry(optimizer.init([_subtree(params, p) for p in paths]), np_state.opt_state,
+                       paths)
+    return model, TrainState(int(np_state.step), params, opt_state)

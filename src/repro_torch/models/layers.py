@@ -1,21 +1,29 @@
-"""Layers of the decoder LMs the port serves (``repro/models/layers.py``).
+"""Layers of the decoder LMs the port serves and trains
+(``repro/models/layers.py``).
 
-The subset the dense (GQA) and SSM families need on the serving path. Each
-function keeps the reference's name, argument order and weight layout
-(``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so a test feeds both the same
-numbers. Parameters are mappings of tensors; the init functions take an
-explicit ``torch.Generator`` and return float32 tensors, which ``Model``
-stores once in the dtype the reference casts them to at each use
-(``param_dtype``).
+The subset the dense (GQA) and SSM families need. Each function keeps the
+reference's name, argument order and weight layout (``wq`` (d, H, hd),
+``wo`` (H, hd, d), ...), so a test feeds both the same numbers. Parameters
+are mappings of tensors; the init functions take an explicit
+``torch.Generator`` and return float32 tensors. Each weight is cast to the
+activation dtype at use, as the reference casts its float32 masters: a
+serving ``Model`` stores the weights in that dtype already
+(``param_dtype``), where the cast is a no-op; a training one keeps float32
+masters.
 
-Attention with a cache routes as follows:
+Attention routes as follows:
 
-- prefill into an empty cache (S > 1, scalar ``pos == 0``): causal attention
-  over the fresh q/k/v through the flash-attention kernel, then k/v are
-  written into the cache. It is the function of ``_sdpa`` over the cache
-  with the ``kpos <= qpos`` mask, whose masked keys weigh exactly 0.
-- decode (S == 1, scalar or per-slot ``pos``): plain PyTorch mirroring
-  ``_sdpa`` and ``_vector_pos_decode``; no TPU kernel computes it.
+- no cache (training): ``_sdpa`` under ``causal_mask``, or
+  ``blocked_causal_attention`` when ``cfg.prefill_flash_block`` > 0 and S
+  exceeds it, both plain PyTorch as in the reference (no Pallas kernel
+  computes either there), so autograd differentiates them;
+- prefill into an empty cache (S > 1, scalar ``pos == 0``): causal
+  attention over the fresh q/k/v through the flash-attention kernel, then
+  k/v are written into the cache. It is the function of ``_sdpa`` over the
+  cache with the ``kpos <= qpos`` mask, whose masked keys weigh exactly 0;
+- chunked prefill (S > 1, scalar ``pos > 0``) and decode (S == 1, scalar or
+  per-slot ``pos``): plain PyTorch mirroring ``_sdpa`` over the cache with
+  the offset mask and ``_vector_pos_decode``; no TPU kernel computes them;
 - anything else raises ``NotImplementedError`` naming the ROADMAP item.
 
 A scalar ``pos`` is a 0-d int32 tensor on the host (reading it costs no
@@ -37,8 +45,6 @@ Params = dict
 # parameters the reference uses in float32; every other one it casts to the
 # activation dtype at each use
 F32_PARAMS = frozenset({"scale", "bias", "A_log", "dt_bias", "norm_scale"})
-
-TRAINING_ITEM = "ROADMAP.md Queue A 14: the LM training path"
 
 
 def param_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
@@ -151,6 +157,50 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0, device=None) -
     return m
 
 
+def blocked_causal_attention(q, k, v, block: int = 1024, logits_softcap: float = 0.0):
+    """Full causal attention without the S×S score matrix, as the reference
+    computes it: an outer loop over q blocks, an inner one over the k blocks
+    up to the diagonal with an online-softmax accumulator (f32), so the
+    score buffer is (H, block, block). The reference's plain twin of the
+    flash-attention kernel; plain PyTorch, so autograd differentiates it."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    pad = (-S) % block
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad, H, hd))], 1)
+        k = torch.cat([k, k.new_zeros((B, pad, KV, hd))], 1)
+        v = torch.cat([v, v.new_zeros((B, pad, KV, hd))], 1)
+    nb = (S + pad) // block
+    scale = float(1.0 / np.sqrt(hd))
+    qb = q.reshape(B, nb, block, KV, groups, hd)
+    kb = k.reshape(B, nb, block, KV, hd)
+    vb = v.reshape(B, nb, block, KV, hd)
+    iota = torch.arange(block, device=q.device)
+    outs = []
+    for iq in range(nb):
+        qi = qb[:, iq]
+        acc = q.new_zeros((B, KV, groups, block, hd), dtype=torch.float32)
+        m = q.new_full((B, KV, groups, block, 1), -1e30, dtype=torch.float32)
+        l = q.new_zeros((B, KV, groups, block, 1), dtype=torch.float32)
+        for j in range(iq + 1):
+            s = torch.einsum("bqkgh,btkh->bkgqt", qi, kb[:, j]).float() * scale
+            if logits_softcap > 0:
+                s = logits_softcap * torch.tanh(s / logits_softcap)
+            visible = (j * block + iota)[None, :] <= (iq * block + iota)[:, None]
+            s = s.masked_fill(~visible, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            vj = vb[:, j]
+            acc = acc * alpha + torch.einsum("bkgqt,btkh->bkgqh", p.to(vj.dtype), vj).float()
+            m = m_new
+        out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)  # (B, KV, G, bq, hd)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, bq, KV, G, hd)
+    return torch.cat(outs, 1).reshape(B, S + pad, H, hd)[:, :S]
+
+
 def _vector_pos_decode(params, q, k, v, cache, cfg):
     """Single-token decode with per-row cache positions (continuous batching).
 
@@ -176,9 +226,7 @@ def _vector_pos_decode(params, q, k, v, cache, cfg):
     return out, {"k": K, "v": V, "pos": pos + 1}
 
 
-def _check_routable(cfg: ModelConfig, cache, window: int, bidirectional: bool, use_rope: bool):
-    if cache is None:
-        raise NotImplementedError(f"attention without a cache: {TRAINING_ITEM}")
+def _check_routable(cfg: ModelConfig, window: int, bidirectional: bool, use_rope: bool):
     if window > 0:
         raise NotImplementedError(
             "local attention / ring cache: ROADMAP.md Queue A 14, hybrid with ring-cache "
@@ -205,41 +253,48 @@ def attention_apply(
     bidirectional: bool = False,
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, Params]:
-    """Returns (out, new_cache); cache = {'k', 'v', 'pos'} is a linear buffer."""
-    _check_routable(cfg, cache, window, bidirectional, use_rope)
+    """Returns (out, new_cache); cache = {'k', 'v', 'pos'} is a linear buffer,
+    None without a cache (training: new_cache is None)."""
+    _check_routable(cfg, window, bidirectional, use_rope)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].reshape(d, H * hd)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].reshape(d, KV * hd)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].reshape(d, KV * hd)).reshape(B, S, KV, hd)
+    q = (x @ params["wq"].to(x.dtype).reshape(d, H * hd)).reshape(B, S, H, hd)
+    k = (x @ params["wk"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
+    v = (x @ params["wv"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    pos = cache["pos"]
-    if pos.ndim == 1:
+    if cache is None:
+        if cfg.prefill_flash_block and S > cfg.prefill_flash_block:
+            out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, cfg.logits_softcap)
+        else:
+            out = _sdpa(q, k, v, causal_mask(S, S, device=x.device), cfg.logits_softcap)
+        new_cache = None
+    elif cache["pos"].ndim == 1:
         if S != 1:
             raise NotImplementedError(
-                f"multi-token steps with per-slot positions: {TRAINING_ITEM} (chunked prefill)"
+                "multi-token steps with per-slot positions: the reference has no such path "
+                "(ROADMAP.md Queue A, not ported by design)"
             )
         out, new_cache = _vector_pos_decode(params, q, k, v, cache, cfg)
     else:
+        pos = cache["pos"]
         p = int(pos)
         K, V = cache["k"], cache["v"]
-        if S > 1 and p != 0:
-            raise NotImplementedError(
-                f"prefill into a non-empty cache (pos = {p}): {TRAINING_ITEM} (chunked prefill)"
-            )
         if p + S > K.shape[1]:
             raise ValueError(f"cache of {K.shape[1]} positions cannot take {S} more at {p}")
         K[:, p:p + S] = k.to(K.dtype)
         V[:, p:p + S] = v.to(V.dtype)
-        if S > 1:
+        if S > 1 and p == 0:
             out = flash_attention(q, k, v, causal=True)
         else:
+            # decode, or chunked prefill into a non-empty cache: the cache up
+            # to each query's position (here the reference's prefill_flash_block
+            # branch would attend only the fresh keys)
             mask = causal_mask(S, K.shape[1], p, device=K.device)
             out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
         new_cache = {"k": K, "v": V, "pos": pos + S}
-    return out.reshape(B, S, H * hd) @ params["wo"].reshape(H * hd, d), new_cache
+    return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype).reshape(H * hd, d), new_cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -268,10 +323,10 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int | None = No
 
 
 def mlp_apply(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    gate = x @ params["wi_gate"]
-    up = x @ params["wi_up"]
+    gate = x @ params["wi_gate"].to(x.dtype)
+    up = x @ params["wi_up"].to(x.dtype)
     a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return (a * up) @ params["wo"]
+    return (a * up) @ params["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -296,3 +351,35 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig, dtype) 
 def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     table = params["unembed"] if "unembed" in params else params["embed"]
     return x @ table.to(x.dtype).T
+
+
+def softmax_xent_weighted(logits: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Per-example-weighted token CE: logits (B, S, V), labels (B, S), weights (B,)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    w = weights[:, None].float()
+    return torch.sum((lse - gold) * w) / (torch.sum(w) * labels.shape[1])
+
+
+def chunked_xent_weighted(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """CE without materializing (B, S, V): a loop over sequence chunks, the
+    chunk count the least divisor of S with S/n ≤ ``chunk`` (the
+    reference's rule); the chunks' sums are added in order in f32."""
+    B, S, D = x.shape
+    n_chunks = max(-(-S // chunk), 1)
+    while S % n_chunks != 0:
+        n_chunks += 1
+    c = S // n_chunks
+    table = table.to(x.dtype)
+    w = weights[:, None].float()
+    labels = labels.long()
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(n_chunks):
+        logits = (x[:, i * c:(i + 1) * c] @ table.T).float()
+        lse = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, labels[:, i * c:(i + 1) * c, None])[..., 0]
+        total = total + torch.sum((lse - gold) * w)
+    return total / (torch.sum(weights).float() * S)

@@ -1,9 +1,13 @@
 """Mamba2 / SSD block (``repro/models/ssm.py``): attention-free mixing.
 
-The multi-token (prefill) branch runs the chunked SSD scan through the SSD
-kernel (``kernels/ssd``), which takes the state from the cache and returns
-the final state; the one-token decode step is one plain recurrent step, as
-in the reference. Caches are written in place.
+With a cache, the multi-token (prefill) branch runs the chunked SSD scan
+through the SSD kernel (``kernels/ssd``), which takes the state from the
+cache and returns the final state; the one-token decode step is one plain
+recurrent step, as in the reference. Caches are written in place. Without
+a cache (training) the scan is the kernel's plain version,
+``ssd_chunked_ref``, called by name: the reference trains through its jnp
+twin too, and the kernel has no backward (its wrapper refuses an input
+that requires grad). Weights are cast to the activation dtype at use.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd.ops import ssd_chunked
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -74,7 +79,7 @@ def ssd_apply(
     Bt, T, _ = x.shape
     d_inner, H, P, N = ssm_dims(cfg)
     G = cfg.ssm_ngroups
-    proj = x @ params["in_proj"]
+    proj = x @ params["in_proj"].to(x.dtype)
     z, xBC, dt = _split_in_proj(cfg, proj)
     dt = F.softplus(dt.float() + params["dt_bias"])  # (B, T, H)
     A = -torch.exp(params["A_log"])  # (H,) negative
@@ -98,7 +103,8 @@ def ssd_apply(
         chunk = min(cfg.ssm_chunk, T)
         if T % chunk:
             raise ValueError(f"T={T} must be at most the chunk {cfg.ssm_chunk} or a multiple of it")
-        y, state = ssd_chunked(xh, dt, A, Bm, Cm, state0, chunk=chunk)
+        scan = ssd_chunked if cache is not None else ssd_chunked_ref
+        y, state = scan(xh, dt, A, Bm, Cm, state0, chunk=chunk)
 
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(Bt, T, d_inner)
@@ -107,7 +113,7 @@ def ssd_apply(
     yf = y.float()
     yf = yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
     y = (yf * params["norm_scale"]).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = y @ params["out_proj"].to(x.dtype)
 
     if cache is None:
         return out, None

@@ -1,28 +1,47 @@
 """Decoder-LM assembly (``repro/models/transformer.py``) for the families the
-port serves: dense (GQA) and SSM (mamba2).
+port serves and trains: dense (GQA) and SSM (mamba2).
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` that holds
 its weights and keeps the reference's entry points:
 
+  * ``loss_fn(batch) -> (loss, {"ce", "aux"})``: per-example-weighted CE
   * ``init_cache(batch, max_len) -> cache``
   * ``prefill(batch, cache) -> (logits_last, cache)``
   * ``decode_step(tokens, cache) -> (logits, cache)``
 
-The layer stack is an ``nn.ModuleList`` walked by a Python loop (the
-reference's ``lax.scan``). Weights are stored once in the dtype the
-reference casts them to at each use (``layers.param_dtype``): the same
-values with no per-step cast. ``loss_fn`` waits for the training slice.
+A serving model (the default) stores each weight once, per layer, in the
+dtype the reference casts it to at each use (``layers.param_dtype``): the
+same values with no per-step cast, and no gradients. A training model
+(``train=True``) keeps float32 masters that take gradients, in the
+reference's layout: the layers stacked on a leading axis, so
+``param_tree()`` is the reference's parameter tree (its flatten order, its
+checkpoint leaf names, adafactor's factored axes). Each forward casts the
+stacked leaves to the activation dtype once and unbinds them into
+per-layer views; autograd stacks the per-layer gradients back.
+
+The layer stack is a Python loop (the reference's ``lax.scan``). ``remat``
+(training): "full" recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), "dots" saves only each layer's matrix
+products and recomputes the rest (a selective checkpoint, the reference's
+``checkpoint_dots_with_no_batch_dims``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_tensor
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+
+REMAT = ("none", "full", "dots")
+# products without batch dims: what remat="dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 UNPORTED_FAMILIES = {
     "moe": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
@@ -35,6 +54,15 @@ def _params(tree: dict, cfg: ModelConfig) -> nn.ParameterDict:
     return nn.ParameterDict({
         k: nn.Parameter(v.to(L.param_dtype(k, cfg)), requires_grad=False) for k, v in tree.items()
     })
+
+
+def _masters(tree: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v.float()) for k, v in tree.items()})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class _Block(nn.Module):
@@ -66,22 +94,82 @@ class Model(nn.Module):
     "ln_f": {...}}``.
     """
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, *, train: bool = False,
+                 remat: str = "none", xent_chunk: int = 512):
         super().__init__()
         check_supported(cfg)
         if len(tree["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(tree['layers'])} layers given, the config has {cfg.n_layers}")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+        if remat == "dots" and not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+            raise NotImplementedError(
+                "remat='dots' needs torch.utils.checkpoint.create_selective_checkpoint_contexts "
+                "(torch >= 2.4): ROADMAP.md Queue A 14.1")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.emb = _params(tree["emb"], cfg)
-        self.layers = nn.ModuleList(_Block(lp, cfg) for lp in tree["layers"])
-        self.ln_f = _params(tree["ln_f"], cfg)
+        self.trainable = train
+        self.remat = remat
+        self.xent_chunk = xent_chunk
+        if train:
+            self.emb = _masters(tree["emb"])
+            self.stack = nn.ModuleDict({
+                part: _masters({k: torch.stack([lp[part][k] for lp in tree["layers"]])
+                                for k in leaves})
+                for part, leaves in tree["layers"][0].items()
+            })
+            self.ln_f = _masters(tree["ln_f"])
+        else:
+            self.emb = _params(tree["emb"], cfg)
+            self.layers = nn.ModuleList(_Block(lp, cfg) for lp in tree["layers"])
+            self.ln_f = _params(tree["ln_f"], cfg)
 
     @property
     def device(self) -> torch.device:
         return self.emb["embed"].device
 
+    def param_tree(self) -> dict:
+        """A training model's float32 masters as the reference's parameter
+        tree: ``{"emb": {...}, "layers": {part: {leaf: (L, ...)}}, "ln_f": {...}}``
+        (the tensors themselves: an optimizer step updates them in place)."""
+        if not self.trainable:
+            raise ValueError("a serving model has no training masters: build it with train=True")
+        return {"emb": dict(self.emb.items()),
+                "layers": {part: dict(pd.items()) for part, pd in self.stack.items()},
+                "ln_f": dict(self.ln_f.items())}
+
     # ------------------------------------------------------------- entry points
+
+    def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Per-example-weighted CE of ``batch`` ("tokens", "labels" (B, S),
+        optional "weights" (B,), default ones) through the layer stack with
+        no cache: (loss, {"ce", "aux"}); the dense family adds
+        ``router_aux_coef``·aux/n_layers with aux 0 (no router)."""
+        cfg = self.cfg
+        x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), cfg, self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        layer = functools.partial(self._layer, positions=positions)
+        if self.remat == "full":
+            layer = functools.partial(ckpt.checkpoint, layer, use_reentrant=False)
+        elif self.remat == "dots":
+            layer = functools.partial(
+                ckpt.checkpoint, layer, use_reentrant=False,
+                context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots))
+        for lp in self._layer_params():
+            x = layer(x, lp)
+        x = L.apply_norm(self.ln_f, x, cfg.norm_type)
+        table = self.emb["unembed"] if "unembed" in self.emb else self.emb["embed"]
+        weights = batch.get("weights")
+        weights = (torch.ones((x.shape[0],), device=x.device) if weights is None
+                   else to_tensor(weights, torch.float32, x.device))
+        ce = L.chunked_xent_weighted(x, table, self._tokens(batch["labels"]), weights,
+                                     chunk=self.xent_chunk)
+        aux = torch.zeros((), device=x.device)
+        if cfg.family == "ssm":
+            return ce, {"ce": ce, "aux": aux}
+        loss = ce + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+        return loss, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         if self.cfg.family == "ssm":
@@ -108,25 +196,48 @@ class Model(nn.Module):
             return tokens.to(device=self.device, dtype=torch.long)
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
 
+    def _layer_params(self) -> list[dict]:
+        """Each layer's parameters, {part: {leaf: tensor}}: a serving model's
+        own, or views of a training model's stacked masters cast once to the
+        dtype each is used in."""
+        if not self.trainable:
+            return [dict(layer.named_children()) for layer in self.layers]
+        views = {part: {k: v.to(L.param_dtype(k, self.cfg)).unbind(0) for k, v in pd.items()}
+                 for part, pd in self.stack.items()}
+        return [{part: {k: vs[i] for k, vs in leaves.items()} for part, leaves in views.items()}
+                for i in range(self.cfg.n_layers)]
+
+    def _layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
+        """One layer without a cache (the training forward)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg)
+            return x + out
+        h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
+        attn, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions)
+        x = x + attn
+        h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
+
     def _run_with_cache(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
         cfg, pos, S = self.cfg, cache["pos"], x.shape[1]
         if cfg.family == "ssm":
-            for i, layer in enumerate(self.layers):
+            for i, lp in enumerate(self._layer_params()):
                 lc = {"conv": cache["conv"][i], "state": cache["state"][i], "pos": pos}
-                out, _ = SSM.ssd_apply(layer.ssd, L.apply_norm(layer.ln, x, cfg.norm_type), cfg,
+                out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg,
                                        cache=lc)
                 x = x + out
         else:
             steps = torch.arange(S, device=self.device)
             # scalar pos → (S,) positions; per-slot vector pos → (B, S)
             positions = pos[:, None] + steps if pos.ndim == 1 else steps + int(pos)
-            for i, layer in enumerate(self.layers):
+            for i, lp in enumerate(self._layer_params()):
                 lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-                h = L.apply_norm(layer.ln_attn, x, cfg.norm_type)
-                attn, _ = L.attention_apply(layer.attn, h, cfg, positions=positions, cache=lc)
+                h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
+                attn, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions, cache=lc)
                 x = x + attn
-                h = L.apply_norm(layer.ln_mlp, x, cfg.norm_type)
-                x = x + L.mlp_apply(layer.mlp, h, cfg.mlp_act)
+                h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
+                x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
         x = L.apply_norm(self.ln_f, x, cfg.norm_type)
         return x, dict(cache, pos=pos + S)
 
@@ -148,14 +259,17 @@ def _init_tree(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
-                generator: torch.Generator | None = None) -> Model:
+                generator: torch.Generator | None = None, train: bool = False,
+                remat: str = "none", xent_chunk: int = 512) -> Model:
     """A randomly initialised model on ``device`` (default: the CUDA device).
     The weights are drawn on the device from ``generator``, or from a
-    generator there seeded with ``seed``."""
+    generator there seeded with ``seed``. ``train``: float32 masters that
+    take gradients (see the module doc); ``remat`` and ``xent_chunk`` (the
+    CE's sequence chunk) are the reference's ``build_model`` options."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     elif generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}, the model on {dev}")
-    return Model(cfg, _init_tree(cfg, generator))
+    return Model(cfg, _init_tree(cfg, generator), train=train, remat=remat, xent_chunk=xent_chunk)

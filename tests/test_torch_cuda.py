@@ -15,7 +15,8 @@ to bf16 for the tensor-core PV product), and bf16 also per element within
 the softmax weights, from the same inputs in f32); ssd 1e-4·max at f32 and 1e-2·max
 for a bf16 y (its rounding), the f32 state 1e-4·max, on both bodies, and
 bit-identical across calls; the reduced LMs' logits
-on the card against the CPU at f32 within 1e-4·max."""
+on the card against the CPU at f32 within 1e-4·max, and their f32 train
+steps' losses within 1e-4 relative."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -858,6 +859,60 @@ def test_reduced_lm_on_the_card_matches_the_cpu_path(dev, name):
         outs.append(torch.cat(seq, 1))
     assert fa.LAUNCHES + ssd.LAUNCHES == before + cfg.n_layers
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4 * float(outs[0].abs().max()))
+
+
+@pytest.mark.parametrize("which", ["ssd", "flash_attention"])
+def test_lm_kernel_wrappers_refuse_inputs_that_require_grad(dev, which):
+    """The SSD and flash-attention kernels have no backward: on the CUDA
+    route an input that requires grad raises, and no kernel launches (a
+    result cut off from the graph would leave the weights upstream without
+    gradients)."""
+    if which == "ssd":
+        from repro_torch.kernels.ssd import ops
+
+        x, dt, A, Bm, Cm, s0 = _ssd_args(dev, 1, 64, 2, 32, 16, torch.float32, 4)
+        dt.requires_grad_()
+        call = lambda: ops.ssd_chunked(x, dt, A, Bm, Cm, s0, chunk=64)  # noqa: E731
+    else:
+        from repro_torch.kernels.flash_attention import ops
+
+        q = torch.randn(1, 32, 4, 64, generator=_g(4)).to(dev, torch.bfloat16).requires_grad_()
+        k = torch.randn(1, 32, 2, 64, generator=_g(5)).to(dev, torch.bfloat16)
+        call = lambda: ops.flash_attention(q, k, k)  # noqa: E731
+    before = ops.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])
+def test_reduced_training_on_the_card_matches_the_cpu_path(dev, name):
+    """Three f32 train steps of the reduced LM on the card and on the CPU
+    from the same weights and batches: losses within 1e-4 relative, and no
+    LM kernel launched (training runs the plain attention and SSD scan)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, cosine_warmup
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_reduced_config(name).replace(dtype="float32")
+    stream = TokenStreamConfig(cfg.vocab_size, 32)
+    before = fa.LAUNCHES + ssd.LAUNCHES
+    losses = []
+    for model in (build_model(cfg, device="cpu", seed=3, train=True),
+                  build_model(cfg, device="cpu", seed=3, train=True).to(dev)):
+        opt = chain(clip_by_global_norm(1.0), adamw(cosine_warmup(3e-3, 2, 3)))
+        state, step = init_train_state(model.param_tree(), opt), make_train_step(model, opt)
+        out = []
+        for i in range(3):
+            state, m = step(state, sample_batch(stream, 4, i))
+            out.append(float(m["loss"]))
+        losses.append(np.asarray(out))
+    assert fa.LAUNCHES + ssd.LAUNCHES == before
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("strategy,kw", [("two-pass", {}), ("one-pass", {"sketch_size": 784})])

@@ -37,6 +37,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.core import mctm_fit as TF
     from repro_torch.core import scoring as TS
     from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train as lm_train
     from repro_torch.launch import train_mctm
     from repro_torch.models import build_model, model_from_jax
     from repro_torch.data.pipeline import CoresetSelector
@@ -110,6 +111,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: serve_mctm.main(["--smoke"]),
         lambda: TF.fit_mctm_streaming(cfg, scaler, Y, steps=1, method="minibatch",
                                       batch_size=8),
+        lambda: lm_train.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1"]),
+        lambda: build_model(lm_cfg, train=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -184,8 +187,9 @@ def test_unported_parts_raise_not_implemented(what):
     """What the port does not carry raises NotImplementedError naming the
     ROADMAP item — never plain code on a detour around a kernel. The
     maintainer's ``serve_engine=`` and ``drift_mesh=`` and
-    ``drift_window_nll(mesh=)`` are ported now: their cases check that they
-    are taken."""
+    ``drift_window_nll(mesh=)`` are ported now, and so are attention without
+    a cache (training) and prefill into a non-empty cache (chunked
+    prefill): their cases check that they are taken."""
     from repro_torch import configs
     from repro_torch.core import mctm as TM
     from repro_torch.core import streaming as TSt
@@ -220,6 +224,16 @@ def test_unported_parts_raise_not_implemented(what):
             p = TM.init_params(cfg, device="cpu")
             assert TSt.drift_window_nll(cfg, scaler, p, Y, mesh=mesh) == \
                 TSt.drift_window_nll(cfg, scaler, p, Y, device="cpu")
+        return
+    if what in ("attention:no_cache", "attention:prefill_into_nonempty_cache"):
+        # ported (the training forward, chunked prefill): plain attention,
+        # no cache returned without one, the cache advanced past pos 3 with one
+        out, new_cache = _lm_cache_case(what.split(":")[1])()
+        assert out.shape == (1, 4, 64) and torch.isfinite(out).all()
+        if what == "attention:no_cache":
+            assert new_cache is None
+        else:
+            assert int(new_cache["pos"]) == 7
         return
     kind, arg = what.split(":")
     tiny = configs.get_reduced_config("tinyllama_1b")
@@ -287,21 +301,16 @@ def test_cuda_constants_match_the_sources():
 # with its reason. jax only (ROADMAP Queue A, "not ported by design"): the
 # factories of jitted shard_map bodies and the backend selectors and block
 # sizes of the Pallas wrappers. The LM zoo's (Queue A 14) until it is ported:
-# the synthetic token stream and the LM training path (A14.1), the sharding
-# rules (A14.9).
+# the sharding rules and the sharded train step (A14.9).
 _EXPORT_WAIVERS = {
     "core.distributed_coreset": {"make_sharded_pass_fns", "make_sharded_onepass_fn",
                                  "make_segmented_pass_fns", "make_segmented_onepass_fn"},
     "core.streaming": {"make_sharded_drift_nll_fn"},
     "kernels.extremes": {"default_extremes_backend"},
     "kernels.sweep.ops": {"DEFAULT_BLOCK_ROWS", "default_sweep_backend"},
-    "data": {"TokenStreamConfig", "sample_batch", "sample_modality_stub"},
     "distributed": {"ShardingRules", "batch_specs", "default_rules", "replicated",
                     "resolve_spec", "resolve_tree"},
-    "optim": {"adafactor", "chain", "clip_by_global_norm", "constant", "cosine_warmup",
-              "linear_warmup", "lion", "sgd"},
-    "train": {"TrainState", "init_train_state", "make_serve_steps", "make_train_step",
-              "shard_train_step"},
+    "train": {"shard_train_step"},
 }
 
 

@@ -1,0 +1,53 @@
+"""The LM training driver (``python -m repro_torch.launch.train``) on the
+CPU at the reduced configs, with the coreset stage in front: finite and
+falling losses; a run crashed at step 5 by the ft layer's injection and
+resumed from its checkpoint gives the straight run's losses bit for bit;
+an unported architecture raises naming its ROADMAP item."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import ft  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+
+ARGV = ["--device", "cpu", "--reduced", "--steps", "8", "--log-every", "0"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The reduced models' ops are tiny: intra-op threads only contend with
+    the suite's other workers (a step takes 30–60× longer with them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch,coreset", [("tinyllama-1.1b", "l2-hull"),
+                                          ("mamba2-370m", "uniform"),
+                                          ("tinyllama-1.1b", "none")])
+def test_driver_losses_fall(arch, coreset):
+    rec = train.main(ARGV + ["--arch", arch, "--coreset", coreset])
+    losses = np.asarray(rec["losses"])
+    assert losses.shape == (8,) and np.isfinite(losses).all()
+    assert losses[-3:].mean() < losses[:3].mean(), losses
+    assert len(rec["step_s"]) == 8 and rec["select_s"] >= 0
+
+
+def test_driver_resumes_a_crash_to_the_straight_bits(tmp_path):
+    argv = ARGV + ["--arch", "tinyllama-1.1b", "--coreset", "l2-hull", "--ckpt-every", "2"]
+    straight = train.main(argv + ["--ckpt-dir", str(tmp_path / "straight")])["losses"]
+    crashed = argv + ["--ckpt-dir", str(tmp_path / "crashed")]
+    with ft.ft_overrides(simulator=ft.FailureSimulator().inject("fit", 5)):
+        with pytest.raises(ft.InjectedFailure):
+            train.main(crashed)
+    rec = train.main(crashed + ["--resume"])
+    assert rec["start"] == 4
+    assert rec["losses"] == straight[4:]
+
+
+def test_unported_architecture_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 14: further dense"):
+        train.main(["--device", "cpu", "--steps", "1"])  # the default arch, olmo-1b
