@@ -156,9 +156,22 @@ Phases (any failure exits nonzero):
      to the straight run's bits); the reduced configs in f32, 5 steps on the
      card and on the CPU from the same weights and batches, losses within
      1e-4 relative;
+ 13. the invariant auditor on the card (``repro_torch.analysis``): every
+     registered program (the fit steps and oracles, the streamed and drift
+     evaluators, the sharded sweeps of ``DistributedScoringEngine`` and their
+     resumable segments on rank 0 of a fake world of 8, serving, the kernel
+     wrappers) audited on the CPU under fake tensors and on the card for
+     real at the audit shapes, the scoring, fit and drift programs also at
+     phase 3's width (J = 2, degree 6, chunk 16,384, rank 0 of 8 over
+     n = 250,001): each clean against its budgets (its census, host reads
+     as synchronizing calls, kernel launches, float64 arrays, in-place
+     state), the card's census equal to the CPU's, each of the five
+     violations caught on the card; then the pod dry run's eight records
+     (``launch/dryrun_coreset.py``: four variants on the 16×16 and 2×16×16
+     meshes, traced on the CPU) with their roofline terms;
   5. launch census: each kernel counted over its own path's run, and over
-     each of phases 6–12's paths (``launches_phase6`` to
-     ``launches_phase12``; graph replays of the serving engine counted
+     each of phases 6–13's paths (``launches_phase6`` to
+     ``launches_phase13``; graph replays of the serving engine counted
      apart).
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that the ``kernels`` JSON line. The
@@ -175,10 +188,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12     # bf16 dense tensor cores, H100 SXM data sheet
-H100_TF32_FLOPS = 495e12     # TF32 dense tensor cores, H100 SXM data sheet
+if os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+    # the H100 SXM data sheet's peaks, kept once, in launch/roofline.py
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.roofline import F32_FLOPS as H100_F32_FLOPS
+    from repro_torch.launch.roofline import HBM_BW as H100_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS as H100_BF16_FLOPS
+    from repro_torch.launch.roofline import TF32_FLOPS as H100_TF32_FLOPS
+else:  # outside a checkout: main() refuses to run
+    H100_F32_FLOPS = H100_BYTES_PER_S = H100_BF16_FLOPS = H100_TF32_FLOPS = None
 MAIN_N = 250_001
 CHUNK = 16_384
 SKETCH = 784                 # 4·(J·d)² at J = 2, d = 7
@@ -3731,7 +3749,89 @@ def phase_lm_training(dev, scratch: str):
     return census, rec
 
 
+# ---------------------------------------------------------------- phase 13
+
+AUDIT_KERNELS = ("bernstein", "gram", "extremes", "sweep")
+AUDIT_PATHS = {"gram_cluster": "gram/cluster", "gram_tiled": "gram/tiled",
+               "gram_large": "gram/large", "extremes_wide": "extremes/wide",
+               "sweep_wide": "sweep/wide"}
+
+
+def _audit_launches(rep: dict) -> dict:
+    """One audited call's launches in ``read_counts``' names."""
+    m = rep["metrics"]
+    out = dict(m.get("kernels", {}))
+    paths = m.get("kernel_paths", {})
+    out.update({k: paths[p] for k, p in AUDIT_PATHS.items() if paths.get(p)})
+    return out
+
+
+def phase_audit(dev):
+    """Phase 13: the invariant auditor's programs on the card against their
+    budgets and against the CPU audit, the violations caught on the card,
+    the dry run's records; returns the launch census and the record."""
+    from repro_torch.analysis import all_programs, audit_program
+    from repro_torch.analysis.checks import PORTABLE_METRICS
+    from repro_torch.analysis.programs import PHASE3, WIDTH_PROGRAMS, make_programs
+    from repro_torch.analysis.violations import VIOLATIONS
+    from repro_torch.launch import dryrun_coreset
+
+    census, errs = {}, []
+    rec = {"programs": {}, "phase3_width": {}, "violations": {}}
+    for spec in all_programs():
+        cpu = audit_program(spec, device="cpu")
+        card = audit_program(spec, device=dev)
+        for where, rep in (("cpu", cpu), (str(dev), card)):
+            if not rep["ok"]:
+                errs.append(f"{spec.name} on {where}: " + "; ".join(rep["failures"])[:600])
+        diff = {k: (cpu["metrics"].get(k), card["metrics"].get(k)) for k in PORTABLE_METRICS
+                if cpu["metrics"].get(k) != card["metrics"].get(k)}
+        if diff:
+            errs.append(f"{spec.name}: the card's census differs from the CPU's: {diff}")
+        census[spec.name] = _audit_launches(card)
+        rec["programs"][spec.name] = {"cpu": cpu["metrics"], "card": card["metrics"]}
+        m = card["metrics"]
+        log(f"audit {spec.name}: ok cpu {cpu['ok']} card {card['ok']}; collectives "
+            f"{ {k: v for k, v in m.get('collectives', {}).items() if v} } "
+            f"({m.get('collective_bytes')} B), host reads {m.get('host_reads')}, launches "
+            f"{json.dumps(census[spec.name])}, device kernels {m.get('device_kernels')}")
+    for spec in make_programs(PHASE3):
+        if spec.name not in WIDTH_PROGRAMS:
+            continue
+        rep = audit_program(spec, device=dev)
+        if not rep["ok"]:
+            errs.append(f"{spec.name} at phase 3's width: " + "; ".join(rep["failures"])[:600])
+        key = f"{spec.name} (phase 3 width)"
+        census[key] = _audit_launches(rep)
+        rec["phase3_width"][spec.name] = rep["metrics"]
+        m = rep["metrics"]
+        log(f"audit {key}: ok {rep['ok']}; host reads {m.get('host_reads')}, collectives "
+            f"{ {k: v for k, v in m.get('collectives', {}).items() if v} } "
+            f"({m.get('collective_bytes')} B), launches {json.dumps(census[key])}, device "
+            f"kernels {m.get('device_kernels')}")
+    for name, spec in VIOLATIONS.items():
+        rep = audit_program(spec, device=dev)
+        rec["violations"][name] = rep["failures"]
+        log(f"violation {name} on the card: {'caught' if not rep['ok'] else 'MISSED'}"
+            + (f" ({rep['failures'][0][:160]})" if rep["failures"] else ""))
+        if rep["ok"]:
+            errs.append(f"violation {name} audited clean on the card")
+    for k in AUDIT_KERNELS:
+        if not any(c.get(k) for c in census.values()):
+            errs.append(f"kernel {k} was not launched inside the audited programs")
+    rec["dryrun"] = dryrun_coreset.main(["--out", os.path.join(ROOT, "results", "dryrun")])
+    for r in rec["dryrun"]:
+        log(f"dry run {r['mesh']} {r['variant']}: {r['flops']:.6g} FLOP, {r['bytes']:.6g} B, "
+            f"collectives {r['collectives']} ({r['collective_bytes']:.6g} B); compute "
+            f"{r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, collective "
+            f"{r['collective_s']:.6g} s, dominant {r['dominant']}")
+    if errs:
+        fail("phase 13: " + "; ".join(errs))
+    return census, rec
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3787,6 +3887,9 @@ def main() -> None:
     p12_census, p12_rec = phase_lm_training(dev, lm_scratch)
     shutil.rmtree(lm_scratch, ignore_errors=True)
     log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    p13_census, p13_rec = phase_audit(dev)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f}s ({card})")
     launches["gram_large"] = p9_census["select D=2048 two-pass"]["gram_large"]
     launches["sweep_wide"] = p9_census["select D=2048 one-pass"]["sweep_wide"]
     for row in kernels:
@@ -3797,7 +3900,8 @@ def main() -> None:
         for key, cen in (("launches_phase6", core_census), ("launches_phase7", ft_census),
                          ("launches_phase8", stream_census), ("launches_phase9", p9_census),
                          ("launches_phase10", p10_census), ("launches_phase11", p11_census),
-                         ("launches_phase12", p12_census)):
+                         ("launches_phase12", p12_census),
+                         ("launches_phase13", p13_census)):
             row[key] = {path: counts[name] for path, counts in cen.items() if counts.get(name)}
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
@@ -3808,8 +3912,10 @@ def main() -> None:
                    "stream_census": stream_census, "pipeline": p9_rec,
                    "pipeline_census": p9_census, "serving": p10_rec,
                    "serving_census": p10_census, "mesh": p11_rec, "mesh_census": p11_census,
-                   "lm_training": p12_rec, "lm_training_census": p12_census},
+                   "lm_training": p12_rec, "lm_training_census": p12_census,
+                   "audit": p13_rec, "audit_census": p13_census},
                   f, indent=1, default=float)
+    log(f"the script took {time.perf_counter() - t_script:.1f}s ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

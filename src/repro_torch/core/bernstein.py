@@ -10,6 +10,7 @@ reparameterization enforces. The fused CUDA featurize lives in
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -80,9 +81,29 @@ class DataScaler:
     def bounds(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """(3, J) [low; high; inv_span] in ``dtype`` — the featurize kernel's
         view of the scaler (each row cast from float64, as ``transform`` and
-        ``basis_features`` cast them)."""
-        rows = np.stack([self.low, self.high, self.inv_span]).astype(np.float64)
-        return torch.as_tensor(rows, device=device).to(dtype)
+        ``basis_features`` cast them), made once per scaler, dtype and device
+        (a featurize built per call uploads nothing after the first)."""
+        from torch._subclasses.fake_tensor import is_fake
+
+        memo = _BOUNDS.get(id(self))
+        if memo is None:
+            memo = _BOUNDS[id(self)] = {}
+            weakref.finalize(self, _BOUNDS.pop, id(self), None)
+        key = (dtype, torch.device(device) if device is not None else None)
+        got = memo.get(key)
+        if got is None:
+            rows = np.stack([self.low, self.high, self.inv_span]).astype(np.float64)
+            if dtype == torch.float32:  # rounded on the host: no float64 copy on the device
+                rows = rows.astype(np.float32)
+            got = torch.as_tensor(rows, device=device).to(dtype)
+            if not is_fake(got):  # a traced scaler leaves no fake tensor for later calls
+                memo[key] = got
+        return got
+
+
+# ``DataScaler.bounds`` by id of a live scaler, then (dtype, device): kept
+# beside the value object, so a copied or pickled scaler carries no tensor
+_BOUNDS: dict[int, dict] = {}
 
 
 def monotone_theta(theta_raw: torch.Tensor, min_slope: float = 1e-4) -> torch.Tensor:

@@ -71,6 +71,7 @@ from repro_torch.core.scoring import (
     ScoringEngine,
     ScoringResult,
     TwoPassExact,
+    _Sweeps,
     gram_projection,
     hull_chunk_extremes,
     pass1_update,
@@ -167,16 +168,20 @@ def distributed_scoring_stats(X, P_pts, mesh: DataMesh, axis="data"):
     return tuple(mesh.fold([G, s1, s2]))
 
 
-def _extremes_cross_shard(ext: RunningExtremes, mesh: DataMesh):
+def _extremes_cross_shard(ext, mesh: DataMesh):
     """Cross-rank running-extreme reduction: ONE gather pair (values, then
-    global row ids), the lowest rank winning ties. Returns the per-direction
-    global (argmax, argmin) row ids."""
-    vals = np.stack([ext.best_max, -ext.best_min]).astype(np.float32)
-    ids = np.stack([ext.best_imax, ext.best_imin]).astype(np.int64)
-    allv = mesh.all_gather(torch.as_tensor(vals, device=mesh.device), "hull_gather").cpu().numpy()
-    alli = mesh.all_gather(torch.as_tensor(ids, device=mesh.device), "hull_gather").cpu().numpy()
-    win = np.argmax(allv, axis=0)  # (2, m): first rank on ties
-    best = np.take_along_axis(alli, win[None], axis=0)[0]
+    global row ids), the lowest rank winning ties. Returns the
+    per-direction global (argmax, argmin) row ids as device tensors (no
+    host read)."""
+    dev = mesh.device
+    vals = torch.stack([torch.as_tensor(ext.best_max, device=dev),
+                        -torch.as_tensor(ext.best_min, device=dev)]).float()
+    ids = torch.stack([torch.as_tensor(ext.best_imax, device=dev),
+                       torch.as_tensor(ext.best_imin, device=dev)]).long()
+    allv = mesh.all_gather(vals, "hull_gather")
+    alli = mesh.all_gather(ids, "hull_gather")
+    win = torch.argmax(allv, dim=0)  # (2, m): the first rank on ties
+    best = torch.gather(alli, 0, win[None])[0]
     return best[0], best[1]
 
 
@@ -193,10 +198,10 @@ def distributed_direction_argmax(P_pts, dirs, mesh: DataMesh, axis="data") -> np
     dev = mesh.device
     dirs = to_tensor(dirs, torch.float32, dev).contiguous()
     Pb, lo = _block(P_pts, mesh, axis)
-    ext = RunningExtremes(int(dirs.shape[0]))
+    ext = RunningExtremes(int(dirs.shape[0]), dev)
     if Pb.shape[0]:
         ext.update(*hull_chunk_extremes(Pb.to(dev).contiguous(), dirs), offset=lo)
-    return _extremes_cross_shard(ext, mesh)[0]
+    return _extremes_cross_shard(ext, mesh)[0].cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -213,7 +218,7 @@ class _Shard:
 
     def hull_rows(self, ext: RunningExtremes) -> np.ndarray:
         gimax, gimin = _extremes_cross_shard(ext, self.mesh)
-        return stable_first_unique(np.concatenate([gimax, gimin]).astype(np.int64))
+        return stable_first_unique(torch.cat([gimax, gimin]).cpu().numpy())
 
     def gather_u(self, u: torch.Tensor) -> torch.Tensor:
         return self.mesh.gather_rows(u, self.per, self.n)
@@ -316,17 +321,7 @@ class DistributedScoringEngine:
         (the staged rows hold no padding). ``sweep_ckpt``/``resume``:
         resumable sweeps, per rank (module doc)."""
         eng = self._engine
-        dev = self.mesh.device
-        if isinstance(Y, StagedRows):
-            n, Y_loc, probe = Y.n, Y.rows, Y.probe
-            lo, hi, chunk, cps = self._rows(n)
-            if (Y.lo, Y.lo + int(Y_loc.shape[0])) != (lo, hi):
-                raise ValueError("staged rows do not match this rank's layout (use stage_rows)")
-        else:
-            n = int(np.shape(Y)[0])
-            lo, hi, chunk, cps = self._rows(n)
-            Y_loc = to_tensor(Y[lo:hi], torch.float32, dev)
-            probe = to_tensor(Y[:1], torch.float32, dev)
+        n = Y.n if isinstance(Y, StagedRows) else int(np.shape(Y)[0])
         if n_valid is not None and int(n_valid) != n:
             raise ValueError(f"n_valid={n_valid} but the input carries {n} rows")
         strat = eng._strategy(method, n, generator, sketch_size, hull_k, hull_normals,
@@ -338,6 +333,30 @@ class DistributedScoringEngine:
         if hull_k > 0 and n * self.rows_per_point > np.iinfo(np.int32).max:
             raise ValueError("hull selection over more than 2^31-1 derivative rows would "
                              "overflow the int32 hull-row ids of the extremes kernel")
+        Y_loc, sqrt_w, chunk, shard = self._rank_inputs(Y, weights)
+        if sweep_ckpt is not None:
+            sweep_ckpt = self._rank_ckpt(sweep_ckpt, n, chunk, resume)
+        return eng._drive(
+            strat, generator, plan, Y_loc, sqrt_w, int(Y_loc.shape[0]), chunk, method,
+            ridge_reg, hull_k, hull_normals, hull_dirs, sweep_ckpt=sweep_ckpt, resume=resume,
+            shard=shard,
+        )
+
+    def _rank_inputs(self, Y, weights=None):
+        """This rank's rows of ``Y`` (whole, or ``StagedRows``) on its
+        device, their √w, the chunk and the ``_Shard`` the engine's loop
+        runs as."""
+        dev = self.mesh.device
+        if isinstance(Y, StagedRows):
+            n, Y_loc, probe = Y.n, Y.rows, Y.probe
+            lo, hi, chunk, cps = self._rows(n)
+            if (Y.lo, Y.lo + int(Y_loc.shape[0])) != (lo, hi):
+                raise ValueError("staged rows do not match this rank's layout (use stage_rows)")
+        else:
+            n = int(np.shape(Y)[0])
+            lo, hi, chunk, cps = self._rows(n)
+            Y_loc = to_tensor(Y[lo:hi], torch.float32, dev)
+            probe = to_tensor(Y[:1], torch.float32, dev)
         sqrt_w = None
         if weights is not None:
             if not isinstance(weights, torch.Tensor):
@@ -346,12 +365,16 @@ class DistributedScoringEngine:
         n_loc = hi - lo
         ranges = [(min(ci * chunk, n_loc), min((ci + 1) * chunk, n_loc)) for ci in range(cps)]
         shard = _Shard(self.mesh, n, lo, cps * chunk, ranges, cps * self.mesh.world, probe)
-        if sweep_ckpt is not None:
-            sweep_ckpt = self._rank_ckpt(sweep_ckpt, n, chunk, resume)
-        return eng._drive(
-            strat, generator, plan, Y_loc, sqrt_w, n_loc, chunk, method, ridge_reg, hull_k,
-            hull_normals, hull_dirs, sweep_ckpt=sweep_ckpt, resume=resume, shard=shard,
-        )
+        return Y_loc, sqrt_w, chunk, shard
+
+    def rank_sweeps(self, Y, strategy, *, hull_k: int = 0, weights=None):
+        """This rank's sweeps of a ``score`` call as callables (the engine's
+        ``_Sweeps``: ``sweep1``/``sweep2`` over a range of chunks, no
+        collective): what the invariant auditor and the dry run drive,
+        as the reference drives ``make_sharded_pass_fns``' bodies."""
+        Y_loc, sqrt_w, chunk, shard = self._rank_inputs(Y, weights)
+        return _Sweeps(self._engine, strategy, Y_loc, sqrt_w, int(Y_loc.shape[0]), chunk, hull_k,
+                       shard)
 
     def _rank_ckpt(self, root, n: int, chunk: int, resume: bool) -> str:
         """This rank's checkpoint directory, holding one (n, world, chunk)

@@ -96,6 +96,7 @@ __all__ = [
     "method_batch_plan",
     "resolve_batch_size",
     "make_streamed_oracles",
+    "make_fit_step",
     "streamed_nll",
     "coreset_epsilon",
     "likelihood_ratio",
@@ -358,37 +359,6 @@ def _train_state_loop(
     mb = max(1, microbatches)
     fields = params0._fields
     leaf_type = getattr(model, "leaf_type", None) or type(params0)
-    scale = 1.0 / mb
-
-    def make_step(opt: Optimizer):
-        def step_fn(state: TrainState, mbatches):
-            params = state.params
-            leaves = [getattr(params, f) for f in fields]
-            if mb == 1:
-                loss = model.loss_fn(params, mbatches[0])
-                grads = torch.autograd.grad(loss, leaves)
-            else:
-                loss = torch.zeros((), dtype=torch.float32, device=dev)
-                grads = [torch.zeros_like(p) for p in leaves]
-                for mbatch in mbatches:
-                    li = model.loss_fn(params, mbatch)
-                    gi = torch.autograd.grad(li, leaves)
-                    loss = loss + li.detach()
-                    grads = [a + g for a, g in zip(grads, gi)]
-            if mesh is not None:
-                loss, *grads = mesh.fold([loss, *grads])
-            if mb > 1:
-                grads = [g * scale for g in grads]
-                loss = loss * scale
-            moments = {k: list(v) for k, v in state.opt_state.items()}
-            updates, moments = opt.update(grads, moments, leaves, state.step)
-            apply_updates(leaves, updates)
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
-            new = TrainState(state.step + 1, params,
-                             {k: leaf_type(*v) for k, v in moments.items()})
-            return new, {"loss": loss.detach(), "grad_norm": gnorm.detach()}
-
-        return step_fn
 
     def attempt(ctx):
         opt = scale_updates(optimizer, ctx.lr_scale)
@@ -402,13 +372,56 @@ def _train_state_loop(
             state, start = restore_train_state(checkpoint, state)
             state = state._replace(params=type(params0)(*(
                 getattr(state.params, f).detach().requires_grad_(True) for f in fields)))
-        return train_loop(make_step(opt), state, batch_fn, steps, start=start,
+        step = make_fit_step(model, opt, fields, leaf_type, mb, device=dev, mesh=mesh)
+        return train_loop(step, state, batch_fn, steps, start=start,
                           mgr=checkpoint, ckpt_every=ckpt_every, log_every=log_every,
                           label=label)
 
     state, losses = RunSupervisor(label=label, mesh=mesh).run(attempt)
     out = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(0)
     return state.params, out
+
+
+def make_fit_step(model, opt: Optimizer, fields, leaf_type, microbatches: int = 1, *,
+                  device=None, mesh=None):
+    """The adam and minibatch modes' step, ``step_fn(state, mbatches) →
+    (state', metrics)``: the gradients of ``model.loss_fn`` summed over the
+    ``microbatches`` slices (folded once with ``mesh``: one gather, summed in
+    rank order) and scaled by 1/microbatches, then ``opt``'s update applied
+    to the parameter leaves in place (``apply_updates``: the state's params
+    keep their storage; the moments are new tensors). ``fields`` are the
+    params' leaf names, ``leaf_type`` the moments' tuple type."""
+    mb = max(1, microbatches)
+    scale = 1.0 / mb
+
+    def step_fn(state: TrainState, mbatches):
+        params = state.params
+        leaves = [getattr(params, f) for f in fields]
+        if mb == 1:
+            loss = model.loss_fn(params, mbatches[0])
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            grads = [torch.zeros_like(p) for p in leaves]
+            for mbatch in mbatches:
+                li = model.loss_fn(params, mbatch)
+                gi = torch.autograd.grad(li, leaves)
+                loss = loss + li.detach()
+                grads = [a + g for a, g in zip(grads, gi)]
+        if mesh is not None:
+            loss, *grads = mesh.fold([loss, *grads])
+        if mb > 1:
+            grads = [g * scale for g in grads]
+            loss = loss * scale
+        moments = {k: list(v) for k, v in state.opt_state.items()}
+        updates, moments = opt.update(grads, moments, leaves, state.step)
+        apply_updates(leaves, updates)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        new = TrainState(state.step + 1, params,
+                         {k: leaf_type(*v) for k, v in moments.items()})
+        return new, {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+
+    return step_fn
 
 
 def _fit_minibatch(
@@ -819,7 +832,7 @@ def streamed_nll(
     device=None,
 ) -> float:
     """Total (weighted) NLL Σ w·nll(θ), streamed chunk by chunk (each
-    chunk's f32 sum added to a float64 total). ``eta`` overrides the
+    chunk's f32 sum added to a float64 total, read once). ``eta`` overrides the
     Jacobian floor (``eta=1e-9``: strict evaluation). With ``mesh`` each
     rank streams its rows of the scoring engine's layout
     (``shard_layout``) and the totals fold once; every rank returns the
@@ -842,15 +855,23 @@ def streamed_nll(
         else to_tensor(weights[lo:hi] if isinstance(weights, torch.Tensor)
                        else np.asarray(weights)[lo:hi], torch.float32, dev)
     )
-    total = 0.0
+    # each chunk's f32 sum added to a float64 total on the device (the
+    # sums a host float would take, without a host read a chunk)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
     with torch.no_grad():
         for a in range(0, hi - lo, c):
             b = min(a + c, hi - lo)
-            A, Ap = feat(Y[a:b])
-            total += float(torch.sum(w[a:b] * M.nll_terms(cfg_eval, params, A, Ap)))
+            total = total + _chunk_nll(feat, cfg_eval, params, Y[a:b], w[a:b]).double()
     if mesh is not None:
-        total = float(mesh.fold_host(np.array([total]))[0])
-    return total
+        total = mesh.fold([total])[0]
+    return float(total)
+
+
+def _chunk_nll(feat, cfg: M.MCTMConfig, params, Yc, wc) -> torch.Tensor:
+    """Σ w·nll of one (chunk, J) block, f32: the featurize, then
+    ``nll_terms`` (the body of ``streamed_nll``'s sweep)."""
+    A, Ap = feat(Yc)
+    return torch.sum(wc * M.nll_terms(cfg, params, A, Ap))
 
 
 def likelihood_ratio(nll_model: float, nll_ref: float) -> float:

@@ -134,12 +134,9 @@ class ScoringResult:
 def _mctm_featurize(cfg, scaler) -> Callable[[torch.Tensor], tuple]:
     """Fused basis + derivative evaluation of one chunk of Y on the bernstein
     kernel: (X̃ (c, J·d), P (c·J, d)), the math of ``mctm.basis_features``."""
-    bounds: dict = {}  # the scaler as a (3, J) tensor, once per device
 
     def featurize(Yc: torch.Tensor):
-        b = bounds.get(Yc.device)
-        if b is None:
-            b = bounds[Yc.device] = scaler.bounds(torch.float32, Yc.device)
+        b = scaler.bounds(torch.float32, Yc.device)  # uploaded once per device
         A, Ap = bernstein_featurize(Yc.contiguous(), b, cfg.degree)
         c = A.shape[0]
         return A.reshape(c, cfg.J * cfg.d), Ap.reshape(c * cfg.J, cfg.d)
@@ -316,41 +313,45 @@ def upfront_directions(
 
 
 class RunningExtremes:
-    """Host-side running (max, argmax, min, argmin) per direction across
-    chunks; strict comparisons keep the first occurrence (lowest row)."""
+    """Running (max, argmax, min, argmin) per direction across chunks, kept
+    on ``device`` (a sweep's, so each chunk's extremes fold in without a host
+    read); strict comparisons keep the first occurrence (lowest row).
+    ``candidates`` and ``state`` read it to the host once."""
 
-    def __init__(self, m: int):
-        self.best_max = np.full(m, -np.inf, np.float32)
-        self.best_min = np.full(m, np.inf, np.float32)
-        self.best_imax = np.zeros(m, np.int64)
-        self.best_imin = np.zeros(m, np.int64)
+    def __init__(self, m: int, device="cpu"):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.best_max = torch.full((m,), -np.inf, **f32)
+        self.best_min = torch.full((m,), np.inf, **f32)
+        self.best_imax = torch.zeros(m, dtype=torch.int64, device=device)
+        self.best_imin = torch.zeros(m, dtype=torch.int64, device=device)
 
     def update(self, vmax, imax, vmin, imin, offset: int) -> None:
-        vmax, imax = _to_np(vmax), _to_np(imax).astype(np.int64) + offset
-        vmin, imin = _to_np(vmin), _to_np(imin).astype(np.int64) + offset
+        dev = self.best_max.device
+        vmax, vmin = torch.as_tensor(vmax, device=dev), torch.as_tensor(vmin, device=dev)
+        imax = torch.as_tensor(imax, device=dev).long() + offset
+        imin = torch.as_tensor(imin, device=dev).long() + offset
         upd = vmax > self.best_max
-        self.best_max[upd], self.best_imax[upd] = vmax[upd], imax[upd]
+        self.best_max = torch.where(upd, vmax, self.best_max)
+        self.best_imax = torch.where(upd, imax, self.best_imax)
         upd = vmin < self.best_min
-        self.best_min[upd], self.best_imin[upd] = vmin[upd], imin[upd]
+        self.best_min = torch.where(upd, vmin, self.best_min)
+        self.best_imin = torch.where(upd, imin, self.best_imin)
 
     def candidates(self) -> np.ndarray:
         """ALL distinct extremal row ids, first-occurrence order (≤ 2m)."""
-        return stable_first_unique(np.concatenate([self.best_imax, self.best_imin]))
+        return stable_first_unique(_to_np(torch.cat([self.best_imax, self.best_imin])))
 
     def state(self) -> dict[str, np.ndarray]:
         """Checkpointable snapshot (f32/int64 arrays: an exact round trip)."""
-        return {
-            "max": self.best_max.copy(),
-            "imax": self.best_imax.copy(),
-            "min": self.best_min.copy(),
-            "imin": self.best_imin.copy(),
-        }
+        return {"max": _to_np(self.best_max).copy(), "imax": _to_np(self.best_imax).copy(),
+                "min": _to_np(self.best_min).copy(), "imin": _to_np(self.best_imin).copy()}
 
     def load(self, s) -> None:
-        self.best_max = np.asarray(s["max"], np.float32).copy()
-        self.best_imax = np.asarray(s["imax"], np.int64).copy()
-        self.best_min = np.asarray(s["min"], np.float32).copy()
-        self.best_imin = np.asarray(s["imin"], np.int64).copy()
+        dev = self.best_max.device
+        self.best_max = torch.as_tensor(np.asarray(s["max"], np.float32), device=dev)
+        self.best_imax = torch.as_tensor(np.asarray(s["imax"], np.int64), device=dev)
+        self.best_min = torch.as_tensor(np.asarray(s["min"], np.float32), device=dev)
+        self.best_imin = torch.as_tensor(np.asarray(s["imin"], np.int64), device=dev)
 
 
 def finalize_scoring(
@@ -749,7 +750,9 @@ class ScoringEngine:
         ``strat.fused_update`` (one-pass: with the extremes against the
         upfront net). Two-pass strategies re-stream for leverage and the
         extremes against the moment net; one-pass reads leverage off the
-        retained z rows.
+        retained z rows. Each sweep is ``_Sweeps.sweep1`` / ``sweep2`` over
+        a range of chunks; the running extremes stay on the device until
+        the hull rows are read at the end.
 
         With ``sweep_ckpt`` each sweep's carry is a fixed-shape payload saved
         every N chunks with its cursor, and ``resume`` skips the chunks the
@@ -764,120 +767,56 @@ class ScoringEngine:
         global row ``base``, the plans are drawn for the global n and
         sliced by global row, the strategy state is folded once after sweep
         1, and the extremes and the leverage are gathered at the end."""
-        featurize = self.featurize
+        sw = _Sweeps(self, strat, Y, sqrt_w, n, chunk, hull_k, shard)
         dev = self.device
         r = self.rows_per_point
-        want_hull = hull_k > 0
-        want_P = want_hull or getattr(strat, "track_moments", False)
-        if shard is None:
-            ranges = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
-            base, n_all = 0, n
-        else:
-            ranges, base, n_all = shard.ranges, shard.base, shard.n
-        n_chunks = len(ranges)
-
-        def _prep(lo, hi):
-            Xc, Pc = featurize(Y[lo:hi])
-            if want_hull and Pc is None:
-                raise ValueError("hull_k > 0 requires a featurize that returns P rows")
-            if not want_P:
-                Pc = None
-            swc = sqrt_w[lo:hi] if sqrt_w is not None else torch.ones(hi - lo, device=dev)
-            return Xc, Pc, swc
-
-        cached: dict = {}
-
-        def get_chunk(lo, hi):
-            if n_chunks > 1:
-                return _prep(lo, hi)
-            if not cached:  # dense fast path: featurize once for both sweeps
-                cached["c"] = _prep(lo, hi)
-            return cached["c"]
-
-        def shapes():
-            """(D, p) of the featurize: from the first chunk, or from the
-            mesh's probe row on a rank that holds no rows."""
-            rows = [rg for rg in ranges if rg[1] > rg[0]]
-            if rows:
-                Xc, Pc, _ = get_chunk(*rows[0])
-            else:
-                Xc, Pc = featurize(shard.probe)
-                Pc = Pc if want_P else None
-            return int(Xc.shape[1]), (int(Pc.shape[1]) if Pc is not None else None)
-
-        def begin(D, p):
-            plan = strat.begin(n_all, D, generator, plan_in, dev)
-            state = strat.init_state(D, p, dev)
-            dirs1 = ext = None
-            if strat.one_pass and want_hull:
-                dirs1 = self._net(
-                    lambda **kw: upfront_directions(p, hull_k, self.hull_oversample, **kw),
-                    hull_normals, hull_dirs, generator,
-                )
-                ext = RunningExtremes(int(dirs1.shape[0]))
-            return plan, state, dirs1, ext
+        n_chunks = sw.n_chunks
+        carry = _Carry(generator, plan_in, hull_normals, hull_dirs)
 
         # ---- sweep 1
-        state = plan = None
-        z_blocks: list = []
-        z_buf = None
-        ext = dirs1 = None
         ck = _SweepCheckpoints(sweep_ckpt) if sweep_ckpt is not None else None
         done1 = 0
-        if ck is not None:
+        if ck is None:
+            sw.sweep1(carry, 0, n_chunks)
+        else:
             if generator is not None:  # a resume draws the plans from the entry state
                 if resume and ck.mgr0.latest_step() is not None:
                     generator.set_state(torch.from_numpy(ck.mgr0.restore_flat()["gen"]))
                 else:
                     ck.mgr0.save(0, {"gen": generator.get_state().numpy()})
             # fixed-shape payloads need (D, p) before the loop: probe chunk 0
-            D, p = shapes()
-            plan, state, dirs1, ext = begin(D, p)
+            sw.begin(carry, *sw.shapes())
             if strat.one_pass:
-                width = D if plan[2] is None else int(plan[2].shape[1])
-                z_buf = torch.zeros((n, width), dtype=torch.float32, device=dev)
+                width = sw.D if carry.plan[2] is None else int(carry.plan[2].shape[1])
+                carry.z_buf = torch.zeros((n, width), dtype=torch.float32, device=dev)
 
             def payload1():
-                out = {"chunks": np.int64(done1), "state": state}
-                if z_buf is not None:
-                    out["z"] = z_buf
-                if ext is not None:
-                    out["ext"] = ext.state()
+                out = {"chunks": np.int64(done1), "state": carry.state}
+                if carry.z_buf is not None:
+                    out["z"] = carry.z_buf
+                if carry.ext is not None:
+                    out["ext"] = carry.ext.state()
                 return out
 
             if resume and ck.mgr1.latest_step() is not None:
                 got = ck.mgr1.restore(payload1())
                 done1 = int(got["chunks"])
-                state = got["state"]
-                if z_buf is not None:
-                    z_buf = got["z"]
-                if ext is not None:
-                    ext.load(got["ext"])
+                carry.state = got["state"]
+                if carry.z_buf is not None:
+                    carry.z_buf = got["z"]
+                if carry.ext is not None:
+                    carry.ext.load(got["ext"])
 
-        for ci, (lo, hi) in enumerate(ranges):
-            if ci < done1:
-                continue
-            if hi > lo:
-                Xc, Pc, swc = get_chunk(lo, hi)
-                if state is None:
-                    plan, state, dirs1, ext = begin(int(Xc.shape[1]),
-                                                    int(Pc.shape[1]) if Pc is not None else None)
-                state, z, extb = strat.fused_update(
-                    state, Xc, Pc, swc, strat.slice_plan(plan, base + lo, base + hi), dirs=dirs1
-                )
-                if z is not None:
-                    if z_buf is not None:
-                        z_buf[lo:hi] = z
-                    else:
-                        z_blocks.append(z)
-                if ext is not None:
-                    ext.update(*extb, offset=(base + lo) * r)
-            if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
-                done1 = ci + 1
-                ck.mgr1.save(ci + 1, payload1())
-            maybe_inject("scoring", ci + 1)
-        if state is None:  # a rank that holds no rows still takes the draws
-            plan, state, dirs1, ext = begin(*shapes())
+            def save1(ci):
+                nonlocal done1
+                if (ci + 1) % ck.every == 0 or ci + 1 == n_chunks:
+                    done1 = ci + 1
+                    ck.mgr1.save(ci + 1, payload1())
+
+            sw.sweep1(carry, done1, n_chunks, on_chunk=save1)
+        if carry.state is None:  # a rank that holds no rows still takes the draws
+            sw.begin(carry, *sw.shapes())
+        state, plan, ext = carry.state, carry.plan, carry.ext
         if shard is not None:  # one collective: the per-rank partials, summed in rank order
             state = tuple(shard.mesh.fold(state))
 
@@ -886,24 +825,28 @@ class ScoringEngine:
 
         hull_rows = None
         if strat.one_pass:
-            if z_buf is not None:
+            z_blocks = carry.z_blocks
+            if carry.z_buf is not None:
                 # fresh chunk-sized blocks, as the plain path's, for its bits
-                z_blocks = [z_buf[lo:hi].clone() for lo, hi in ranges if hi > lo]
+                z_blocks = [carry.z_buf[lo:hi].clone() for lo, hi in sw.ranges if hi > lo]
             u = (torch.cat([_z_leverage(z, V, inv) for z in z_blocks]) if z_blocks
                  else torch.zeros(0, dtype=torch.float32, device=dev))
         else:
             # ---- sweep 2: leverage + directional extremes
-            if want_hull:
+            dirs = None
+            if sw.want_hull:
                 s1, s2 = strat.moments(state)
                 dirs = self._net(
                     lambda **kw: directions_from_moments(
-                        s1, s2, n_all * r, hull_k, self.hull_oversample, **kw),
+                        s1, s2, sw.n_all * r, hull_k, self.hull_oversample, **kw),
                     hull_normals, hull_dirs, generator,
                 )
-                ext = RunningExtremes(int(dirs.shape[0]))
+                ext = RunningExtremes(int(dirs.shape[0]), dev)
             u = torch.empty(n, dtype=torch.float32, device=dev)
-            done2 = 0
-            if ck is not None:
+            if ck is None:
+                sw.sweep2(u, V, inv, dirs, ext, 0, n_chunks)
+            else:
+                done2 = 0
 
                 def payload2():
                     out = {"chunks": np.int64(done2), "u": u}
@@ -917,18 +860,14 @@ class ScoringEngine:
                     u = got["u"]
                     if ext is not None:
                         ext.load(got["ext"])
-            for ci, (lo, hi) in enumerate(ranges):
-                if ci < done2:
-                    continue
-                if hi > lo:
-                    Xc, Pc, swc = get_chunk(lo, hi)
-                    u[lo:hi] = leverage_chunk(Xc, swc, V, inv)
-                    if ext is not None:
-                        ext.update(*hull_chunk_extremes(Pc, dirs), offset=(base + lo) * r)
-                if ck is not None and ((ci + 1) % ck.every == 0 or ci + 1 == n_chunks):
-                    done2 = ci + 1
-                    ck.mgr2.save(ci + 1, payload2())
-                maybe_inject("scoring", n_chunks + ci + 1)
+
+                def save2(ci):
+                    nonlocal done2
+                    if (ci + 1) % ck.every == 0 or ci + 1 == n_chunks:
+                        done2 = ci + 1
+                        ck.mgr2.save(ci + 1, payload2())
+
+                sw.sweep2(u, V, inv, dirs, ext, done2, n_chunks, on_chunk=save2)
         if ext is not None:
             hull_rows = ext.candidates() if shard is None else shard.hull_rows(ext)
         if shard is not None:
@@ -936,11 +875,141 @@ class ScoringEngine:
 
         moments = None
         if getattr(strat, "track_moments", False) and state[1] is not None:
-            moments = (_to_np(state[1]), _to_np(state[2]), n_all * r)
+            moments = (_to_np(state[1]), _to_np(state[2]), sw.n_all * r)
         return finalize_scoring(
-            n_all, n_chunks if shard is None else shard.n_chunks, method,
+            sw.n_all, n_chunks if shard is None else shard.n_chunks, method,
             strat.result_gram(state, plan), u, hull_rows, r, moments=moments,
         )
+
+
+@dataclasses.dataclass
+class _Carry:
+    """Sweep 1's carry: the draws it is begun with, and, once begun, the
+    plan, strategy state, upfront net, running extremes and z rows."""
+
+    generator: object = None
+    plan_in: object = None
+    hull_normals: object = None
+    hull_dirs: object = None
+    plan: object = None
+    state: tuple | None = None
+    dirs1: torch.Tensor | None = None
+    ext: RunningExtremes | None = None
+    z_blocks: list = dataclasses.field(default_factory=list)
+    z_buf: torch.Tensor | None = None
+
+
+class _Sweeps:
+    """One ``score`` call's chunk loop, each sweep a callable over a range
+    of chunks ``[start, stop)`` (the reference's ``make_sharded_pass_fns``
+    and ``make_segmented_pass_fns`` are factories of such bodies): the
+    engine drives them between its checkpoints, and the invariant auditor
+    (``repro_torch.analysis``) runs them as programs of their own. Neither
+    sweep reads the device from the host."""
+
+    def __init__(self, engine: "ScoringEngine", strat, Y, sqrt_w, n, chunk, hull_k, shard=None):
+        self.engine = engine
+        self.strat = strat
+        self.Y = Y
+        self.sqrt_w = sqrt_w
+        self.hull_k = hull_k
+        self.shard = shard
+        self.want_hull = hull_k > 0
+        self.want_P = self.want_hull or getattr(strat, "track_moments", False)
+        if shard is None:
+            self.ranges = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+            self.base, self.n_all = 0, n
+        else:
+            self.ranges, self.base, self.n_all = shard.ranges, shard.base, shard.n
+        self.n_chunks = len(self.ranges)
+        self.D = self.p = None
+        self._cached: dict = {}
+
+    def _prep(self, lo, hi):
+        Xc, Pc = self.engine.featurize(self.Y[lo:hi])
+        if self.want_hull and Pc is None:
+            raise ValueError("hull_k > 0 requires a featurize that returns P rows")
+        if not self.want_P:
+            Pc = None
+        swc = (self.sqrt_w[lo:hi] if self.sqrt_w is not None
+               else torch.ones(hi - lo, device=self.engine.device))
+        return Xc, Pc, swc
+
+    def chunk(self, lo, hi):
+        if self.n_chunks > 1:
+            return self._prep(lo, hi)
+        if not self._cached:  # dense fast path: featurize once for both sweeps
+            self._cached["c"] = self._prep(lo, hi)
+        return self._cached["c"]
+
+    def shapes(self) -> tuple[int, int | None]:
+        """(D, p) of the featurize: from the first chunk, or from the mesh's
+        probe row on a rank that holds no rows."""
+        rows = [rg for rg in self.ranges if rg[1] > rg[0]]
+        if rows:
+            Xc, Pc, _ = self.chunk(*rows[0])
+        else:
+            Xc, Pc = self.engine.featurize(self.shard.probe)
+            Pc = Pc if self.want_P else None
+        return int(Xc.shape[1]), (int(Pc.shape[1]) if Pc is not None else None)
+
+    def begin(self, carry: _Carry, D: int, p: int | None) -> None:
+        """Draw the plan (and the one-pass upfront net) and zero the state."""
+        eng, strat = self.engine, self.strat
+        self.D, self.p = D, p
+        carry.plan = strat.begin(self.n_all, D, carry.generator, carry.plan_in, eng.device)
+        carry.state = strat.init_state(D, p, eng.device)
+        if strat.one_pass and self.want_hull:
+            carry.dirs1 = eng._net(
+                lambda **kw: upfront_directions(p, self.hull_k, eng.hull_oversample, **kw),
+                carry.hull_normals, carry.hull_dirs, carry.generator,
+            )
+            carry.ext = RunningExtremes(int(carry.dirs1.shape[0]), eng.device)
+
+    def sweep1(self, carry: _Carry, start: int, stop: int, on_chunk=None) -> None:
+        """Chunks [start, stop) of sweep 1 into ``carry`` (begun at its
+        first chunk with rows unless begun already); no collective.
+        ``on_chunk(ci)`` runs after each chunk, before its injection point
+        (the engine's checkpoint saves)."""
+        strat, r = self.strat, self.engine.rows_per_point
+        for ci in range(start, stop):
+            lo, hi = self.ranges[ci]
+            if hi > lo:
+                Xc, Pc, swc = self.chunk(lo, hi)
+                if carry.state is None:
+                    self.begin(carry, int(Xc.shape[1]),
+                               int(Pc.shape[1]) if Pc is not None else None)
+                carry.state, z, extb = strat.fused_update(
+                    carry.state, Xc, Pc, swc,
+                    strat.slice_plan(carry.plan, self.base + lo, self.base + hi),
+                    dirs=carry.dirs1,
+                )
+                if z is not None:
+                    if carry.z_buf is not None:
+                        carry.z_buf[lo:hi] = z
+                    else:
+                        carry.z_blocks.append(z)
+                if carry.ext is not None:
+                    carry.ext.update(*extb, offset=(self.base + lo) * r)
+            if on_chunk is not None:
+                on_chunk(ci)
+            maybe_inject("scoring", ci + 1)
+
+    def sweep2(self, u, V, inv, dirs, ext, start: int, stop: int, on_chunk=None) -> None:
+        """Chunks [start, stop) of sweep 2: leverage into ``u`` (local rows)
+        and the extremes against ``dirs`` into ``ext``; no collective;
+        ``on_chunk`` as for ``sweep1``."""
+        r = self.engine.rows_per_point
+        for ci in range(start, stop):
+            lo, hi = self.ranges[ci]
+            if hi > lo:
+                Xc, Pc, swc = self.chunk(lo, hi)
+                u[lo:hi] = leverage_chunk(Xc, swc, V, inv)
+                if ext is not None:
+                    ext.update(*hull_chunk_extremes(Pc, dirs), offset=(self.base + lo) * r)
+            if on_chunk is not None:
+                on_chunk(ci)
+            maybe_inject("scoring", self.n_chunks + ci + 1)
 
 
 def score_chunks(cfg, scaler, Y, **kwargs) -> ScoringResult:

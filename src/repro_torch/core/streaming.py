@@ -250,9 +250,10 @@ def drift_window_nll(
     axis=None,
     device=None,
 ) -> float:
-    """Per-weighted-point NLL of one stream window under ``params``:
-    Σw·nll / Σw, streamed chunk by chunk (featurize on the bernstein kernel;
-    each chunk's f32 (Σw·nll, Σw) added to float64 totals). With ``mesh``
+    """Per-weighted-point NLL of one stream window under ``params`` (``Y``
+    and ``weights`` host arrays or tensors): Σw·nll / Σw, streamed chunk by
+    chunk (featurize on the bernstein kernel; each chunk's f32 (Σw·nll, Σw)
+    added to float64 totals on the device, read once). With ``mesh``
     each rank streams its rows of the scoring layout and the (Σw·nll, Σw)
     pair folds once a window; ``axis`` must then be the mesh's data axes
     (``DataMesh.check_axis``; None: the mesh's own). Without a mesh
@@ -262,32 +263,43 @@ def drift_window_nll(
 
     dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     feat = fit_featurize(cfg, scaler)
-    Y = np.asarray(Y, np.float32)
+    if not isinstance(Y, torch.Tensor):
+        Y = np.asarray(Y, np.float32)
     n = int(Y.shape[0])
     if n == 0:
         raise ValueError("cannot evaluate an empty window")
-    w = np.ones(n, np.float32) if weights is None else np.asarray(weights, np.float32)
     c = int(chunk) if chunk else n
     lo0, hi0 = 0, n
     if mesh is not None:
         lo0, hi0, c, _ = rank_rows(mesh, n, chunk, axis=axis)
     Yt = to_tensor(Y[lo0:hi0], torch.float32, dev)
-    wt = to_tensor(w[lo0:hi0], torch.float32, dev)
-    parts = []
+    if weights is None:
+        wt = torch.ones(hi0 - lo0, dtype=torch.float32, device=dev)
+    else:
+        if not isinstance(weights, torch.Tensor):
+            weights = np.asarray(weights, np.float32)
+        wt = to_tensor(weights[lo0:hi0], torch.float32, dev)
+    # each chunk's f32 pair added to float64 totals on the device, in chunk
+    # order (the sums host floats take), folded, divided in float64 as the
+    # host would: one read a window
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    wsum = torch.zeros((), dtype=torch.float64, device=dev)
     with torch.no_grad():
         for lo in range(0, hi0 - lo0, c):
             hi = min(lo + c, hi0 - lo0)
-            A, Ap = feat(Yt[lo:hi])
-            parts.append(torch.stack([torch.sum(wt[lo:hi] * M.nll_terms(cfg, params, A, Ap)),
-                                      torch.sum(wt[lo:hi])]))
-    total = wsum = 0.0
-    if parts:
-        for t, sw in torch.stack(parts).double().cpu().tolist():  # one read a window
-            total += t
-            wsum += sw
+            pair = _drift_chunk(feat, cfg, params, Yt[lo:hi], wt[lo:hi])
+            total = total + pair[0].double()
+            wsum = wsum + pair[1].double()
     if mesh is not None:
-        total, wsum = mesh.fold_host(np.array([total, wsum]))
-    return float(total) / max(float(wsum), 1e-9)
+        total, wsum = mesh.fold([total, wsum])
+    return float(total / torch.clamp(wsum, min=1e-9))
+
+
+def _drift_chunk(feat, cfg: M.MCTMConfig, params, Yc, wc) -> torch.Tensor:
+    """(Σw·nll, Σw) of one (chunk, J) block, f32 (2,): the body of
+    ``drift_window_nll``'s sweep."""
+    A, Ap = feat(Yc)
+    return torch.stack([torch.sum(wc * M.nll_terms(cfg, params, A, Ap)), torch.sum(wc)])
 
 
 class DriftDetector:

@@ -11,7 +11,10 @@ Queue A 11.
 from repro_torch.distributed.mesh import (
     BACKENDS,
     DataMesh,
+    FakeWorldMesh,
+    RankExit,
     axis_tuple,
+    fake_mesh,
     host_gather,
     init_mesh,
     kv_allreduce,
@@ -21,7 +24,10 @@ from repro_torch.distributed.mesh import (
 __all__ = [
     "BACKENDS",
     "DataMesh",
+    "FakeWorldMesh",
+    "RankExit",
     "axis_tuple",
+    "fake_mesh",
     "host_gather",
     "init_mesh",
     "kv_allreduce",

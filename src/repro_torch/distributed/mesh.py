@@ -44,7 +44,11 @@ gloo group of their own, created with ``timeout=`` from the ``ft`` config's
 ``init_mesh`` joins a rank to a world through a file store (no port to
 collide with under pytest-xdist); ``run_world`` spawns a world of ranks
 (start method ``spawn``) running one function and returns each rank's
-result, killing every rank it started if one fails or the deadline passes.
+result, killing every rank it started if one fails or the deadline passes;
+``expect_exit=`` lets named ranks die with a named code while the others
+run on (the peer-death drill, ``tests/test_torch_drill.py``). ``fake_mesh``
+is one rank of an in-process fake world, on which the invariant auditor and
+the pod dry run trace sharded programs without peers.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import datetime
 import os
 import pickle
 import tempfile
+import threading
 import time
 import traceback
 from typing import Callable
@@ -66,12 +71,16 @@ __all__ = [
     "axis_tuple",
     "init_mesh",
     "run_world",
+    "RankExit",
+    "FakeWorldMesh",
+    "fake_mesh",
     "host_gather",
     "kv_allreduce",
 ]
 
 BACKENDS = ("nccl", "gloo")
 _ALIGN = 8  # every packed part starts on an 8-byte boundary
+_CLOSE_WAIT_S = 10.0  # survivor mode: how long a rank with its result written waits to leave
 
 
 def axis_tuple(axis) -> tuple[str, ...]:
@@ -217,6 +226,49 @@ class DataMesh:
             self.group = self.kv_group = None
 
 
+@dataclasses.dataclass
+class FakeWorldMesh(DataMesh):
+    """Rank 0's view of an in-process fake world (``fake_mesh``):
+    ``torch.distributed``'s ``fake`` backend, with no peer behind it, so a
+    collective moves nothing and returns its output buffers as they were
+    (the census counts it as a real one). ``chips`` counts the hardware the
+    world stands for (the dry run's production meshes); ``close`` leaves the
+    default group only if this mesh made it."""
+
+    chips: int = 0
+    owns_group: bool = False
+
+    def close(self) -> None:
+        if self.owns_group:
+            super().close()
+        self.group = self.kv_group = None
+
+
+def fake_mesh(world: int, *, device, axes=("data",), chips: int = 0) -> FakeWorldMesh:
+    """Rank 0's ``FakeWorldMesh`` of ``world`` ranks. Its fake group is the
+    process's default group: made here if none exists; one that exists must
+    be a fake world of the same size (it is shared, and left to its maker).
+    On a CUDA device the mesh takes the NCCL path (no host staging)."""
+    import torch.distributed as dist
+
+    owns = False
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group of {dist.get_world_size()} ranks is "
+                f"already the default group; a fake world of {world} needs its place")
+    else:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        owns = True
+    device = torch.device(device)
+    return FakeWorldMesh(world=world, rank=0, device=device,
+                         backend="nccl" if device.type == "cuda" else "gloo",
+                         group=dist.group.WORLD, axes=axes, chips=chips or world,
+                         owns_group=owns)
+
+
 def _kv_timeout() -> datetime.timedelta:
     from repro_torch.ft.config import get_ft_config
 
@@ -310,7 +362,14 @@ def kv_allreduce(tree, mesh: DataMesh | None = None, *, timeout_ms: int | None =
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(fn, rank, world, backend, device, init_method, axes, args, out_path, env):
+def _write_result(out_path, result) -> None:
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def _rank_main(fn, rank, world, backend, device, init_method, axes, args, out_path, env,
+               survivor=False):
     os.environ.update(env)
     torch.set_num_threads(1)
     mesh = None
@@ -320,16 +379,36 @@ def _rank_main(fn, rank, world, backend, device, init_method, axes, args, out_pa
         result = ("ok", fn(mesh, *args))
     except Exception as exc:  # noqa: BLE001 — reported to the parent, which raises
         result = ("err", f"rank {rank}: {type(exc).__name__}: {exc}\n{traceback.format_exc()}")
-    finally:
+    if not survivor:
+        # every peer is alive: a close that hangs leaves no result, and the
+        # parent's deadline reports it
         if mesh is not None:
             mesh.close()
-    with open(out_path + ".tmp", "wb") as f:
-        pickle.dump(result, f)
-    os.replace(out_path + ".tmp", out_path)
+        _write_result(out_path, result)
+        return
+    # a peer is to die: the result first, since leaving a world whose peer
+    # has died may not return; the rank then gives the close a deadline
+    _write_result(out_path, result)
+    if mesh is not None:
+        closer = threading.Thread(target=mesh.close, daemon=True)
+        closer.start()
+        closer.join(_CLOSE_WAIT_S)
+        if closer.is_alive():  # the dead peer holds the group
+            os._exit(0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankExit:
+    """A rank of ``run_world`` that exited with the code ``expect_exit``
+    named for it, in that rank's place among the results."""
+
+    rank: int
+    code: int
 
 
 def run_world(fn: Callable, world: int, *, backend: str, devices=None, args: tuple = (),
-              axes=("data",), timeout_s: float = 600.0, env: dict | None = None) -> list:
+              axes=("data",), timeout_s: float = 600.0, env: dict | None = None,
+              expect_exit: dict | None = None) -> list:
     """Spawn ``world`` ranks, each running ``fn(mesh, *args)`` on its
     ``DataMesh``, and return their results in rank order. Rank r runs on
     ``devices[r]``; by default on ``cuda:r``, one card a rank as under
@@ -338,7 +417,16 @@ def run_world(fn: Callable, world: int, *, backend: str, devices=None, args: tup
     import path). A rank that raises, dies or outlives ``timeout_s`` makes
     this raise ``RuntimeError`` once every rank has been stopped. ``env``
     is set in each rank before it starts. Kernels a rank runs must be built
-    before the spawn (``kernels._lib.lib()``): ranks load the built library."""
+    before the spawn (``kernels._lib.lib()``): ranks load the built library.
+
+    Survivor mode (the peer-death drill): ``expect_exit={rank: code}``
+    names ranks that are to die with ``code`` (``os._exit``) and leave no
+    result. Such a rank is reported as a ``RankExit`` in its place, and the
+    others run on; a rank that dies with another code, or that does not die,
+    still makes this raise. In this mode only, the other ranks write their
+    results before they leave the world and give leaving ``_CLOSE_WAIT_S``
+    (a dead peer may hold the group); outside it a close that hangs is a
+    rank that outlives ``timeout_s``."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -352,7 +440,8 @@ def run_world(fn: Callable, world: int, *, backend: str, devices=None, args: tup
         init = "file://" + os.path.join(tmp, "store")
         outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(world)]
         procs = [ctx.Process(target=_rank_main, args=(
-            fn, r, world, backend, str(devices[r]), init, axes, args, outs[r], dict(env or {})))
+            fn, r, world, backend, str(devices[r]), init, axes, args, outs[r], dict(env or {}),
+            bool(expect_exit)))
             for r in range(world)]
         for p in procs:
             p.start()
@@ -365,8 +454,16 @@ def run_world(fn: Callable, world: int, *, backend: str, devices=None, args: tup
                 if p.is_alive():
                     p.kill()
                     p.join()
+        expect = {int(r): int(c) for r, c in (expect_exit or {}).items()}
         errors, results = [], []
         for r, (p, path) in enumerate(zip(procs, outs)):
+            if r in expect:
+                if p.exitcode == expect[r] and not os.path.exists(path):
+                    results.append(RankExit(r, p.exitcode))
+                else:
+                    errors.append(f"rank {r}: expected to exit with code {expect[r]}, "
+                                  f"exited with {p.exitcode}")
+                continue
             if not os.path.exists(path):
                 errors.append(f"rank {r}: exited with code {p.exitcode} and no result "
                               f"(deadline {timeout_s:.0f}s)")

@@ -194,18 +194,25 @@ def require_cuda(*tensors: torch.Tensor | None) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
+# calls each wrapper sent to its plain version (a CPU tensor), by kernel: the
+# CPU's count of what the wrappers' LAUNCHES count on the card (the invariant
+# auditor's kernel census, ``repro_torch.analysis``)
+PLAIN_CALLS: dict[str, int] = {}
+
+
 def resolve_backend(backend: str | None, x: torch.Tensor, name: str) -> str:
     """The dispatch contract of every wrapper: a CUDA tensor runs the
     kernel, a CPU tensor the plain version (``ref.py``). ``backend`` may
     only name the path the tensor's device selects; anything else raises."""
     path = "cuda" if x.device.type == "cuda" else "torch"
-    if backend is None:
-        return path
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"unknown {name} backend: {backend!r} (expected 'cuda' or 'torch')")
-    if backend != path:
-        raise ValueError(
-            f"{name} backend {backend!r} does not run on a {x.device.type} tensor: "
-            "CUDA tensors go to the kernel, CPU tensors to the plain version"
-        )
+    if backend is not None:
+        if backend not in ("cuda", "torch"):
+            raise ValueError(f"unknown {name} backend: {backend!r} (expected 'cuda' or 'torch')")
+        if backend != path:
+            raise ValueError(
+                f"{name} backend {backend!r} does not run on a {x.device.type} tensor: "
+                "CUDA tensors go to the kernel, CPU tensors to the plain version"
+            )
+    if path == "torch":
+        PLAIN_CALLS[name] = PLAIN_CALLS.get(name, 0) + 1
     return path

@@ -60,3 +60,26 @@ def test_basis_features_match_reference_with_clipping(n):
         tscaler.transform(torch.from_numpy(Y)).numpy(),
         np.asarray(scaler.transform(jnp.asarray(Y))), atol=ATOL,
     )
+
+
+def test_scaler_bounds_upload_once_and_stay_out_of_copies():
+    """``DataScaler.bounds`` is made once per scaler, dtype and device; a
+    traced call (fake tensors) leaves nothing for later calls, and a pickled
+    or copied scaler carries no tensor of the original."""
+    import copy
+    import pickle
+
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+
+    Y = np.random.default_rng(3).normal(size=(64, 3))
+    s = TB.DataScaler.fit(Y)
+    with FakeTensorMode():
+        assert is_fake(s.bounds())
+    b = s.bounds()
+    assert not is_fake(b) and s.bounds() is b
+    assert b.dtype == torch.float32 and s.bounds(torch.float64).dtype == torch.float64
+    want = np.stack([s.low, s.high, s.inv_span]).astype(np.float32)
+    np.testing.assert_array_equal(b.numpy(), want)
+    for other in (pickle.loads(pickle.dumps(s)), copy.deepcopy(s)):
+        assert "_bounds" not in vars(other)
+        assert other.bounds() is not b and torch.equal(other.bounds(), b)

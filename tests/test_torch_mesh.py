@@ -68,8 +68,17 @@ def test_mesh_shapes_and_refusals(monkeypatch):
     assert LM.make_host_mesh(device="cpu").world == 1
     with pytest.raises(NotImplementedError, match="Queue A 11"):
         LM.make_host_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        LM.make_production_mesh()
+    # the production meshes are fake worlds (rank 0 of 16 or 32 data shards)
+    for multi_pod, shards, chips, axes in ((False, 16, 256, ("data",)),
+                                           (True, 32, 512, ("pod", "data"))):
+        prod = LM.make_production_mesh(multi_pod=multi_pod)
+        try:
+            assert (prod.world, prod.rank, prod.chips, LM.data_axes(prod)) == (
+                shards, 0, chips, axes)
+            assert prod.fold([torch.ones(2)])[0].shape == (2,)
+            assert prod.calls("fold") == 1
+        finally:
+            prod.close()
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(ValueError, match="gloo"):

@@ -11,7 +11,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -30,7 +31,11 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     """Without device=, the entry points ask for CUDA and raise where there
-    is none; they never carry on on the CPU."""
+    is none; they never carry on on the CPU. The pod dry run
+    (``launch/dryrun_coreset.py``, ``launch.mesh.make_production_mesh``) is
+    not among them: it traces rank 0's program under fake tensors on a fake
+    world, CPU-only by nature, as the reference's is on placeholder
+    devices."""
     from repro_torch.core import bernstein as TB
     from repro_torch.core import coreset as TC
     from repro_torch.core import mctm as TM
@@ -45,6 +50,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.distributed import DataMesh, run_world
     from repro_torch.launch.stages import data_mesh
     from repro_torch.serve import DensityServeEngine, ServeEngine
+    from repro_torch.analysis import audit_program, get_program
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_analysis_gate",
+                                                  ROOT / "scripts" / "torch_analysis_gate.py")
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    monkeypatch.chdir(ROOT)
 
     lm_cfg = get_reduced_config("tinyllama_1b")
     cpu_model = build_model(lm_cfg, device="cpu")
@@ -113,6 +126,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
                                       batch_size=8),
         lambda: lm_train.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1"]),
         lambda: build_model(lm_cfg, train=True),
+        lambda: audit_program(get_program("streamed_nll_chunk")),
+        lambda: gate.main([]),
+        lambda: gate.main(["--seed-violation", "extra_psum"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -311,3 +311,73 @@ def dead_peer(mesh, timeout_ms=None):
     except RuntimeError:
         return ("raised", time.monotonic() - t0)
     return "no error"
+
+
+# ---------------------------------------------------------------------------
+# the peer-death drill (tests/test_multiprocess.py's kill-one-worker drill):
+# rank 1 dies mid-training; rank 0's next kv_allreduce raises (the dead-peer
+# signal), its RunSupervisor retries, restores its last checkpoint and
+# finishes degraded on all the rows alone
+# ---------------------------------------------------------------------------
+
+DRILL_STEPS, DRILL_KILL_AT, DRILL_LR = 12, 7, 0.05
+
+
+def drill_data():
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((64, 4)).astype(np.float32)
+    y = (X @ np.array([1.0, -2.0, 0.5, 3.0], np.float32)).astype(np.float32)
+    return X, y
+
+
+def drill_grad_loss(X, y, w, rows):
+    """Partial gradient and loss normalized by the GLOBAL row count, so the
+    cross-rank sum is the full-batch gradient and loss."""
+    r = X[rows] @ w - y[rows]
+    return (X[rows].T @ r) * (2.0 / len(X)), np.float32(r @ r / len(X))
+
+
+def drill_reference():
+    X, y = drill_data()
+    w = np.zeros(4, np.float32)
+    for _ in range(DRILL_STEPS):
+        g, loss = drill_grad_loss(X, y, w, np.arange(64))
+        w = w - DRILL_LR * g
+    return w, float(loss)
+
+
+def peer_death_drill(mesh, ckpt_dir, kill_at=DRILL_KILL_AT):
+    """Rank ``1`` exits with code 17 at step ``kill_at`` (``kill_at=None``:
+    nobody dies); rank 0 returns its weights, loss and supervisor events."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import kv_allreduce
+    from repro_torch.ft import RunSupervisor
+    from repro_torch.ft.config import ft_overrides
+
+    X, y = drill_data()
+    halves = np.array_split(np.arange(64), 2)
+    mgr = CheckpointManager(os.path.join(ckpt_dir, f"rank{mesh.rank}"), keep=2)
+
+    def attempt(ctx):
+        w, start = np.zeros(4, np.float32), 0
+        if ctx.resume:
+            got = mgr.restore({"step": np.zeros((), np.int64), "w": w})
+            w, start = np.asarray(got["w"]), int(got["step"])
+        degraded = ctx.attempt > 0  # the survivor: its own rows and the peer's, no exchange
+        loss = None
+        for i in range(start, DRILL_STEPS):
+            if mesh.rank == 1 and i == kill_at:
+                os._exit(17)
+            if degraded:
+                g, loss = drill_grad_loss(X, y, w, np.arange(64))
+            else:
+                g, loss = kv_allreduce(drill_grad_loss(X, y, w, halves[mesh.rank]), mesh)
+            w = w - DRILL_LR * np.asarray(g)
+            if (i + 1) % 2 == 0:
+                mgr.save(i + 1, {"step": np.asarray(i + 1, np.int64), "w": w})
+        return w, float(loss)
+
+    with ft_overrides(max_retries=2, backoff_base_s=0.0):
+        sup = RunSupervisor(label="killworker", devices_fn=lambda: 2)
+        w, loss = sup.run(attempt)
+    return w, loss, list(sup.events)
