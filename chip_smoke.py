@@ -2,10 +2,10 @@
 NVIDIA H100: builds the kernels from this checkout's sources, holds each
 kernel against its plain PyTorch version at its path's shapes, drives the
 Algorithm 1 path end to end through ``repro_torch.launch.train_mctm``
-(two-pass, then one-pass), the LM serving path through ``ServeEngine`` and
-the LM training path through ``repro_torch.launch.train`` at full width
-(tinyllama-1.1b, then mamba2-370m), and checks that every kernel of each
-path ran.
+(two-pass, then one-pass), the LM serving path through ``ServeEngine``
+(tinyllama-1.1b, mamba2-370m, minicpm3-4b, qwen2-moe-a2.7b, arctic-480b)
+and the LM training path through ``repro_torch.launch.train`` at full
+width, and checks that every kernel of each path ran.
 
     python3 chip_smoke.py
 
@@ -37,6 +37,10 @@ Phases (any failure exits nonzero):
      plain version (whole and ragged), timed in turns with ``dirs @ P.T`` +
      ``max``/``min``, and its own path, the hull API on the J = 10 feature rows
      (ε-kernel k = 400, a 64-step greedy projection: 65 wide launches);
+     flash_attention's wgmma body at d = 128 at the MoE models' prefill
+     shapes (qwen2-moe (1, 1,024, 16, 128), KV 16; arctic 56 heads, KV 8),
+     bf16 within 3e-2 of its plain version, timed in turns with SDPA
+     (events, device time, bound);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, 250 steps at lr 0.05): two-pass with the
      driver's default full-data fit, the streaming lbfgs (gtol 1e-5; its time,
@@ -52,15 +56,21 @@ Phases (any failure exits nonzero):
      controls not;
   4. the serve path: the reduced LMs on the card against the CPU at f32
      (same greedy tokens, logits within 1e-4), then each full-width model
-     from a seeded generator on the card serving 8 greedy requests (prompts
-     256–1024 tokens, 32 new tokens each) through 4 slots of 2,048
-     positions; every logit finite, and the engine's logits held against a
-     single-request teacher-forced run of the same model; then, with
-     ``torch.profiler``, the device's busy time and idle share over one
-     1,024-token prefill (with the kernel's share of its device time) and over
-     8 batched decode ticks; tinyllama's prefills must all take
+     from a seeded generator on the card (arctic-480b at 2 of its 35
+     layers, a depth cut one card's 80 GB forces) serving 8 greedy requests
+     (prompts 256–1024 tokens, 32 new tokens each) through 4 slots of 2,048
+     positions; its load time, the build's peak memory beside the served
+     bytes, every logit finite, and the engine's logits held against a
+     single-request teacher-forced run of the same model (a prefill of the
+     prompt, then one of the engine's tokens; the MoE models one decode step
+     a token, at capacity_factor n_experts / top_k, where nothing drops; the
+     share of (token, slot) pairs dropped at the published 1.25 is printed
+     for prefill and decode); then, with ``torch.profiler``, the device's busy
+     time and idle share over one 1,024-token prefill (with the kernel's
+     share of its device time) and over 3 batched decode ticks;
+     tinyllama's, qwen2-moe's and arctic's prefills must all take
      flash_attention's wgmma body and mamba2's all take ssd's mma body (their
-     own launch counters);
+     own launch counters), minicpm3's none (its MLA is plain PyTorch);
   6. the paper's core beyond Algorithm 1's path (it runs after phase 4,
      but for gram and the sweep at the conditional width D = 16, the sweep
      held to its plain version, which run beside phase 2): the conditional Algorithm 1 at n = 250,001 (J = 2,
@@ -140,8 +150,11 @@ Phases (any failure exits nonzero):
      fold a sweep and one gather pair; a crashed segmented sweep at world
      2 resumes to the same bits; per-rank ``build_s`` and fold bytes;
  12. LM training through ``launch/train.py``: tinyllama-1.1b and mamba2-370m
-     at their published widths and depths, bf16 activations and float32
-     masters (``--coreset l2-hull --coreset-k 512 --batch 8 --seq 64``, 30
+     at their published widths and depths, minicpm3-4b at 20 of 62 layers
+     and qwen2-moe-a2.7b at 2 of 24 (depth cuts: a step's peak takes about
+     34 B a parameter on one card; qwen2-moe's router aux term finite and
+     > 0),
+     bf16 activations and float32 masters (``--coreset l2-hull --coreset-k 512 --batch 8 --seq 64``, 30
      steps at lr 1e-3): finite losses, the last 5 steps' mean below the
      first 5's, no launch of flash_attention or ssd (training runs the plain
      attention and SSD scan, as the reference trains through its jnp twins)
@@ -152,7 +165,8 @@ Phases (any failure exits nonzero):
      featurized by the mean of the embeddings, D = 2,048: gram's large body
      and the wide-P route; l2-hull against uniform from the same weights,
      the gap printed, no gate on its sign); a crash-and-resume drill on
-     mamba2-370m (crashed at step 7 of 10, resumed from step 5's checkpoint
+     mamba2-370m at 12 of its 48 layers (crashed at step 7 of 10, resumed
+     from step 5's checkpoint
      to the straight run's bits); the reduced configs in f32, 5 steps on the
      card and on the CPU from the same weights and batches, losses within
      1e-4 relative;
@@ -1749,16 +1763,31 @@ def _core_standalone(dev, census, errs, params) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-SERVE_MODELS = ("tinyllama_1b", "mamba2_370m")
+SERVE_MODELS = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b")
+# arctic-480b at 2 of its 35 layers, at the published widths: a layer holds
+# 13.61 B parameters (27.2 GB in bf16), so one card's 80 GB takes two; every
+# layer is alike, so two hold a whole period and a layer boundary
+SERVE_DEPTH = {"arctic_480b": 2}
+# the kernel each model's prefill must take (its counter and body); None: no
+# kernel lies on the path (minicpm3's MLA attends in plain PyTorch, as the
+# reference's einsums do)
+SERVE_KERNEL = {"tinyllama_1b": ("flash_attention", "wgmma"), "mamba2_370m": ("ssd", "mma"),
+                "minicpm3_4b": None, "qwen2_moe_a2_7b": ("flash_attention", "wgmma"),
+                "arctic_480b": ("flash_attention", "wgmma")}
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 2048
 SERVE_PROMPTS = (256, 512, 768, 1024) * 2   # multiples of mamba2's chunk 256
 SERVE_NEW = 32
 # the engine's logits (4-slot batched decode) against a single-request run of
 # the same model fed the same tokens: bf16 rounds in other places when the
-# batch differs (other GEMM tilings), through 22 or 48 layers, so agreement
+# batch differs (other GEMM tilings), through up to 62 layers, so agreement
 # is held to 5e-2 of max|logits| (≈ 6 bf16 ulps at the largest logit)
 TEACHER_FORCED_REL = 5e-2
+
+
+# flash_attention's d = 128 prefill shapes on the served path: (heads, KV
+# heads) of qwen2-moe-a2.7b and arctic-480b at one 1,024-token prompt
+FA_D128_SHAPES = {"qwen2_moe_a2_7b": (16, 16), "arctic_480b": (56, 8)}
 
 
 def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
@@ -1775,7 +1804,9 @@ def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
 
 def phase_lm_kernels(dev):
     """flash_attention and ssd against their plain versions at the serve
-    path's prefill shapes (and ragged, f32 and state-in/out variants)."""
+    path's prefill shapes (and ragged, f32 and state-in/out variants), and
+    flash_attention at d = 128 at the MoE models' prefill shapes; returns
+    the kernel rows and the d = 128 records."""
     import numpy as np
     import torch
 
@@ -1830,21 +1861,53 @@ def phase_lm_kernels(dev):
         nbytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * d * pairs,
         peak=H100_BF16_FLOPS))
 
-    # ---- flash_attention at d = 128, olmo-1b's heads (16 × 128, no GQA):
-    # checked and timed against SDPA in turns; not on this slice's path
-    q8, k8, v8 = (torch.randn(B, S, 16, 128, generator=gen).to(dev, torch.bfloat16)
-                  for _ in range(3))
-    got = flash_attention(q8, k8, v8)
-    use, at = fa_bound_use(got, q8, k8, v8, True)
-    if use > 1.0 or kernel_path(q8) != "wgmma":
-        errs.append(f"flash_attention d=128 uses {use} of its bound ({kernel_path(q8)} body)")
-    t8 = in_turns(lambda: flash_attention(q8, k8, v8),
-                  lambda: torch.nn.functional.scaled_dot_product_attention(
-                      *(t.transpose(1, 2) for t in (q8, k8, v8)), is_causal=True))
-    log(f"  flash_attention d=128 (1, 1024, 16, 128) causal: bound use {use:.3f} at query {at}; "
-        f"device {t8['device_ms']:.5f} ms vs SDPA {t8['library_device_ms']:.5f} ms (ratio "
-        f"{t8['device_ratio']:.3f}, in turns {[round(x, 5) for x in t8['turns_device_ms']]})")
+    # ---- flash_attention at d = 128: the wgmma body at the MoE models'
+    # prefill shapes (phase 4 serves both through it), against its plain
+    # version, timed in turns with SDPA; the row is qwen2-moe's shape
+    d128 = {}
+    for model, (H8, KV8) in FA_D128_SHAPES.items():
+        q8, k8, v8 = (torch.randn(B, S, h, 128, generator=gen).to(dev, torch.bfloat16)
+                      for h in (H8, KV8, KV8))
+        got = flash_attention(q8, k8, v8)
+        e = max_err(got, flash_attention_ref(q8, k8, v8))
+        use, at = fa_bound_use(got, q8, k8, v8, True)
+        if e > 3e-2 or use > 1.0 or kernel_path(q8) != "wgmma" or not torch.isfinite(got).all():
+            errs.append(f"flash_attention d=128 {model}: err {e}, bound use {use}, "
+                        f"{kernel_path(q8)} body")
+        pairs8 = H8 * B * S * (S + 1) / 2
+        nbytes8 = 2 * (2 * q8.numel() + k8.numel() + v8.numel())
+        b8, by8 = bound_ms(nbytes8, 4 * 128 * pairs8, H100_BF16_FLOPS)
 
+        def sdpa8(q8=q8, k8=k8, v8=v8):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (q8, k8, v8)), is_causal=True, enable_gqa=True)
+
+        if model == "qwen2_moe_a2_7b":
+            row = kernel_row("flash_attention_d128", "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:62", e,
+                             lambda q8=q8, k8=k8, v8=v8: flash_attention(q8, k8, v8),
+                             lambda q8=q8, k8=k8, v8=v8: flash_attention_ref(q8, k8, v8),
+                             sdpa8, nbytes=nbytes8, flops=4 * 128 * pairs8,
+                             peak=H100_BF16_FLOPS)
+            row["shape"] = f"(1, {S}, {H8}, 128), KV {KV8}"
+            rows.append(row)
+            t8 = {"ms": row["ms"], "library_ms": row["library_ms"],
+                  "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+                  "turns_device_ms": row["turns_device_ms"]}
+        else:
+            t8 = in_turns(lambda q8=q8, k8=k8, v8=v8: flash_attention(q8, k8, v8), sdpa8)
+        d128[model] = rec8 = {"shape": [B, S, H8, 128], "kv_heads": KV8, "max_abs_err": e,
+                              "bound_use": use, "ms": t8["ms"], "sdpa_ms": t8["library_ms"],
+                              "device_ms": t8["device_ms"],
+                              "sdpa_device_ms": t8["library_device_ms"],
+                              "turns_device_ms": t8["turns_device_ms"], "bound_ms": b8,
+                              "bound_by": by8}
+        log(f"  flash_attention d=128 {model} (1, {S}, {H8}, 128) KV {KV8} causal: max abs err "
+            f"{e:.3e} (tol 3e-2), bound use {use:.3f} at query {at}; events {rec8['ms']:.5f} ms "
+            f"vs SDPA {rec8['sdpa_ms']:.5f}; device {rec8['device_ms']:.5f} ms vs SDPA "
+            f"{rec8['sdpa_device_ms']:.5f} (ratio {rec8['device_ms'] / rec8['sdpa_device_ms']:.3f},"
+            f" in turns {[round(x, 5) for x in rec8['turns_device_ms']]}); bound {b8:.5f} ms "
+            f"({by8}), {b8 / rec8['device_ms']:.3f} of it")
     # ---- ssd: mamba2 prefill, (1, 1024, 32, 64) x, N = 128, chunk 256
     T, H, P, N, Q = 1024, 32, 64, 128, 256
 
@@ -1914,7 +1977,7 @@ def phase_lm_kernels(dev):
     rows.append(ssd_row)
     if errs:
         fail("; ".join(errs))
-    return rows
+    return rows, d128
 
 
 def phase_lm_small_agreement(dev):
@@ -1952,7 +2015,9 @@ def phase_lm_small_agreement(dev):
             fail(f"reduced {name} on the card disagrees with the CPU: tokens {same}, err {e}")
 
 
-PROFILE_TICKS = 8
+# decode ticks in a profiled window: the profiler's records of a 62-layer
+# model's tick (~7,000 kernels) take seconds to read back
+PROFILE_TICKS = 3
 
 
 def profile_window(fn, match: str | None = None) -> dict:
@@ -1993,7 +2058,7 @@ def profile_window(fn, match: str | None = None) -> dict:
     return out
 
 
-def profile_serve(model, engine, prompts, kernel: str) -> dict:
+def profile_serve(model, engine, prompts, kernel: str | None) -> dict:
     """The serve path's two windows: one prefill of a 1,024-token prompt into
     a 1-slot cache (as the engine admits a request), with ``kernel``'s share
     of its device time, and PROFILE_TICKS batched decode ticks with all
@@ -2022,9 +2087,40 @@ def profile_serve(model, engine, prompts, kernel: str) -> dict:
     return out
 
 
+def teacher_forced(model, req):
+    """The logits of a single request fed ``req``'s prompt (a prefill), then
+    the tokens the engine generated (teacher forcing), at the positions the
+    engine sampled from: (max_new_tokens, vocab) float32. The generated
+    tokens go in as one chunked prefill into the prompt's cache (mamba2's
+    scan takes a chunk of at most 256 after whole chunks), or, for the MoE
+    models, one decode step each: a router logit rounded otherwise under
+    another product shape (31 tokens against the engine's 4) can flip a
+    near-tie in the top-k and swap an expert (PERF.md §6, PR 25)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+
+    cache = model.init_cache(1, SERVE_MAX_LEN)
+    logits, cache = model.prefill({"tokens": req.prompt[None, :]}, cache)
+    rows = [logits[0, -1:]]
+    fed = np.asarray(req.output[:-1])[None]
+    if model.cfg.family == "moe":
+        for i in range(fed.shape[1]):
+            logits, cache = model.decode_step(fed[:, i:i + 1], cache)
+            rows.append(logits[0])
+    else:
+        with torch.no_grad():
+            x = L.embed_tokens(model.emb, model._tokens(fed), model.cfg, model.dtype)
+            h, _ = model._run_with_cache(x, cache)
+            rows.append(L.logits_from_hidden(model.emb, h[0], model.cfg))
+    return torch.cat(rows).float().cpu().numpy()
+
+
 def phase_serve(dev):
-    """Each full-width model serving 8 requests through ServeEngine; returns
-    the launches of flash_attention and ssd over their serve runs."""
+    """Each full-width model serving 8 requests through ServeEngine (arctic
+    at SERVE_DEPTH's cut); returns the launches of flash_attention (d = 64
+    and d = 128 apart) and ssd over their serve runs, and the records."""
     import numpy as np
     import torch
 
@@ -2032,18 +2128,30 @@ def phase_serve(dev):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd import ops as ssd
     from repro_torch.models import build_model
+    from repro_torch.models.layers import DropCounter
     from repro_torch.serve import GenerationConfig, Request, ServeEngine
 
-    launches, records = {}, {}
+    launches = {"flash_attention": 0, "flash_attention_d128": 0, "ssd": 0}
+    records = {}
     for name in SERVE_MODELS:
         cfg = get_config(name)
-        kernel = fa if cfg.family == "dense" else ssd
-        kname = "flash_attention" if cfg.family == "dense" else "ssd"
+        if name in SERVE_DEPTH:
+            cfg = cfg.replace(n_layers=SERVE_DEPTH[name])
+            log(f"serve {name}: a depth cut, {cfg.n_layers} of {get_config(name).n_layers} layers "
+                f"at the published widths (one card's 80 GB)")
+        want = SERVE_KERNEL[name]
+        t_model = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = build_model(cfg, device=dev, seed=0)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        served_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
         n_params = sum(p.numel() for p in model.parameters())
+        log(f"serve {name}: built in {load_s:.1f} s, {n_params / 1e9:.3f} B parameters, "
+            f"{served_gb:.2f} GB served, build peak {build_peak_gb:.2f} GB")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPTS]
 
@@ -2053,55 +2161,79 @@ def phase_serve(dev):
             eng.cache["pos"] = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device=dev)
             return eng
 
+        def serve_all():
+            eng = engine()
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p,
+                                   gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
+            done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+            if len(done) != len(prompts) or any(len(r.output) != SERVE_NEW for r in done):
+                fail(f"{name}: {len(done)} of {len(prompts)} requests finished, outputs "
+                     f"{[len(r.output) for r in done]}")
+            if not all(np.isfinite(row).all() for r in done for row in r.logits):
+                fail(f"{name}: a logit is not finite")
+            return eng, done
+
         warm = engine()  # first calls: cuBLAS handles, allocator pools
         warm.submit(Request(uid=-1, prompt=prompts[0], gen=GenerationConfig(max_new_tokens=2)))
         warm.run_until_drained()
         del warm
         torch.cuda.reset_peak_memory_stats()
-        eng = engine()
         for mod in (fa, ssd):
             mod.LAUNCHES = 0
-        fa.PATH_LAUNCHES.update(dict.fromkeys(fa.PATH_LAUNCHES, 0))
-        ssd.PATH_LAUNCHES.update(dict.fromkeys(ssd.PATH_LAUNCHES, 0))
+            mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
+        if cfg.family == "moe":
+            model.drop_counter = DropCounter()
         t0 = time.perf_counter()
-        for i, p in enumerate(prompts):
-            eng.submit(Request(uid=i, prompt=p, gen=GenerationConfig(max_new_tokens=SERVE_NEW)))
-        done = eng.run_until_drained()
+        eng, done = serve_all()
         torch.cuda.synchronize()
         drain_s = time.perf_counter() - t0
-        count = kernel.LAUNCHES
-        launches[kname] = count
+        drops = model.drop_counter.shares() if model.drop_counter is not None else None
+        model.drop_counter = None
+        counts = {"flash_attention": fa.LAUNCHES, "ssd": ssd.LAUNCHES}
+        bodies = {"flash_attention": dict(fa.PATH_LAUNCHES), "ssd": dict(ssd.PATH_LAUNCHES)}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        done.sort(key=lambda r: r.uid)
-        if len(done) != len(prompts) or any(len(r.output) != SERVE_NEW for r in done):
-            fail(f"{name}: {len(done)} of {len(prompts)} requests finished, outputs "
-                 f"{[len(r.output) for r in done]}")
-        if not all(np.isfinite(row).all() for r in done for row in r.logits):
-            fail(f"{name}: a logit is not finite")
-        if count != cfg.n_layers * len(prompts):
-            fail(f"{name}: {kname} launched {count} times, expected "
-                 f"{cfg.n_layers} layers × {len(prompts)} prefills")
-        bodies = dict(fa.PATH_LAUNCHES if cfg.family == "dense" else ssd.PATH_LAUNCHES)
-        body = "wgmma" if cfg.family == "dense" else "mma"
-        if bodies[body] != count:
-            fail(f"{name}: the {body} body took {bodies[body]} of {count} launches {bodies}")
-        # teacher-forced: a single-request run of the same model fed the engine's tokens
+        if want is None:
+            if any(counts.values()):
+                fail(f"{name}: a kernel launched on a path that has none {counts}")
+        else:
+            kname, body = want
+            count = counts[kname]
+            if count != cfg.n_layers * len(prompts) or sum(counts.values()) != count:
+                fail(f"{name}: launches {counts}, expected {kname} {cfg.n_layers} layers × "
+                     f"{len(prompts)} prefills")
+            if bodies[kname][body] != count:
+                fail(f"{name}: the {body} body took {bodies[kname][body]} of {count} launches "
+                     f"{bodies[kname]}")
+            row = "flash_attention_d128" if kname == "flash_attention" and cfg.head_dim == 128 \
+                else kname
+            launches[row] += count
+        # the gate: the engine's logits against a single-request run of the
+        # same model fed the same tokens; the MoE models at capacity_factor
+        # n_experts / top_k, where nothing drops (at the published 1.25 the
+        # capacity is per call, so batched and single runs drop other pairs)
+        t_gate = time.perf_counter()
+        gate_cf = None
+        if cfg.family == "moe":
+            gate_cf = cfg.n_experts / cfg.top_k
+            model.cfg = cfg.replace(capacity_factor=gate_cf)
+            gate_done = serve_all()[1]
+        else:
+            gate_done = done
         tf_err, tf_scale, agree = 0.0, 0.0, 0
-        for r in done:
-            cache = model.init_cache(1, SERVE_MAX_LEN)
-            logits, cache = model.prefill({"tokens": r.prompt[None, :]}, cache)
-            rows_ = [logits[0, -1].float().cpu().numpy()]
-            for tok in r.output[:-1]:
-                logits, cache = model.decode_step(np.asarray([[tok]]), cache)
-                rows_.append(logits[0, -1].float().cpu().numpy())
-            a, b = np.stack(r.logits), np.stack(rows_)
+        for r in gate_done:
+            a, b = np.stack(r.logits), teacher_forced(model, r)
             tf_err = max(tf_err, float(np.abs(a - b).max()))
             tf_scale = max(tf_scale, float(np.abs(b).max()))
             agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        model.cfg = cfg
+        gate_s = time.perf_counter() - t_gate
         pre = np.asarray(eng.prefill_seconds) * 1e3
         tick = np.asarray(eng.tick_seconds) * 1e3
         rec = {
-            "model": cfg.name, "params": n_params, "load_s": load_s, "requests": len(done),
+            "model": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "load_s": load_s,
+            "served_gb": served_gb, "build_peak_memory_gb": build_peak_gb,
+            "requests": len(done),
             "prompt_tokens": int(sum(SERVE_PROMPTS)), "new_tokens": SERVE_NEW * len(done),
             "prefill_ms": dict(zip(map(str, SERVE_PROMPTS[:4]),
                                    [float(np.mean(pre[i::4])) for i in range(4)])),
@@ -2109,20 +2241,26 @@ def phase_serve(dev):
             "decode_ms_per_tick_median": float(np.median(tick)),
             "decode_ms_per_tick_mean": float(tick.mean()), "drain_s": drain_s,
             "generated_tokens_per_s": SERVE_NEW * len(done) / drain_s,
-            "peak_memory_gb": peak_gb, f"{kname}_launches": count,
+            "peak_memory_gb": peak_gb, "launches": counts, "launches_by_body": bodies,
+            "dropped_at_capacity": drops, "gate_capacity_factor": gate_cf,
             "teacher_forced_max_abs_err": tf_err, "teacher_forced_max_abs_logit": tf_scale,
-            "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(done)}",
+            "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(gate_done)}",
+            "gate_s": gate_s,
         }
-        rec[f"{kname}_launches_by_body"] = bodies
         records[name] = rec
         log(f"serve {name}: " + json.dumps(rec))
         if tf_err > TEACHER_FORCED_REL * tf_scale:
             fail(f"{name}: engine logits differ from the single-request run by {tf_err} "
                  f"(> {TEACHER_FORCED_REL} × {tf_scale})")
-        rec["profile"] = profile_serve(model, engine, prompts,
-                                       "flash" if cfg.family == "dense" else "ssd")
+        match = {"flash_attention": "flash", "ssd": "ssd"}[want[0]] if want else None
+        t_prof = time.perf_counter()
+        rec["profile"] = profile_serve(model, engine, prompts, match)
         log(f"serve profile {name}: " + json.dumps(rec["profile"]))
-        del model, eng
+        rec["profile_s"] = time.perf_counter() - t_prof
+        rec["model_s"] = time.perf_counter() - t_model
+        log(f"serve {name}: {rec['model_s']:.1f} s in all (the gate {gate_s:.1f} s, the "
+            f"profile {rec['profile_s']:.1f} s)")
+        del model, eng, done, gate_done
         torch.cuda.empty_cache()
     return launches, records
 
@@ -3489,7 +3627,15 @@ def phase_mesh(dev, scratch: str):
 
 # ---------------------------------------------------------------- phase 12
 
-TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m")
+TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m", "minicpm3-4b", "qwen2-moe-a2.7b")
+# depth cuts at the published widths: a step's peak holds float32 masters,
+# gradients, clipped gradients, adamw's old and new moments and the updates
+# (the optimizer is functional), about 34 B a parameter (tinyllama's 1.10 B
+# parameters peak at 46.87 GB), so 80 GB takes about 2 B parameters:
+# minicpm3 at 20 of 62 layers (1.44 B parameters; at 32 layers, 2.19 B, the
+# step ran out of memory) and qwen2-moe at 2 of 24 (1.76 B, 1.14 B of them
+# its two 151,936-row tables)
+TRAIN_DEPTH = {"minicpm3-4b": 20, "qwen2-moe-a2.7b": 2}
 TRAIN_STEPS = 30
 TRAIN_LR = 1e-3                      # the phase's learning rate (launch/train.py's default: 3e-3)
 TRAIN_ARGV = ["--coreset", "l2-hull", "--coreset-k", "512", "--batch", "8", "--seq", "64",
@@ -3501,6 +3647,10 @@ EXAMPLE_K = 256
 EXAMPLE_BATCH = 16
 EXAMPLE_STEPS = 30
 DRILL_STEPS, DRILL_EVERY, DRILL_CRASH = 10, 5, 7   # mamba2-370m: crash at step 7, resume from 5
+# the drill's depth, a cut of mamba2-370m's 48 layers that keeps the script
+# within its time: the resume bits do not depend on depth, and writing the
+# checkpoints took most of the drill
+DRILL_DEPTH = 12
 SMALL_STEPS = 5
 SMALL_REL = 1e-4                     # reduced f32 losses, card against CPU
 
@@ -3551,10 +3701,16 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
 
     from repro_torch.launch import train
 
+    cfg = _lm_config(arch)
+    if TRAIN_DEPTH.get(arch, cfg.n_layers) < cfg.n_layers:
+        cfg = cfg.replace(n_layers=TRAIN_DEPTH[arch])
+        log(f"train {arch}: a depth cut, {cfg.n_layers} of {_lm_config(arch).n_layers} layers "
+            f"at the published widths (one card's 80 GB)")
     reset_all_counts()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run = train.run(train.parse_args(_train_argv(arch, TRAIN_STEPS)))
+    run = train.run(train.parse_args(_train_argv(arch, TRAIN_STEPS)), cfg=cfg)
     _sync()
     run_s = time.perf_counter() - t0
     counts = read_all_counts()
@@ -3566,7 +3722,7 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
         "step_ms_median_5_30": float(np.median(step_ms[4:])),
         "tokens_per_s": rec["tokens_per_step"] / float(np.median(step_ms[4:])) * 1e3,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "params": sum(p.numel() for p in run.model.parameters()),
+        "params": sum(p.numel() for p in run.model.parameters()), "n_layers": cfg.n_layers,
         "launches": counts,
     })
     if not _falling(rec["losses"]):
@@ -3575,6 +3731,12 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
         errs.append(f"{arch}: the LM kernels launched in training {counts}")
     if counts["gram"] <= 0 or counts["extremes"] <= 0:
         errs.append(f"{arch}: the coreset stage's kernels did not all run {counts}")
+    if cfg.family == "moe":  # the router's load-balancing term of the loss
+        with torch.no_grad():
+            _, met = run.model.loss_fn(run.batch_fn(TRAIN_STEPS))
+        rec["aux"] = float(met["aux"])
+        if not (np.isfinite(rec["aux"]) and rec["aux"] > 0):
+            errs.append(f"{arch}: the aux term is {rec['aux']}")
     state = run.state
 
     def steps():
@@ -3653,10 +3815,11 @@ def _example_comparison(dev, census: dict, errs: list) -> dict:
 
 
 def _resume_drill(dev, scratch: str, census: dict, errs: list) -> dict:
-    """mamba2-370m through the driver: a straight run of DRILL_STEPS steps;
-    the same run with a checkpoint every DRILL_EVERY steps crashed at step
-    DRILL_CRASH by the ft layer's injection, then resumed from its
-    checkpoint: the resumed losses must equal the straight run's bits."""
+    """mamba2-370m (at DRILL_DEPTH layers) through the driver: a straight run
+    of DRILL_STEPS steps; the same run with a checkpoint every DRILL_EVERY
+    steps crashed at step DRILL_CRASH by the ft layer's injection, then
+    resumed from its checkpoint: the resumed losses must equal the straight
+    run's bits."""
     import torch
 
     from repro_torch.ft import FailureSimulator, InjectedFailure
@@ -3664,24 +3827,31 @@ def _resume_drill(dev, scratch: str, census: dict, errs: list) -> dict:
     from repro_torch.launch import train
 
     argv = _train_argv("mamba2-370m", DRILL_STEPS) + ["--ckpt-every", str(DRILL_EVERY)]
+    cfg = _lm_config("mamba2-370m")
+    cfg = cfg.replace(n_layers=min(DRILL_DEPTH, cfg.n_layers))
+
+    def drive(extra):
+        return train.run(train.parse_args(argv + extra), cfg=cfg).record
+
     ckpt = os.path.join(scratch, "lm_drill")
     t0 = time.perf_counter()
-    straight = train.main(argv)["losses"]
+    straight = drive([])["losses"]
     straight_s = time.perf_counter() - t0
     crashed = False
     t0 = time.perf_counter()
     with ft_overrides(simulator=FailureSimulator().inject("fit", DRILL_CRASH)):
         try:
-            train.main(argv + ["--ckpt-dir", ckpt])
+            drive(["--ckpt-dir", ckpt])
         except InjectedFailure:
             crashed = True
-    rec = train.main(argv + ["--ckpt-dir", ckpt, "--resume"])
+    rec = drive(["--ckpt-dir", ckpt, "--resume"])
     _sync()
     drill_s = time.perf_counter() - t0
     ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
     shutil.rmtree(ckpt, ignore_errors=True)
     same = rec["losses"] == straight[DRILL_EVERY:]
-    out = {"crashed_at": DRILL_CRASH, "resumed_from": rec["start"], "same_bits": same,
+    out = {"n_layers": cfg.n_layers, "crashed_at": DRILL_CRASH, "resumed_from": rec["start"],
+           "same_bits": same,
            "straight_s": straight_s, "crash_and_resume_s": drill_s,
            "checkpoint_bytes": ckpt_bytes, "losses": rec["losses"]}
     if not crashed or rec["start"] != DRILL_EVERY or not same:
@@ -3732,7 +3902,9 @@ def phase_lm_training(dev, scratch: str):
     rec = {"small": _small_agreement(dev, errs)}
     for arch in TRAIN_MODELS:
         rec[arch] = r = _train_driver(dev, arch, census, errs)
-        log(f"train {arch}: step {r['step_ms_median_5_30']:.2f} ms (median of steps 5–30), "
+        log(f"train {arch} ({r['n_layers']} layers, {r['params'] / 1e9:.3f} B parameters"
+            + (f", aux {r['aux']:.5f}" if "aux" in r else "") + "): "
+            f"step {r['step_ms_median_5_30']:.2f} ms (median of steps 5–30), "
             f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_memory_gb']:.2f} GB, busy share "
             f"{r['device_busy_share']:.3f} (device {r['device_ms_per_step']:.2f} ms a step, "
             f"{r['device_share_of_step']:.3f} of an unprofiled one), select_s "
@@ -3846,7 +4018,7 @@ def main() -> None:
     mctm_kernels, wide = phase_kernels(dev)
     kernels_at_d16 = phase_kernels_d16(dev)
     wide_row, wide["extremes_wide"] = phase_wide_extremes(dev)
-    lm_rows = phase_lm_kernels(dev)
+    lm_rows, flash_d128 = phase_lm_kernels(dev)
     p9_rows, wide["wide_d"] = phase_kernels_wide_d(dev)
     kernels = mctm_kernels + [wide_row] + p9_rows + lm_rows
     phase_small_agreement(dev)
@@ -3906,7 +4078,8 @@ def main() -> None:
     out_dir = os.path.join(ROOT, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "wide": wide, "serve": serve, "core": core,
+        json.dump({"card": card, "kernels": kernels, "wide": wide, "flash_d128": flash_d128,
+                   "serve": serve, "core": core,
                    "core_census": core_census, "fault_tolerance": ft_rec,
                    "ft_census": ft_census, "streaming": stream_rec,
                    "stream_census": stream_census, "pipeline": p9_rec,

@@ -13,7 +13,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_NAMES = ("tinyllama_1b", "mamba2_370m")
+ARCH_NAMES = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b")
 
 # public ids → module names, the reference's full list
 ARCH_IDS = {
@@ -34,9 +34,6 @@ UNPORTED = {
     "phi3_vision_4b": "ROADMAP.md Queue A 14: vision prefix (phi3-vision)",
     "olmo_1b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
     "gemma_2b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
-    "minicpm3_4b": "ROADMAP.md Queue A 14: MLA (minicpm3)",
-    "arctic_480b": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
-    "qwen2_moe_a2_7b": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
     "whisper_medium": "ROADMAP.md Queue A 14: encdec (whisper)",
     "recurrentgemma_2b": "ROADMAP.md Queue A 14: hybrid with ring-cache local attention "
                          "(recurrentgemma)",

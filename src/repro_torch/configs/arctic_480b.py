@@ -1,0 +1,32 @@
+"""arctic-480b [moe]: 128 experts top-2 + dense residual. 35L d_model=7168
+56H (GQA kv=8) d_ff=4864 vocab=32000 [hf:Snowflake/snowflake-arctic-base; hf]
+
+Arctic is a dense-MoE hybrid: every layer runs a dense FFN residual in
+parallel with the routed top-2 MoE FFN.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="arctic-480b",
+    family="moe",
+    n_layers=35,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=4864,
+    vocab_size=32000,
+    n_experts=128,
+    top_k=2,
+    moe_dense_residual=True,
+    norm_type="rmsnorm",
+    mlp_act="silu",
+    tie_embeddings=False,
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=96, vocab_size=256, n_experts=8, top_k=2, capacity_factor=8.0,
+    )

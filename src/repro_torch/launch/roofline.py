@@ -13,8 +13,8 @@ The constants are the H100 SXM data sheet's peaks, not measurements: bf16
 dense tensor-core FLOP/s, HBM3 bytes/s, and one direction of NVLink 4 (the
 chip-to-chip link, in the reference's ICI's place). ``chip_smoke.py`` takes
 its bounds from the same figures. ``analytic_flops`` covers the LM
-families the port has (dense, ssm); the others raise, as the port does not
-carry them yet (ROADMAP Queue A 11).
+families the port has (dense, moe, ssm); the others raise, as the port does
+not carry them yet (ROADMAP Queue A 11).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ __all__ = [
     "TF32_FLOPS",
 ]
 
-_PORTED_FAMILIES = ("dense", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclasses.dataclass
@@ -134,22 +134,31 @@ def count_params(tree) -> int:
 def _check_family(cfg) -> None:
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
-            f"analytic FLOPs of the {cfg.family!r} family: the port carries dense and ssm "
-            "models only (ROADMAP Queue A 11)")
+            f"analytic FLOPs of the {cfg.family!r} family: the port carries dense, moe and "
+            "ssm models only (ROADMAP Queue A 11)")
 
 
 def active_param_fraction(cfg) -> float:
-    """The share of parameters a token uses: 1 for the families the port
-    has (MoE's top_k / n_experts waits for the MoE port)."""
+    """The share of parameters a token uses: 1 outside MoE; for MoE the
+    expert parameters scaled by top_k / n_experts and the rest kept (the
+    reference's approximation: expert parameters dominate)."""
     _check_family(cfg)
-    return 1.0
+    if cfg.family != "moe" or cfg.n_experts == 0:
+        return 1.0
+    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    expert = 3 * d * f * E * L
+    attn = 4 * d * cfg.n_heads * cfg.head_dim * L
+    shared = 3 * d * f * cfg.n_shared_experts * L
+    dense = 3 * d * f * L if cfg.moe_dense_residual else 0
+    other = attn + shared + dense
+    return (expert * (cfg.top_k / E) + other) / (expert + other)
 
 
 def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
     """(analytic_total, model_flops = 6·N_active·D) of a global step, the
     reference's convention: ``shape`` carries ``global_batch`` and
     ``seq_len``; ``kind`` is train, prefill or decode. analytic_total adds
-    the quadratic attention term of a dense model."""
+    the quadratic attention term of a dense or MoE model."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     embed_params = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
@@ -163,6 +172,6 @@ def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
         tokens, passes = B * 1, 2.0
     base = passes * n_active * tokens
     attn = 0.0
-    if cfg.family == "dense":  # decode reads S keys for 1 query
+    if cfg.family in ("dense", "moe"):  # decode reads S keys for 1 query
         attn = passes * 2 * cfg.n_layers * tokens * S * cfg.n_heads * cfg.head_dim
     return base + attn, passes * n_active * tokens

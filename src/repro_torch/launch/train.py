@@ -91,9 +91,12 @@ class TrainRun:
     batch_fn: Callable
 
 
-def run(args: argparse.Namespace) -> TrainRun:
+def run(args: argparse.Namespace, cfg=None) -> TrainRun:
+    """The driver's run; ``cfg`` (a caller's cut of ``--arch``'s config, for
+    example fewer layers) replaces the config the arguments name."""
     dev = resolve_device(args.device)
-    cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, device=dev, seed=0, train=True)
     opt = chain(
         clip_by_global_norm(1.0),

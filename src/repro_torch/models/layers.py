@@ -1,11 +1,12 @@
 """Layers of the decoder LMs the port serves and trains
 (``repro/models/layers.py``).
 
-The subset the dense (GQA) and SSM families need. Each function keeps the
-reference's name, argument order and weight layout (``wq`` (d, H, hd),
-``wo`` (H, hd, d), ...), so a test feeds both the same numbers. Parameters
-are mappings of tensors; the init functions take an explicit
-``torch.Generator`` and return float32 tensors. Each weight is cast to the
+The subset the dense (GQA and MLA), MoE and SSM families need. Each
+function keeps the reference's name, argument order and weight layout
+(``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so a test feeds both the same
+numbers. Parameters are mappings of tensors; the init functions take an
+explicit ``torch.Generator`` and return float32 tensors (``init_moe`` its
+expert stacks in the dtype asked for). Each weight is cast to the
 activation dtype at use, as the reference casts its float32 masters: a
 serving ``Model`` stores the weights in that dtype already
 (``param_dtype``), where the cast is a no-op; a training one keeps float32
@@ -26,6 +27,15 @@ Attention routes as follows:
   the offset mask and ``_vector_pos_decode``; no TPU kernel computes them;
 - anything else raises ``NotImplementedError`` naming the ROADMAP item.
 
+MLA (``mla_apply``) is plain PyTorch on every path, as the reference's
+einsums are: no cache (training), a scalar ``pos`` (prefill, chunked
+prefill, batch decode: the latent is written in place and k/v are
+materialised from the cache up to ``pos + S``; the keys past it weigh
+exactly 0 under the reference's mask over the whole cache) and the
+per-slot decode. MoE (``moe_apply``) dispatches with static capacity per
+call, as the reference does; its top-k breaks ties toward the lower
+expert index, as ``jax.lax.top_k`` does.
+
 A scalar ``pos`` is a 0-d int32 tensor on the host (reading it costs no
 device sync); a per-slot ``pos`` is a (B,) int32 tensor on the cache's
 device. Caches are written in place (the reference returns new arrays):
@@ -44,7 +54,8 @@ Params = dict
 
 # parameters the reference uses in float32; every other one it casts to the
 # activation dtype at each use
-F32_PARAMS = frozenset({"scale", "bias", "A_log", "dt_bias", "norm_scale"})
+F32_PARAMS = frozenset({"scale", "bias", "A_log", "dt_bias", "norm_scale", "q_norm",
+                        "kv_norm"})
 
 
 def param_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
@@ -239,7 +250,8 @@ def _check_routable(cfg: ModelConfig, window: int, bidirectional: bool, use_rope
             "logit soft-capping: ROADMAP.md Queue A 14, further dense configs (olmo-1b, gemma-2b)"
         )
     if cfg.attn_type != "gqa":
-        raise NotImplementedError("MLA attention: ROADMAP.md Queue A 14, MLA (minicpm3)")
+        raise NotImplementedError(
+            f"attention_apply is the GQA path: {cfg.attn_type!r} attention goes through mla_apply")
 
 
 def attention_apply(
@@ -309,6 +321,112 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek family)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    r, dc = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = generator.device
+    return {
+        "wdq": dense_init(generator, d, (r,)),
+        "q_norm": torch.ones((r,), device=dev),
+        "wuq": dense_init(generator, r, (H, nope + rdim)),
+        "wdkv": dense_init(generator, d, (dc,)),
+        "kv_norm": torch.ones((dc,), device=dev),
+        "wkr": dense_init(generator, d, (rdim,)),  # shared rope key (per token)
+        "wuk": dense_init(generator, dc, (H, nope)),
+        "wuv": dense_init(generator, dc, (H, vdim)),
+        "wo": dense_init(generator, H * vdim, (d,)).reshape(H, vdim, d),
+    }
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``_rms``: an RMS norm with a float32 scale."""
+    return apply_norm({"scale": scale}, x, "rmsnorm", eps)
+
+
+def mla_apply(
+    params: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Params | None = None,
+) -> tuple[torch.Tensor, Params | None]:
+    """MLA: the cache keeps a (kv_lora_rank + rope_dim) latent per token,
+    ``{"ckv": (B, T, dc), "krope": (B, T, 1, rope_dim), "pos"}``, written in
+    place; k and v are materialised from it at each call, as in the
+    reference. Returns (out, new_cache), new_cache None without a cache."""
+    B, S, _ = x.shape
+    H, nope, rdim, vdim = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cq = _rms(x @ params["wdq"].to(x.dtype), params["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wuq"].to(x.dtype))
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv = _rms(x @ params["wdkv"].to(x.dtype), params["kv_norm"])  # (B, S, dc)
+    krope = rope((x @ params["wkr"].to(x.dtype))[:, :, None, :], positions, cfg.rope_theta)
+
+    if cache is None:
+        ckv_all, krope_all = ckv, krope
+        mask = causal_mask(S, S, device=x.device)
+        new_cache = None
+    elif cache["pos"].ndim == 1:
+        if S != 1:
+            raise NotImplementedError(
+                "multi-token steps with per-slot positions: the reference has no such path "
+                "(ROADMAP.md Queue A, not ported by design)"
+            )
+        # per-slot positions (continuous batching): a row whose pos has run
+        # past the cache writes nothing, as the reference's scatter drops it
+        pos, CKV, KR = cache["pos"], cache["ckv"], cache["krope"]
+        T = CKV.shape[1]
+        rows = torch.arange(B, device=CKV.device)
+        idx = pos.clamp(max=T - 1).long()
+        live = pos < T
+        CKV[rows, idx] = torch.where(live[:, None], ckv[:, 0].to(CKV.dtype), CKV[rows, idx])
+        KR[rows, idx] = torch.where(live[:, None, None], krope[:, 0].to(KR.dtype), KR[rows, idx])
+        new_cache = {"ckv": CKV, "krope": KR, "pos": pos + 1}
+        ckv_all, krope_all = CKV.to(x.dtype), KR.to(x.dtype)
+        mask = (torch.arange(T, device=CKV.device)[None, :] <= pos[:, None])[:, None, None, :]
+    else:
+        pos = cache["pos"]
+        p = int(pos)
+        CKV, KR = cache["ckv"], cache["krope"]
+        if p + S > CKV.shape[1]:
+            raise ValueError(f"cache of {CKV.shape[1]} positions cannot take {S} more at {p}")
+        CKV[:, p:p + S] = ckv.to(CKV.dtype)
+        KR[:, p:p + S] = krope.to(KR.dtype)
+        new_cache = {"ckv": CKV, "krope": KR, "pos": pos + S}
+        ckv_all, krope_all = CKV[:, :p + S].to(x.dtype), KR[:, :p + S].to(x.dtype)
+        mask = causal_mask(S, p + S, p, device=CKV.device)
+
+    k_nope = torch.einsum("btc,chk->bthk", ckv_all, params["wuk"].to(x.dtype))
+    vmat = torch.einsum("btc,chk->bthk", ckv_all, params["wuv"].to(x.dtype))
+    # the two score products added in the activation dtype, then in f32
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_rope, krope_all[:, :, 0])).float()
+    scores = scores / float(np.sqrt(nope + rdim))
+    scores = scores.masked_fill(~mask, -1e30)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", w, vmat)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                   dtype=torch.bfloat16, device=None) -> Params:
+    """Stacked-over-layers latent cache (zeros) with a scalar host-side ``pos``."""
+    return {
+        "ckv": torch.zeros((n_layers, batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((n_layers, batch, max_len, 1, cfg.qk_rope_dim), dtype=dtype,
+                             device=device),
+        "pos": torch.zeros((), dtype=torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
 # gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
@@ -327,6 +445,111 @@ def mlp_apply(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     up = x @ params["wi_up"].to(x.dtype)
     a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
     return (a * up) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts with capacity-based scatter dispatch
+# ---------------------------------------------------------------------------
+
+
+def n_experts_padded(cfg: ModelConfig) -> int:
+    """Experts held (``moe_pad_experts`` pads them; padded ones are never routed)."""
+    return max(cfg.n_experts, cfg.moe_pad_experts)
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """The router (d, E) and the expert stacks (E, d, f), (E, f, d). Each
+    expert is drawn in float32 and written into a stack of ``dtype``, so a
+    serving model's build holds one expert's float32 draw at a time."""
+    d, f, E = cfg.d_model, cfg.d_ff, n_experts_padded(cfg)
+    p = {"router": dense_init(generator, d, (E,))}
+    for name, shape in (("wi_gate", (d, f)), ("wi_up", (d, f)), ("wo", (f, d))):
+        stack = torch.empty((E,) + shape, dtype=dtype, device=generator.device)
+        for e in range(E):
+            stack[e] = dense_init(generator, shape[0], shape[1:])
+        p[name] = stack
+    return p
+
+
+class DropCounter:
+    """(token, slot) pairs routed and dropped at capacity, by kind of call
+    ("prefill": S > 1, "decode": S = 1), summed on the device; a model
+    counts while its ``drop_counter`` is set."""
+
+    def __init__(self):
+        self.pairs: dict[str, int] = {}
+        self.dropped: dict[str, torch.Tensor] = {}
+
+    def add(self, kind: str, pairs: int, dropped: torch.Tensor) -> None:
+        self.pairs[kind] = self.pairs.get(kind, 0) + pairs
+        self.dropped[kind] = self.dropped.get(kind, 0) + dropped
+
+    def shares(self) -> dict:
+        """{kind: {"pairs", "dropped", "share"}} (reads the device)."""
+        out = {}
+        for kind, n in self.pairs.items():
+            dropped = int(self.dropped[kind])
+            out[kind] = {"pairs": n, "dropped": dropped, "share": dropped / n}
+        return out
+
+
+def _route(params: Params, xt: torch.Tensor, cfg: ModelConfig):
+    """(probs (T, E) f32, top_e (T, K), top_p (T, K) renormalised) of the
+    tokens xt (T, D): router logits in the activation dtype, then f32."""
+    E_real, E = cfg.n_experts, n_experts_padded(cfg)
+    logits = (xt @ params["router"].to(xt.dtype)).float()
+    if E > E_real:  # padded experts are never routed
+        logits = logits.masked_fill(torch.arange(E, device=xt.device) >= E_real, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    # top-k with ties to the lower expert index (jax.lax.top_k's order)
+    top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :cfg.top_k]
+    top_p = probs.gather(-1, top_e)
+    return probs, top_e, top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, act: str,
+              drops: DropCounter | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with static capacity; returns (out, aux_loss).
+
+    The (token, slot) pairs are scatter-added into per-expert (E, C, D)
+    buffers, C = ceil(K·T / E_real · capacity_factor) for the T = B·S tokens
+    of this call, in flat (T·K) order (pairs past C are dropped); batched
+    expert products; the rows gathered back weighted by the renormalised
+    router probabilities. The aux loss is Switch-style over the real
+    experts. ``drops`` counts the pairs dropped."""
+    B, S, D = x.shape
+    E_real, K = cfg.n_experts, cfg.top_k
+    E = n_experts_padded(cfg)
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, top_e, top_p = _route(params, xt, cfg)
+
+    C = int(np.ceil(K * T / E_real * cfg.capacity_factor))
+    flat_e = top_e.reshape(-1)  # (T·K,)
+    onehot = F.one_hot(flat_e, E)
+    pos_in_e = torch.cumsum(onehot, dim=0) - onehot  # exclusive cumsum
+    flat_pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
+    keep = flat_pos < C
+    if drops is not None:
+        drops.add("prefill" if S > 1 else "decode", T * K, (~keep).sum())
+
+    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    safe_pos = torch.where(keep, flat_pos, C - 1)
+    contrib = torch.where(keep[:, None], xt[tok_idx], 0.0)
+    buf = x.new_zeros((E, C, D)).index_put((flat_e, safe_pos), contrib, accumulate=True)
+
+    gate = torch.bmm(buf, params["wi_gate"].to(x.dtype))
+    h = (F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh"))
+    h = h * torch.bmm(buf, params["wi_up"].to(x.dtype))
+    y_e = torch.bmm(h, params["wo"].to(x.dtype))
+
+    y_tok = y_e[flat_e, safe_pos]  # (T·K, D)
+    w = (top_p.reshape(-1) * keep).to(x.dtype)
+    y = (y_tok * w[:, None]).reshape(T, K, D).sum(1)
+
+    frac_tokens = F.one_hot(top_e[:, 0], E).float().mean(0)
+    aux = E_real * torch.sum(frac_tokens * probs.mean(0))
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Decoder-LM assembly (``repro/models/transformer.py``) for the families the
-port serves and trains: dense (GQA) and SSM (mamba2).
+port serves and trains: dense (GQA or MLA attention), MoE and SSM (mamba2).
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` that holds
 its weights and keeps the reference's entry points:
@@ -11,7 +11,9 @@ its weights and keeps the reference's entry points:
 
 A serving model (the default) stores each weight once, per layer, in the
 dtype the reference casts it to at each use (``layers.param_dtype``): the
-same values with no per-step cast, and no gradients. A training model
+same values with no per-step cast, and no gradients. Its build draws and
+casts part by part (an expert stack expert by expert), so the build's peak
+stays near the served bytes. A training model
 (``train=True``) keeps float32 masters that take gradients, in the
 reference's layout: the layers stacked on a leading axis, so
 ``param_tree()`` is the reference's parameter tree (its flatten order, its
@@ -44,7 +46,6 @@ REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP.md Queue A 14: MoE (qwen2-moe, arctic)",
     "hybrid": "ROADMAP.md Queue A 14: hybrid with ring-cache local attention (recurrentgemma)",
     "encdec": "ROADMAP.md Queue A 14: encdec (whisper)",
 }
@@ -78,16 +79,16 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not carry yet."""
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {UNPORTED_FAMILIES[cfg.family]}")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise ValueError(f"unknown family {cfg.family}")
-    if cfg.attn_type == "mla":
-        raise NotImplementedError("MLA attention: ROADMAP.md Queue A 14, MLA (minicpm3)")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(f"unknown attention type {cfg.attn_type}")
     if cfg.modality != "text":
         raise NotImplementedError(f"{cfg.modality} prefix: ROADMAP.md Queue A 14, vision prefix")
 
 
 class Model(nn.Module):
-    """A decoder LM of the dense or SSM family with its weights.
+    """A decoder LM of the dense, MoE or SSM family with its weights.
 
     ``tree`` holds the parameters in the reference's layout, per layer:
     ``{"emb": {...}, "layers": [{"ln_attn": {...}, "attn": {...}, ...}, ...],
@@ -111,6 +112,8 @@ class Model(nn.Module):
         self.trainable = train
         self.remat = remat
         self.xent_chunk = xent_chunk
+        # a layers.DropCounter here counts the MoE pairs dropped at capacity
+        self.drop_counter = None
         if train:
             self.emb = _masters(tree["emb"])
             self.stack = nn.ModuleDict({
@@ -143,8 +146,9 @@ class Model(nn.Module):
     def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Per-example-weighted CE of ``batch`` ("tokens", "labels" (B, S),
         optional "weights" (B,), default ones) through the layer stack with
-        no cache: (loss, {"ce", "aux"}); the dense family adds
-        ``router_aux_coef``·aux/n_layers with aux 0 (no router)."""
+        no cache: (loss, {"ce", "aux"}); the dense and MoE families add
+        ``router_aux_coef``·aux/n_layers, aux the layers' summed router
+        loss (0 without a router)."""
         cfg = self.cfg
         x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), cfg, self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -156,8 +160,11 @@ class Model(nn.Module):
                 ckpt.checkpoint, layer, use_reentrant=False,
                 context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
                                              _save_dots))
+        aux = torch.zeros((), device=x.device)
         for lp in self._layer_params():
-            x = layer(x, lp)
+            x, a = layer(x, lp)
+            if a is not None:
+                aux = aux + a
         x = L.apply_norm(self.ln_f, x, cfg.norm_type)
         table = self.emb["unembed"] if "unembed" in self.emb else self.emb["embed"]
         weights = batch.get("weights")
@@ -165,7 +172,6 @@ class Model(nn.Module):
                    else to_tensor(weights, torch.float32, x.device))
         ce = L.chunked_xent_weighted(x, table, self._tokens(batch["labels"]), weights,
                                      chunk=self.xent_chunk)
-        aux = torch.zeros((), device=x.device)
         if cfg.family == "ssm":
             return ce, {"ce": ce, "aux": aux}
         loss = ce + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
@@ -174,6 +180,9 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> dict:
         if self.cfg.family == "ssm":
             return SSM.init_ssd_cache(self.cfg, batch, self.cfg.n_layers, device=self.device)
+        if self.cfg.attn_type == "mla":
+            return L.init_mla_cache(self.cfg, batch, max_len, self.cfg.n_layers, self.dtype,
+                                    self.device)
         return L.init_kv_cache(self.cfg, batch, max_len, self.cfg.n_layers, self.dtype,
                                self.device)
 
@@ -207,17 +216,36 @@ class Model(nn.Module):
         return [{part: {k: vs[i] for k, vs in leaves.items()} for part, leaves in views.items()}
                 for i in range(self.cfg.n_layers)]
 
-    def _layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
-        """One layer without a cache (the training forward)."""
+    def _layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor):
+        """One layer without a cache (the training forward): (x, aux), aux
+        the MoE router loss or None."""
         cfg = self.cfg
         if cfg.family == "ssm":
             out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg)
-            return x + out
+            return x + out, None
+        x, _, aux = self._lm_layer(lp, x, positions)
+        return x, aux
+
+    def _lm_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor, cache=None):
+        """One decoder layer (the reference's ``_lm_layer``): (x, new_cache,
+        aux), aux None outside the MoE family."""
+        cfg = self.cfg
         h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
-        attn, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions)
+        if cfg.attn_type == "mla":
+            attn, new_cache = L.mla_apply(lp["attn"], h, cfg, positions=positions, cache=cache)
+        else:
+            attn, new_cache = L.attention_apply(lp["attn"], h, cfg, positions=positions,
+                                                cache=cache)
         x = x + attn
         h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
+        if cfg.family != "moe":
+            return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache, None
+        mo, aux = L.moe_apply(lp["moe"], h, cfg, cfg.mlp_act, self.drop_counter)
+        if cfg.n_shared_experts > 0:
+            mo = mo + L.mlp_apply(lp["shared"], h, cfg.mlp_act)
+        if cfg.moe_dense_residual:
+            mo = mo + L.mlp_apply(lp["dense"], h, cfg.mlp_act)
+        return x + mo, new_cache, aux
 
     def _run_with_cache(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
         cfg, pos, S = self.cfg, cache["pos"], x.shape[1]
@@ -232,29 +260,44 @@ class Model(nn.Module):
             # scalar pos → (S,) positions; per-slot vector pos → (B, S)
             positions = pos[:, None] + steps if pos.ndim == 1 else steps + int(pos)
             for i, lp in enumerate(self._layer_params()):
-                lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-                h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
-                attn, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions, cache=lc)
-                x = x + attn
-                h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
-                x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
+                lc = {k: v[i] for k, v in cache.items() if k != "pos"}
+                x, _, _ = self._lm_layer(lp, x, positions, dict(lc, pos=pos))
         x = L.apply_norm(self.ln_f, x, cfg.norm_type)
         return x, dict(cache, pos=pos + S)
 
 
-def _init_tree(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random float32 parameters in the reference's layout (random init only:
-    no weights are downloaded). The draws differ from ``jax.random``'s."""
+def _init_tree(cfg: ModelConfig, generator: torch.Generator, cast: bool = False) -> dict:
+    """Random parameters in the reference's layout (random init only: no
+    weights are downloaded), drawn in float32; the draws differ from
+    ``jax.random``'s. ``cast``: each part is cast to the dtypes a serving
+    model stores (``layers.param_dtype``) as soon as it is drawn, and the
+    expert stacks are drawn expert by expert into the activation dtype, so
+    the peak stays within one part's float32 draw of the served bytes."""
     g = generator
-    tree = {"emb": L.init_embeddings(g, cfg), "layers": []}
+
+    def part(tree: dict) -> dict:
+        return {k: v.to(L.param_dtype(k, cfg)) for k, v in tree.items()} if cast else tree
+
+    tree = {"emb": part(L.init_embeddings(g, cfg)), "layers": []}
     for _ in range(cfg.n_layers):
         if cfg.family == "ssm":
-            lp = {"ln": L.init_norm(cfg, g.device), "ssd": SSM.init_ssd(g, cfg)}
+            lp = {"ln": part(L.init_norm(cfg, g.device)), "ssd": part(SSM.init_ssd(g, cfg))}
         else:
-            lp = {"ln_attn": L.init_norm(cfg, g.device), "ln_mlp": L.init_norm(cfg, g.device),
-                  "attn": L.init_attention(g, cfg), "mlp": L.init_mlp(g, cfg)}
+            lp = {"ln_attn": part(L.init_norm(cfg, g.device)),
+                  "ln_mlp": part(L.init_norm(cfg, g.device)),
+                  "attn": part(L.init_mla(g, cfg) if cfg.attn_type == "mla"
+                               else L.init_attention(g, cfg))}
+            if cfg.family == "moe":
+                lp["moe"] = part(L.init_moe(g, cfg, getattr(torch, cfg.dtype) if cast
+                                            else torch.float32))
+                if cfg.n_shared_experts > 0:
+                    lp["shared"] = part(L.init_mlp(g, cfg, d_ff=cfg.d_ff * cfg.n_shared_experts))
+                if cfg.moe_dense_residual:
+                    lp["dense"] = part(L.init_mlp(g, cfg))
+            else:
+                lp["mlp"] = part(L.init_mlp(g, cfg))
         tree["layers"].append(lp)
-    tree["ln_f"] = L.init_norm(cfg, g.device)
+    tree["ln_f"] = part(L.init_norm(cfg, g.device))
     return tree
 
 
@@ -272,4 +315,5 @@ def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
         generator = torch.Generator(device=dev).manual_seed(seed)
     elif generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}, the model on {dev}")
-    return Model(cfg, _init_tree(cfg, generator), train=train, remat=remat, xent_chunk=xent_chunk)
+    return Model(cfg, _init_tree(cfg, generator, cast=not train), train=train, remat=remat,
+                 xent_chunk=xent_chunk)

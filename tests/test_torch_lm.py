@@ -1,6 +1,7 @@
 """The port's decoder LMs against the JAX package's ``Model`` on the same
-weights: reduced tinyllama (dense GQA) and mamba2 (SSM), the JAX params
-carried across by ``model_from_jax``. Prefill logits, the cache after the
+weights: reduced tinyllama (dense GQA), mamba2 (SSM), minicpm3 (MLA),
+qwen2-moe and arctic (MoE), the JAX params carried across by
+``model_from_jax``. Prefill logits, the cache after the
 prefill and four decode steps are compared.
 
 Tolerances, relative to each tensor's largest magnitude: f32 1e-5 (the same
@@ -42,7 +43,8 @@ def _close(got, ref, rel, what):
     assert err <= rel * float(np.abs(ref).max()), f"{what}: max err {err:.3e}"
 
 
-@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])
+@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m", "minicpm3_4b",
+                                  "qwen2_moe_a2_7b", "arctic_480b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T", [12, 32])
 def test_prefill_cache_and_decode_match_jax(name, dtype, T):

@@ -1,7 +1,8 @@
 """The port's ``ServeEngine`` against the JAX package's on the same weights
-and prompts (reduced tinyllama and mamba2 at float32: greedy tokens must be
-equal — at bf16 a near-tie can flip an argmax between two correct
-implementations), and the ports of tests/test_serve.py's three tests."""
+and prompts (reduced tinyllama, mamba2, minicpm3, qwen2-moe and arctic at
+float32: greedy tokens must be equal — at bf16 a near-tie can flip an
+argmax between two correct implementations), and the ports of
+tests/test_serve.py's three tests."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -37,7 +38,8 @@ def _greedy_reference(model, prompt, n_new, max_len):
     return toks
 
 
-@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])
+@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m", "minicpm3_4b",
+                                  "qwen2_moe_a2_7b", "arctic_480b"])
 def test_engine_matches_jax_engine(name):
     jcfg = jax_config(name).replace(dtype="float32")
     jm = jax_build(jcfg)
@@ -61,7 +63,7 @@ def test_engine_matches_jax_engine(name):
     assert teng.ticks == jeng.ticks
 
 
-@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m"])
+@pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m", "minicpm3_4b"])
 def test_finished_slot_past_the_cache_end_matches_jax_engine(name):
     """A finished slot keeps ticking until a new request takes it, so its
     pos runs past max_len while another slot decodes; its cache writes are

@@ -193,6 +193,7 @@ def _lm_cache_case(branch):
 
 @pytest.mark.parametrize("what", [
     "config:gemma_2b", "config:whisper-medium", "reduced:minicpm3_4b", "reduced:arctic_480b",
+    "reduced:recurrentgemma_2b", "reduced:phi3_vision_4b",
     "family:moe", "family:hybrid", "family:encdec", "modality:vision",
     "attention:prefill_into_nonempty_cache", "attention:per_slot_multi_token",
     "attention:no_cache", "attention:local_window", "attention:softcap", "attention:mla",
@@ -205,7 +206,9 @@ def test_unported_parts_raise_not_implemented(what):
     maintainer's ``serve_engine=`` and ``drift_mesh=`` and
     ``drift_window_nll(mesh=)`` are ported now, and so are attention without
     a cache (training) and prefill into a non-empty cache (chunked
-    prefill): their cases check that they are taken."""
+    prefill), and so are MLA (minicpm3) and MoE (qwen2-moe, arctic): their
+    cases check that they are taken (``attention_apply`` stays the GQA path
+    and refuses an MLA config, which goes through ``mla_apply``)."""
     from repro_torch import configs
     from repro_torch.core import mctm as TM
     from repro_torch.core import streaming as TSt
@@ -250,6 +253,25 @@ def test_unported_parts_raise_not_implemented(what):
             assert new_cache is None
         else:
             assert int(new_cache["pos"]) == 7
+        return
+    if what in ("reduced:minicpm3_4b", "reduced:arctic_480b", "family:moe"):
+        # ported: the reduced config builds, and a prefill and a decode
+        # through its MLA or MoE layers give finite logits
+        arch = {"family:moe": "qwen2_moe_a2_7b"}.get(what, what.split(":")[1])
+        cfg = configs.get_reduced_config(arch)
+        assert cfg.family == ("moe" if "moe" in what or "arctic" in what else "dense")
+        model = build_model(cfg, device="cpu")
+        cache = model.init_cache(1, 16)
+        logits, cache = model.prefill({"tokens": np.arange(5)[None]}, cache)
+        logits2, cache = model.decode_step(np.asarray([[3]]), cache)
+        assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+        assert int(cache["pos"]) == 6 and ("ckv" in cache) == (cfg.attn_type == "mla")
+        return
+    if what == "attention:mla":
+        # attention_apply is the GQA path: an MLA config is refused there
+        # and routed through mla_apply by the layer
+        with pytest.raises(NotImplementedError, match="mla_apply"):
+            _lm_cache_case("mla")()
         return
     kind, arg = what.split(":")
     tiny = configs.get_reduced_config("tinyllama_1b")

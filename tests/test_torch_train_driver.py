@@ -27,7 +27,8 @@ def one_thread():
 
 @pytest.mark.parametrize("arch,coreset", [("tinyllama-1.1b", "l2-hull"),
                                           ("mamba2-370m", "uniform"),
-                                          ("tinyllama-1.1b", "none")])
+                                          ("tinyllama-1.1b", "none"),
+                                          ("qwen2-moe-a2.7b", "l2-hull")])
 def test_driver_losses_fall(arch, coreset):
     rec = train.main(ARGV + ["--arch", arch, "--coreset", coreset])
     losses = np.asarray(rec["losses"])

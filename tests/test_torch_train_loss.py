@@ -33,6 +33,11 @@ CASES = [
     ("tinyllama_1b", "bfloat16", {"prefill_flash_block": 8}, {}, 32, True),
     ("tinyllama_1b", "float32", {}, {"remat": "full"}, 16, False),
     ("tinyllama_1b", "float32", {}, {"remat": "dots", "xent_chunk": 5}, 15, False),
+    ("minicpm3_4b", "float32", {}, {}, 12, False),
+    ("minicpm3_4b", "bfloat16", {}, {"remat": "full"}, 12, False),
+    ("qwen2_moe_a2_7b", "float32", {"capacity_factor": 1.25}, {}, 12, False),
+    ("qwen2_moe_a2_7b", "bfloat16", {}, {"remat": "dots"}, 12, False),
+    ("arctic_480b", "float32", {"moe_pad_experts": 12}, {"remat": "full"}, 12, False),
 ]
 
 

@@ -43,8 +43,9 @@ def _batch(cfg, B, T, seed, uniform=False):
 
 
 def check_loss_and_grads(arch, dtype, over, opts, T, uniform):
-    """The loss, its CE and aux and every leaf's gradient, port against
-    reference, on the reference's weights and one batch."""
+    """The loss, its CE and aux (the MoE router's; 0 elsewhere) and every
+    leaf's gradient, port against reference, on the reference's weights and
+    one batch."""
     jcfg = jax_config(arch).replace(dtype=dtype, **over)
     jm = jax_build(jcfg, **opts)
     params, _ = jm.init(jax.random.PRNGKey(T))
@@ -66,7 +67,11 @@ def check_loss_and_grads(arch, dtype, over, opts, T, uniform):
     rel = REL[dtype]
     _close(loss, jloss, rel, "loss")
     _close(met["ce"], jmet["ce"], rel, "ce")
-    assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+    if jcfg.family == "moe":
+        assert float(jmet["aux"]) > 0
+        _close(met["aux"], jmet["aux"], rel, "aux")
+    else:
+        assert float(met["aux"]) == float(jmet["aux"]) == 0.0
     jleaves = jax.tree_util.tree_leaves_with_path(jgrads)
     assert len(grads) == len(jleaves)
     for g, (path, jg) in zip(grads, jleaves):
