@@ -270,7 +270,8 @@ def phase_environment():
 
 
 # redesigned kernels → the template arguments to report (None: every one)
-REDESIGNED = {"flash_wgmma_kernel": None, "gram_cluster_kernel": None,
+REDESIGNED = {"flash_wgmma_kernel": None, "flash_simt_kernel": ("256",),
+              "gram_cluster_kernel": None,
               "gram_tiled_kernel": ("2", "6"),
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
               "bernstein_featurize_kernel": ("6", "15"), "extremes_score_kernel": ("7",),
@@ -1763,7 +1764,8 @@ def _core_standalone(dev, census, errs, params) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-SERVE_MODELS = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b")
+SERVE_MODELS = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
+                "recurrentgemma_2b")
 # arctic-480b at 2 of its 35 layers, at the published widths: a layer holds
 # 13.61 B parameters (27.2 GB in bf16), so one card's 80 GB takes two; every
 # layer is alike, so two hold a whole period and a layer boundary
@@ -1773,7 +1775,10 @@ SERVE_DEPTH = {"arctic_480b": 2}
 # reference's einsums do)
 SERVE_KERNEL = {"tinyllama_1b": ("flash_attention", "wgmma"), "mamba2_370m": ("ssd", "mma"),
                 "minicpm3_4b": None, "qwen2_moe_a2_7b": ("flash_attention", "wgmma"),
-                "arctic_480b": ("flash_attention", "wgmma")}
+                "arctic_480b": ("flash_attention", "wgmma"),
+                # every prompt lies inside the 2,048 window: each attn block's
+                # prefill from empty is causal attention at d = 256
+                "recurrentgemma_2b": ("flash_attention", "wgmma")}
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 2048
 SERVE_PROMPTS = (256, 512, 768, 1024) * 2   # multiples of mamba2's chunk 256
@@ -1788,6 +1793,11 @@ TEACHER_FORCED_REL = 5e-2
 # flash_attention's d = 128 prefill shapes on the served path: (heads, KV
 # heads) of qwen2-moe-a2.7b and arctic-480b at one 1,024-token prompt
 FA_D128_SHAPES = {"qwen2_moe_a2_7b": (16, 16), "arctic_480b": (56, 8)}
+# and d = 256: recurrentgemma-2b's 10 heads on one KV head
+FA_D256_HEADS = (10, 1)
+# d = 256 against its plain version: (S, dtype, causal), ragged S included
+FA_D256_CHECKS = ((1024, "bfloat16", True), (777, "bfloat16", True), (1024, "bfloat16", False),
+                  (777, "float32", True), (300, "float32", False))
 
 
 def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
@@ -1805,8 +1815,9 @@ def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
 def phase_lm_kernels(dev):
     """flash_attention and ssd against their plain versions at the serve
     path's prefill shapes (and ragged, f32 and state-in/out variants), and
-    flash_attention at d = 128 at the MoE models' prefill shapes; returns
-    the kernel rows and the d = 128 records."""
+    flash_attention at d = 128 at the MoE models' prefill shapes and at
+    d = 256 at recurrentgemma's; returns the kernel rows and the d = 128
+    and d = 256 records."""
     import numpy as np
     import torch
 
@@ -1908,6 +1919,58 @@ def phase_lm_kernels(dev):
             f"{rec8['sdpa_device_ms']:.5f} (ratio {rec8['device_ms'] / rec8['sdpa_device_ms']:.3f},"
             f" in turns {[round(x, 5) for x in rec8['turns_device_ms']]}); bound {b8:.5f} ms "
             f"({by8}), {b8 / rec8['device_ms']:.3f} of it")
+    # ---- flash_attention at d = 256: recurrentgemma-2b's prefill (phase 4
+    # serves it through this body), bf16 and f32, ragged S, KV 1, causal and
+    # not, against its plain version; timed in turns with SDPA
+    t_d256 = time.perf_counter()
+    H6, KV6 = FA_D256_HEADS
+    d256 = {"checks": []}
+    for S_, dt, causal in FA_D256_CHECKS:
+        dtype = getattr(torch, dt)
+        q6, k6, v6 = (torch.randn(B, S_, h, 256, generator=gen).to(dev, dtype)
+                      for h in (H6, KV6, KV6))
+        got = flash_attention(q6, k6, v6, causal=causal)
+        e = max_err(got, flash_attention_ref(q6, k6, v6, causal=causal))
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        chk = {"S": S_, "dtype": dt, "causal": causal, "body": kernel_path(q6), "max_abs_err": e,
+               "tol": tol}
+        ok = e <= tol and bool(torch.isfinite(got).all())
+        if dtype == torch.bfloat16:
+            chk["bound_use"], _ = fa_bound_use(got, q6, k6, v6, causal)
+            ok = ok and chk["bound_use"] <= 1.0 and chk["body"] == "wgmma"
+        d256["checks"].append(chk)
+        log(f"  flash_attention d=256 " + json.dumps(chk))
+        if not ok:
+            errs.append(f"flash_attention d=256 disagrees: {chk}")
+    q6, k6, v6 = (torch.randn(B, S, h, 256, generator=gen).to(dev, torch.bfloat16)
+                  for h in (H6, KV6, KV6))
+    pairs6 = H6 * B * S * (S + 1) / 2
+    nbytes6 = 2 * (2 * q6.numel() + k6.numel() + v6.numel())
+    e6 = max_err(flash_attention(q6, k6, v6), flash_attention_ref(q6, k6, v6))
+    row = kernel_row("flash_attention_d256", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:62", e6,
+                     lambda: flash_attention(q6, k6, v6), lambda: flash_attention_ref(q6, k6, v6),
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         *(t.transpose(1, 2) for t in (q6, k6, v6)), is_causal=True,
+                         enable_gqa=True),
+                     nbytes=nbytes6, flops=4 * 256 * pairs6, peak=H100_BF16_FLOPS)
+    row["shape"] = f"(1, {S}, {H6}, 256), KV {KV6}"
+    row["body"] = kernel_path(q6)
+    rows.append(row)
+    qf, kf, vf = (t.float() for t in (q6, k6, v6))
+    simt_ms = cuda_ms(lambda: flash_attention(qf, kf, vf))
+    d256.update({"shape": [B, S, H6, 256], "kv_heads": KV6, "body": row["body"],
+                 "max_abs_err": e6, "ms": row["ms"], "sdpa_ms": row["library_ms"],
+                 "device_ms": row["device_ms"], "sdpa_device_ms": row["library_device_ms"],
+                 "turns_device_ms": row["turns_device_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "f32_simt_ms": simt_ms,
+                 "seconds": time.perf_counter() - t_d256})
+    log(f"  flash_attention d=256 (1, {S}, {H6}, 256) KV {KV6} causal, {row['body']} body: "
+        f"events {row['ms']:.5f} ms vs SDPA {row['library_ms']:.5f}; device "
+        f"{row['device_ms']:.5f} ms vs SDPA {row['library_device_ms']:.5f} (ratio "
+        f"{row['device_ms'] / row['library_device_ms']:.3f}); bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.3f} of it; the f32-FMA "
+        f"body at the same shape in f32 {simt_ms:.5f} ms (events); {d256['seconds']:.1f} s")
     # ---- ssd: mamba2 prefill, (1, 1024, 32, 64) x, N = 128, chunk 256
     T, H, P, N, Q = 1024, 32, 64, 128, 256
 
@@ -1977,7 +2040,7 @@ def phase_lm_kernels(dev):
     rows.append(ssd_row)
     if errs:
         fail("; ".join(errs))
-    return rows, d128
+    return rows, d128, d256
 
 
 def phase_lm_small_agreement(dev):
@@ -1991,6 +2054,7 @@ def phase_lm_small_agreement(dev):
     from repro_torch.serve import GenerationConfig, Request, ServeEngine
 
     for name in SERVE_MODELS:
+        t0 = time.perf_counter()
         cfg = get_reduced_config(name).replace(dtype="float32")
         runs = {}
         for where in ("cpu", str(dev)):
@@ -2010,7 +2074,8 @@ def phase_lm_small_agreement(dev):
                 for a, b in zip(runs[str(dev)], runs["cpu"]))
         same = len(runs["cpu"]) == 5 and all(
             a.output == b.output for a, b in zip(runs[str(dev)], runs["cpu"]))
-        log(f"small LM {name}: same greedy tokens {same}, max logit err {e:.3e}")
+        log(f"small LM {name}: same greedy tokens {same}, max logit err {e:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
         if not same or e > 1e-4:
             fail(f"reduced {name} on the card disagrees with the CPU: tokens {same}, err {e}")
 
@@ -2092,10 +2157,13 @@ def teacher_forced(model, req):
     the tokens the engine generated (teacher forcing), at the positions the
     engine sampled from: (max_new_tokens, vocab) float32. The generated
     tokens go in as one chunked prefill into the prompt's cache (mamba2's
-    scan takes a chunk of at most 256 after whole chunks), or, for the MoE
-    models, one decode step each: a router logit rounded otherwise under
-    another product shape (31 tokens against the engine's 4) can flip a
-    near-tie in the top-k and swap an expert (PERF.md §6, PR 25)."""
+    scan takes a chunk of at most 256 after whole chunks), or one decode
+    step each for the MoE models, where a router logit rounded otherwise
+    under another product shape (31 tokens against the engine's 4) can flip
+    a near-tie in the top-k and swap an expert (PERF.md §6), and
+    for a hybrid whose tokens pass its ring cache's length: a multi-token
+    write into the ring (the reference's) overwrites keys that the chunk's
+    first queries still attend."""
     import numpy as np
     import torch
 
@@ -2105,7 +2173,10 @@ def teacher_forced(model, req):
     logits, cache = model.prefill({"tokens": req.prompt[None, :]}, cache)
     rows = [logits[0, -1:]]
     fed = np.asarray(req.output[:-1])[None]
-    if model.cfg.family == "moe":
+    cfg = model.cfg
+    wraps = cfg.family == "hybrid" and len(req.prompt) + fed.shape[1] > min(
+        cfg.attn_window or SERVE_MAX_LEN, SERVE_MAX_LEN)
+    if cfg.family == "moe" or wraps:
         for i in range(fed.shape[1]):
             logits, cache = model.decode_step(fed[:, i:i + 1], cache)
             rows.append(logits[0])
@@ -2119,8 +2190,8 @@ def teacher_forced(model, req):
 
 def phase_serve(dev):
     """Each full-width model serving 8 requests through ServeEngine (arctic
-    at SERVE_DEPTH's cut); returns the launches of flash_attention (d = 64
-    and d = 128 apart) and ssd over their serve runs, and the records."""
+    at SERVE_DEPTH's cut); returns the launches of flash_attention (d = 64,
+    128 and 256 apart) and ssd over their serve runs, and the records."""
     import numpy as np
     import torch
 
@@ -2131,7 +2202,8 @@ def phase_serve(dev):
     from repro_torch.models.layers import DropCounter
     from repro_torch.serve import GenerationConfig, Request, ServeEngine
 
-    launches = {"flash_attention": 0, "flash_attention_d128": 0, "ssd": 0}
+    launches = {"flash_attention": 0, "flash_attention_d128": 0, "flash_attention_d256": 0,
+                "ssd": 0}
     records = {}
     for name in SERVE_MODELS:
         cfg = get_config(name)
@@ -2199,14 +2271,18 @@ def phase_serve(dev):
         else:
             kname, body = want
             count = counts[kname]
-            if count != cfg.n_layers * len(prompts) or sum(counts.values()) != count:
-                fail(f"{name}: launches {counts}, expected {kname} {cfg.n_layers} layers × "
+            # the layers that take the kernel: a hybrid's attn blocks
+            n_kernel = (sum(k == "attn" for k in (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+                        if cfg.family == "hybrid" else cfg.n_layers)
+            if count != n_kernel * len(prompts) or sum(counts.values()) != count:
+                fail(f"{name}: launches {counts}, expected {kname} {n_kernel} layers × "
                      f"{len(prompts)} prefills")
             if bodies[kname][body] != count:
                 fail(f"{name}: the {body} body took {bodies[kname][body]} of {count} launches "
                      f"{bodies[kname]}")
-            row = "flash_attention_d128" if kname == "flash_attention" and cfg.head_dim == 128 \
-                else kname
+            row = kname
+            if kname == "flash_attention" and cfg.head_dim in (128, 256):
+                row = f"flash_attention_d{cfg.head_dim}"
             launches[row] += count
         # the gate: the engine's logits against a single-request run of the
         # same model fed the same tokens; the MoE models at capacity_factor
@@ -3627,15 +3703,19 @@ def phase_mesh(dev, scratch: str):
 
 # ---------------------------------------------------------------- phase 12
 
-TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m", "minicpm3-4b", "qwen2-moe-a2.7b")
+TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m", "minicpm3-4b", "qwen2-moe-a2.7b",
+                "recurrentgemma-2b")
 # depth cuts at the published widths: a step's peak holds float32 masters,
 # gradients, clipped gradients, adamw's old and new moments and the updates
 # (the optimizer is functional), about 34 B a parameter (tinyllama's 1.10 B
 # parameters peak at 46.87 GB), so 80 GB takes about 2 B parameters:
 # minicpm3 at 20 of 62 layers (1.44 B parameters; at 32 layers, 2.19 B, the
 # step ran out of memory) and qwen2-moe at 2 of 24 (1.76 B, 1.14 B of them
-# its two 151,936-row tables)
-TRAIN_DEPTH = {"minicpm3-4b": 20, "qwen2-moe-a2.7b": 2}
+# its two 151,936-row tables); recurrentgemma-2b at 11 of 26 layers, three
+# (rec, rec, attn) groups and the two-block rec tail (1.61 B parameters, 0.66
+# B of them its tied 256,000-row table; all 26 would need ~122 GB at 42 B a
+# parameter): every cut keeps the tail, so its code runs
+TRAIN_DEPTH = {"minicpm3-4b": 20, "qwen2-moe-a2.7b": 2, "recurrentgemma-2b": 11}
 TRAIN_STEPS = 30
 TRAIN_LR = 1e-3                      # the phase's learning rate (launch/train.py's default: 3e-3)
 TRAIN_ARGV = ["--coreset", "l2-hull", "--coreset-k", "512", "--batch", "8", "--seq", "64",
@@ -3701,6 +3781,7 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
 
     from repro_torch.launch import train
 
+    t_model = time.perf_counter()
     cfg = _lm_config(arch)
     if TRAIN_DEPTH.get(arch, cfg.n_layers) < cfg.n_layers:
         cfg = cfg.replace(n_layers=TRAIN_DEPTH[arch])
@@ -3754,6 +3835,7 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
     rec["device_share_of_step"] = rec["device_ms_per_step"] / rec["step_ms_median_5_30"]
     if read_all_counts()["ssd"] or read_all_counts()["flash_attention"]:
         errs.append(f"{arch}: the LM kernels launched in the profiled steps")
+    rec["model_s"] = time.perf_counter() - t_model
     del run, state
     torch.cuda.empty_cache()
     return rec
@@ -3874,6 +3956,7 @@ def _small_agreement(dev, errs: list) -> dict:
 
     out = {}
     for arch in TRAIN_MODELS:
+        t0 = time.perf_counter()
         cfg = get_reduced_config(arch).replace(dtype="float32")
         stream = TokenStreamConfig(cfg.vocab_size, 64)
         losses = {}
@@ -3888,7 +3971,8 @@ def _small_agreement(dev, errs: list) -> dict:
             losses[where] = np.asarray(ls)
         rel = float(np.max(np.abs(losses[str(dev)] - losses["cpu"]) / np.abs(losses["cpu"])))
         out[arch] = {"max_rel_err": rel, "cpu": losses["cpu"].tolist()}
-        log(f"small LM training {arch}: card vs CPU max rel err {rel:.3e}")
+        log(f"small LM training {arch}: card vs CPU max rel err {rel:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
         if rel > SMALL_REL:
             errs.append(f"reduced {arch} training on the card disagrees with the CPU: {rel}")
     return out
@@ -3909,8 +3993,8 @@ def phase_lm_training(dev, scratch: str):
             f"{r['device_busy_share']:.3f} (device {r['device_ms_per_step']:.2f} ms a step, "
             f"{r['device_share_of_step']:.3f} of an unprofiled one), select_s "
             f"{r['select_s']:.3f}, losses "
-            f"{r['losses'][0]:.4f} → {r['losses'][-1]:.4f}, stage launches "
-            f"{json.dumps(r['launches'])}")
+            f"{r['losses'][0]:.4f} → {r['losses'][-1]:.4f}, {r['model_s']:.1f} s in all, "
+            f"stage launches {json.dumps(r['launches'])}")
     rec["example"] = _example_comparison(dev, census, errs)
     log("example (l2-hull vs uniform, k = 256 of 2,048): " + json.dumps(rec["example"]))
     rec["drill"] = _resume_drill(dev, scratch, census, errs)
@@ -4018,7 +4102,7 @@ def main() -> None:
     mctm_kernels, wide = phase_kernels(dev)
     kernels_at_d16 = phase_kernels_d16(dev)
     wide_row, wide["extremes_wide"] = phase_wide_extremes(dev)
-    lm_rows, flash_d128 = phase_lm_kernels(dev)
+    lm_rows, flash_d128, flash_d256 = phase_lm_kernels(dev)
     p9_rows, wide["wide_d"] = phase_kernels_wide_d(dev)
     kernels = mctm_kernels + [wide_row] + p9_rows + lm_rows
     phase_small_agreement(dev)
@@ -4079,6 +4163,7 @@ def main() -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "wide": wide, "flash_d128": flash_d128,
+                   "flash_d256": flash_d256,
                    "serve": serve, "core": core,
                    "core_census": core_census, "fault_tolerance": ft_rec,
                    "ft_census": ft_census, "streaming": stream_rec,

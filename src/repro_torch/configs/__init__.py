@@ -13,7 +13,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_NAMES = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b")
+ARCH_NAMES = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
+              "recurrentgemma_2b")
 
 # public ids → module names, the reference's full list
 ARCH_IDS = {
@@ -35,8 +36,6 @@ UNPORTED = {
     "olmo_1b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
     "gemma_2b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
     "whisper_medium": "ROADMAP.md Queue A 14: encdec (whisper)",
-    "recurrentgemma_2b": "ROADMAP.md Queue A 14: hybrid with ring-cache local attention "
-                         "(recurrentgemma)",
 }
 
 

@@ -11,23 +11,28 @@
 // Bound on the H100 at the serve path's prefill (1, 1024, 32, 64) bf16: the
 // causal work is 2·B·H·S²·d ≈ 4.30 GFLOP (≈ 4.35 µs at the 989 TFLOP/s bf16
 // tensor-core peak); the bytes are ≈ 9.4 MB (≈ 2.8 µs). Operations bound it,
-// and only wgmma reaches that tensor-core rate.
+// and only wgmma reaches that tensor-core rate. At recurrentgemma's prefill
+// (1, 1024, 10, 256), one KV head: ≈ 5.37 GFLOP (≈ 5.4 µs), ≈ 11.5 MB.
 //
-// Three bodies behind one entry point:
-//  - bf16 with d ∈ {64, 128} (the zoo's dense heads): wgmma, fed by TMA.
+// Three bodies behind one entry point, for d ≤ kFlashMaxD (256):
+//  - bf16 with d ∈ {64, 128, 256} (the zoo's heads): wgmma, fed by TMA.
 //    One CTA of three warpgroups per (b·h, 128-row q tile). Warpgroup 2
 //    drops to 24 registers (setmaxnreg) so that the two consumer
 //    warpgroups can hold 240 each; one of its threads loads Q once and
-//    keeps K and V tiles of 128 keys in flight through a two-stage ring of
-//    mbarriers, with TMA boxes of 64 columns in the 128-byte swizzle that
+//    keeps K and V tiles of KT keys in flight through a two-stage ring of
+//    mbarriers (KT = 128; KT = 64 at d = 256, where a 128-key ring would
+//    need 320 KiB of shared memory with the 64-KiB Q tile, and 64 keys fit
+//    in 192 KiB), with TMA boxes of 64 columns in the 128-byte swizzle that
 //    the wgmma descriptors read (4-D tensor maps over the strided GQA
 //    views, encoded per call through cudaGetDriverEntryPoint, passed as
 //    __grid_constant__). Each consumer warpgroup owns 64 q rows: S = QKᵀ is
-//    wgmma m64n128k16 from shared memory, the online softmax runs on S in
+//    wgmma m64nKTk16 from shared memory, the online softmax runs on S in
 //    registers, and P, rounded to bf16, is the register A operand of
-//    O += PV, with V read MN-major (the transpose bit), so V needs no
-//    transposed copy. The mask is applied only on the tiles that the
-//    diagonal or the ragged end crosses.
+//    O += PV (one m64n64k16 per 64-column chunk of O), with V read MN-major
+//    (the transpose bit), so V needs no transposed copy. At d = 256 a
+//    consumer thread holds 128 f32 of O, 32 of S and 16 words of P. The
+//    mask is applied only on the tiles that the diagonal or the ragged end
+//    crosses.
 //  - bf16 with d ∈ {16, 32}: tensor cores through mma.sync m16n8k16 (bf16
 //    in, f32 accumulate). One CTA of four warps per (b·h, 64-row q tile);
 //    each warp owns 16 q rows whose Q fragments stay in registers. K and V
@@ -35,9 +40,12 @@
 //    so the fragment loads hit 32 distinct banks); S = QKᵀ stays in
 //    registers and P is re-packed in registers as the A operand of PV (the
 //    FlashAttention-2 register layout).
-//  - everything else (f32, or d not a multiple of 16, up to 128): plain f32
-//    FMA. Two threads per q row, each holding every other dimension of q and
-//    of the accumulator; K and V tiles of 32 keys in shared memory as f32.
+//  - everything else (f32, or another d): plain f32 FMA. Up to d = 128 two
+//    threads per q row, each holding every other dimension of q and of the
+//    accumulator, K and V tiles of 32 keys in shared memory as f32 (32 KiB).
+//    Past 128 four threads a row (64 dimensions of q and of the accumulator
+//    each, so nothing spills) and tiles of 16 keys, which keep the tiles in
+//    the same 32 KiB of static shared memory.
 // The tensor-core bodies run the softmax in the log2 domain and round its
 // weights to bf16 for the PV product, as every bf16 flash kernel does; the
 // running sum takes them in f32. Every body skips key tiles above the
@@ -53,11 +61,10 @@ struct Strides {
   long long b, s, h;  // elements; the d stride is 1
 };
 
-constexpr int kMmaRows = 64;   // q rows per CTA (4 warps × 16)
-constexpr int kMmaKeys = 64;   // keys per staged tile
+constexpr int kFlashMaxD = 256;  // the widest head any body takes
+constexpr int kMmaRows = 64;     // q rows per CTA (4 warps × 16)
+constexpr int kMmaKeys = 64;     // keys per staged tile
 constexpr int kMmaThreads = 128;
-constexpr int kSimtRows = 64;  // q rows per CTA (2 threads each)
-constexpr int kSimtKeys = 32;
 constexpr int kSimtThreads = 128;
 
 __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* base, int row, int col, int S,
@@ -216,20 +223,22 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <typename T, int DMAX>
+// TPR threads per q row (ROWS rows per CTA), KEYS keys per staged tile.
+template <typename T, int DMAX, int TPR, int KEYS>
 __global__ void __launch_bounds__(kSimtThreads)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       T* __restrict__ o, int S, int H, int KV, int d, Strides qs, Strides ks,
                       Strides vs, float scale, int causal) {
-  constexpr int DH = DMAX / 2;  // dimensions 2i + half of q and acc per thread
-  __shared__ float Ks[kSimtKeys * DMAX];
-  __shared__ float Vs[kSimtKeys * DMAX];
+  constexpr int ROWS = kSimtThreads / TPR;
+  constexpr int DH = DMAX / TPR;  // dimensions TPR·i + part of q and acc per thread
+  __shared__ float Ks[KEYS * DMAX];
+  __shared__ float Vs[KEYS * DMAX];
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int qtile = gridDim.y - 1 - blockIdx.y;
-  const int half = threadIdx.x & 1;
-  const int row = qtile * kSimtRows + (threadIdx.x >> 1);
+  const int part = threadIdx.x % TPR;
+  const int row = qtile * ROWS + threadIdx.x / TPR;
 
   const T* qr = q + b * qs.b + h * qs.h + (long long)row * qs.s;
   const T* kb = k + b * ks.b + kvh * ks.h;
@@ -237,32 +246,33 @@ __global__ void __launch_bounds__(kSimtThreads)
   float qv[DH], acc[DH];
 #pragma unroll
   for (int i = 0; i < DH; ++i) {
-    const int dim = 2 * i + half;
+    const int dim = TPR * i + part;
     qv[i] = (row < S && dim < d) ? to_float(qr[dim]) : 0.f;
     acc[i] = 0.f;
   }
   float m = -1e30f, l = 0.f;
 
-  const int last_key = causal ? min(S, qtile * kSimtRows + kSimtRows) : S;
-  const int n_tiles = (last_key + kSimtKeys - 1) / kSimtKeys;
+  const int last_key = causal ? min(S, qtile * ROWS + ROWS) : S;
+  const int n_tiles = (last_key + KEYS - 1) / KEYS;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kSimtKeys;
+    const int k0 = j * KEYS;
     __syncthreads();
-    for (int i = threadIdx.x; i < kSimtKeys * DMAX; i += kSimtThreads) {
+    for (int i = threadIdx.x; i < KEYS * DMAX; i += kSimtThreads) {
       const int r = i / DMAX, c = i % DMAX;
       const bool ok = k0 + r < S && c < d;
       Ks[i] = ok ? to_float(kb[(long long)(k0 + r) * ks.s + c]) : 0.f;
       Vs[i] = ok ? to_float(vb[(long long)(k0 + r) * vs.s + c]) : 0.f;
     }
     __syncthreads();
-    float sc[kSimtKeys];
+    float sc[KEYS];
     float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int kk = 0; kk < kSimtKeys; ++kk) {
+    for (int kk = 0; kk < KEYS; ++kk) {
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) dot = fmaf(qv[i], Ks[kk * DMAX + 2 * i + half], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      for (int i = 0; i < DH; ++i) dot = fmaf(qv[i], Ks[kk * DMAX + TPR * i + part], dot);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int key = k0 + kk;
       const bool ok = key < S && (!causal || key <= row);
       sc[kk] = ok ? dot * scale : -CUDART_INF_F;
@@ -275,11 +285,11 @@ __global__ void __launch_bounds__(kSimtThreads)
 #pragma unroll
     for (int i = 0; i < DH; ++i) acc[i] *= alpha;
 #pragma unroll
-    for (int kk = 0; kk < kSimtKeys; ++kk) {
+    for (int kk = 0; kk < KEYS; ++kk) {
       const float p = expf(sc[kk] - mn);
       l += p;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] = fmaf(p, Vs[kk * DMAX + 2 * i + half], acc[i]);
+      for (int i = 0; i < DH; ++i) acc[i] = fmaf(p, Vs[kk * DMAX + TPR * i + part], acc[i]);
     }
   }
   if (row >= S) return;
@@ -287,51 +297,55 @@ __global__ void __launch_bounds__(kSimtThreads)
   T* orow = o + (((long long)b * S + row) * H + h) * d;
 #pragma unroll
   for (int i = 0; i < DH; ++i) {
-    const int dim = 2 * i + half;
+    const int dim = TPR * i + part;
     if (dim < d) orow[dim] = from_float<T>(acc[i] * inv);
   }
+}
+
+template <typename T, int DMAX, int TPR, int KEYS>
+void run_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
+              int d, Strides qs, Strides ks, Strides vs, float scale, int causal,
+              cudaStream_t st) {
+  constexpr int kRows = kSimtThreads / TPR;
+  const dim3 grid(B * H, (S + kRows - 1) / kRows);
+  flash_simt_kernel<T, DMAX, TPR, KEYS><<<grid, kSimtThreads, 0, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KV, d, qs, ks, vs, scale, causal);
 }
 
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
                 int d, Strides qs, Strides ks, Strides vs, float scale, int causal,
                 cudaStream_t st) {
-  const dim3 grid(B * H, (S + kSimtRows - 1) / kSimtRows);
-  const T* qp = (const T*)q;
-  const T* kp = (const T*)k;
-  const T* vp = (const T*)v;
-  T* op = (T*)o;
   if (d <= 16)
-    flash_simt_kernel<T, 16><<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, d, qs, ks,
-                                                            vs, scale, causal);
+    run_simt<T, 16, 2, 32>(q, k, v, o, B, S, H, KV, d, qs, ks, vs, scale, causal, st);
   else if (d <= 32)
-    flash_simt_kernel<T, 32><<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, d, qs, ks,
-                                                            vs, scale, causal);
+    run_simt<T, 32, 2, 32>(q, k, v, o, B, S, H, KV, d, qs, ks, vs, scale, causal, st);
   else if (d <= 64)
-    flash_simt_kernel<T, 64><<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, d, qs, ks,
-                                                            vs, scale, causal);
+    run_simt<T, 64, 2, 32>(q, k, v, o, B, S, H, KV, d, qs, ks, vs, scale, causal, st);
+  else if (d <= 128)
+    run_simt<T, 128, 2, 32>(q, k, v, o, B, S, H, KV, d, qs, ks, vs, scale, causal, st);
   else
-    flash_simt_kernel<T, 128><<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, op, S, H, KV, d, qs, ks,
-                                                             vs, scale, causal);
+    run_simt<T, kFlashMaxD, 4, 16>(q, k, v, o, B, S, H, KV, d, qs, ks, vs, scale, causal, st);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- wgmma body
 
 constexpr int kWgRows = 128;     // q rows per CTA: two consumer warpgroups × 64
-constexpr int kWgKeys = 128;     // keys per staged K/V tile
+constexpr int kWgKeys = 128;     // keys per staged K/V tile (d ≤ 128)
+constexpr int kWgKeysWide = 64;  // keys per staged K/V tile at d = 256
 constexpr int kWgStages = 2;     // K/V ring depth
 constexpr int kWgThreads = 384;  // warpgroups 0, 1 consume; warpgroup 2 loads
 constexpr int kChunk = 64;       // bf16 columns of one 128-byte swizzled chunk
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 
-template <int HD>
+template <int HD, int KT>
 struct WgLayout {  // byte offsets in dynamic shared memory, 1,024-aligned tiles
-  static constexpr int kQ = kWgRows * HD * 2;    // HD/64 chunks of 128 rows × 128 B
-  static constexpr int kKV = kWgKeys * HD * 2;   // one K or V tile, HD/64 chunks
+  static constexpr int kQ = kWgRows * HD * 2;  // HD/64 chunks of 128 rows × 128 B
+  static constexpr int kKV = KT * HD * 2;      // one K or V tile, HD/64 chunks
   static constexpr int kQChunk = kWgRows * 128;
-  static constexpr int kKVChunk = kWgKeys * 128;
+  static constexpr int kKVChunk = KT * 128;
   static constexpr int q = 0;
   static constexpr int k = kQ;
   static constexpr int v = k + kWgStages * kKV;
@@ -456,6 +470,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64×64 f32) = A·B, plus D when scale_d: as wgmma_ss_n128 with 64 rows
+// of B.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64×64 f32) += A·B: A 64×16 bf16 in registers (each warp's 16 rows
 // in the mma.m16n8k16 A-fragment layout), B 16×64 bf16 from shared memory,
 // MN-major (transposed: each k row holds 64 contiguous columns).
@@ -477,18 +510,19 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
 
 // One CTA per (b·h, 128-row q tile), heaviest causal tiles first. Warpgroup
 // 2 gives up its registers and one of its threads streams Q once and the
-// K/V tiles through a two-stage ring with TMA; warpgroups 0 and 1 each own
-// 64 q rows: S = QKᵀ by wgmma from shared memory, the online softmax on S
-// in registers (log2 domain, f32), P re-packed in registers as the A
-// operand of O += PV, V read MN-major (transposed) from its tile.
-template <int HD>
+// K/V tiles of KT keys through a two-stage ring with TMA; warpgroups 0 and
+// 1 each own 64 q rows: S = QKᵀ by wgmma from shared memory, the online
+// softmax on S in registers (log2 domain, f32), P re-packed in registers as
+// the A operand of O += PV, V read MN-major (transposed) from its tile.
+template <int HD, int KT>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                        int S, int H, int KV, float scale_log2, int causal) {
-  using L = WgLayout<HD>;
+  using L = WgLayout<HD, KT>;
   constexpr int kChunks = HD / kChunk;
+  static_assert(KT == 64 || KT == 128, "S = QK^T is one m64n64 or m64n128 product");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -502,8 +536,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int qtile = gridDim.y - 1 - blockIdx.y;  // most key tiles first
   const int q0 = qtile * kWgRows;
-  const int n_kv = (S + kWgKeys - 1) / kWgKeys;
-  const int n_tiles = causal ? min(n_kv, qtile + 1) : n_kv;
+  const int n_kv = (S + KT - 1) / KT;
+  // causal: the tiles up to the one that holds this CTA's last row
+  const int n_tiles = causal ? min(n_kv, (q0 + kWgRows + KT - 1) / KT) : n_kv;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -531,12 +566,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_expect_tx(&k_full[st], L::kKV);
         for (int c = 0; c < kChunks; ++c)
           tma_load_4d(smem + L::k + st * L::kKV + c * L::kKVChunk, &kmap, &k_full[st],
-                      c * kChunk, kvh, j * kWgKeys, b);
+                      c * kChunk, kvh, j * KT, b);
         mbar_wait(&v_empty[st], ph ^ 1);
         mbar_expect_tx(&v_full[st], L::kKV);
         for (int c = 0; c < kChunks; ++c)
           tma_load_4d(smem + L::v + st * L::kKV + c * L::kKVChunk, &vmap, &v_full[st],
-                      c * kChunk, kvh, j * kWgKeys, b);
+                      c * kChunk, kvh, j * KT, b);
       }
     }
   } else {
@@ -554,11 +589,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
     float m0 = -1e30f, m1 = -1e30f;  // running max of rows r0, r1 (log2 domain)
     float l0 = 0.f, l1 = 0.f;        // this thread's share of the running sums
-    float s[64];                     // S of one tile, then its softmax weights
-    uint32_t p[kWgKeys / 16][4];     // the weights in bf16, the A operand of PV
+    float s[KT / 2];                 // S of one tile, then its softmax weights
+    uint32_t p[KT / 16][4];          // the weights in bf16, the A operand of PV
     const uint8_t* qs = smem + L::q + wg * 64 * 128;
 
-    // S = Q Kᵀ of tile j, 64 rows × 128 keys, issued and committed (not
+    // S = Q Kᵀ of tile j, 64 rows × KT keys, issued and committed (not
     // waited for); a k16 step advances 32 B inside a 128-byte row, then to
     // the next 64-column chunk
     auto issue_s = [&](int j) {
@@ -566,8 +601,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const int off = (kk & 3) * 32;
-        wgmma_ss_n128(s, sw128_desc(qs + (kk >> 2) * L::kQChunk + off, 16, 1024),
-                      sw128_desc(ks + (kk >> 2) * L::kKVChunk + off, 16, 1024), kk > 0);
+        const uint64_t da = sw128_desc(qs + (kk >> 2) * L::kQChunk + off, 16, 1024);
+        const uint64_t db = sw128_desc(ks + (kk >> 2) * L::kKVChunk + off, 16, 1024);
+        if constexpr (KT == 128)
+          wgmma_ss_n128(s, da, db, kk > 0);
+        else
+          wgmma_ss_n64(s, da, db, kk > 0);
       }
       wgmma_commit();
     };
@@ -576,7 +615,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     auto issue_pv = [&](int j) {
       const uint8_t* vs = smem + L::v + (j % kWgStages) * L::kKV;
 #pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk)
+      for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
         for (int c = 0; c < kChunks; ++c)
           wgmma_rs_n64_tb(acc[c], p[kk],
@@ -592,10 +631,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // the ragged end crosses the tile, weights exp2(s·scale − m) in place;
     // returns the factors that rescale the accumulator rows
     auto softmax = [&](int j, float& al0, float& al1) {
-      const int k0 = j * kWgKeys;
-      if ((causal && k0 + kWgKeys - 1 > rlo) || k0 + kWgKeys > S) {
+      const int k0 = j * KT;
+      if ((causal && k0 + KT - 1 > rlo) || k0 + KT > S) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < KT / 2; ++i) {
           const int key = k0 + (i >> 2) * 8 + t4 * 2 + (i & 1);
           const int row = (i & 2) ? r1 : r0;
           if (key >= S || (causal && key > row)) s[i] = -CUDART_INF_F;
@@ -603,7 +642,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-      for (int nb = 0; nb < kWgKeys / 8; ++nb) {
+      for (int nb = 0; nb < KT / 8; ++nb) {
         mx0 = fmaxf(mx0, fmaxf(s[nb * 4], s[nb * 4 + 1]));
         mx1 = fmaxf(mx1, fmaxf(s[nb * 4 + 2], s[nb * 4 + 3]));
       }
@@ -619,7 +658,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       m1 = mn1;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int nb = 0; nb < kWgKeys / 8; ++nb) {
+      for (int nb = 0; nb < KT / 8; ++nb) {
         s[nb * 4] = ex2(fmaf(s[nb * 4], scale_log2, -mn0));
         s[nb * 4 + 1] = ex2(fmaf(s[nb * 4 + 1], scale_log2, -mn0));
         s[nb * 4 + 2] = ex2(fmaf(s[nb * 4 + 2], scale_log2, -mn1));
@@ -643,7 +682,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           acc[c][nb * 4 + 3] *= al1;
         }
 #pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+      for (int kk = 0; kk < KT / 16; ++kk) {
         p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -760,23 +799,25 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int d
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int KT>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                  int KV, Strides qs, Strides ks, Strides vs, float scale_log2, int causal,
                  cudaStream_t st) {
+  using L = WgLayout<HD, KT>;
+  static_assert(L::bytes <= 232448, "past the 227 KB of shared memory a block may use");
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, S, H, HD, qs, kWgRows) || !make_map(&km, k, B, S, KV, HD, ks, kWgKeys) ||
-      !make_map(&vm, v, B, S, KV, HD, vs, kWgKeys))
+  if (!make_map(&qm, q, B, S, H, HD, qs, kWgRows) || !make_map(&km, k, B, S, KV, HD, ks, KT) ||
+      !make_map(&vm, v, B, S, KV, HD, vs, KT))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgLayout<HD>::bytes);
+        flash_wgmma_kernel<HD, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
-  flash_wgmma_kernel<HD><<<grid, kWgThreads, WgLayout<HD>::bytes, st>>>(
+  flash_wgmma_kernel<HD, KT><<<grid, kWgThreads, L::bytes, st>>>(
       qm, km, vm, (__nv_bfloat16*)o, S, H, KV, scale_log2, causal);
   return (int)cudaGetLastError();
 }
@@ -785,17 +826,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
 
 // q (B, S, H, d), k and v (B, S, KV, d) with unit d stride, read through the
 // given (b, s, h) strides in elements; o (B, S, H, d) contiguous. dtype 0 is
-// float32, 1 bfloat16. path 2 asks for the wgmma body (bf16, d ∈ {64, 128}),
-// path 1 for the mma.sync body (bf16, d ∈ {16, 32}), both with every pointer
-// and (b, s, h) stride 16-byte aligned; path 0 for the f32-FMA body
-// (d ≤ 128). scale multiplies q·k.
+// float32, 1 bfloat16. path 2 asks for the wgmma body (bf16, d ∈ {64, 128,
+// 256}), path 1 for the mma.sync body (bf16, d ∈ {16, 32}), both with every
+// pointer and (b, s, h) stride 16-byte aligned; path 0 for the f32-FMA body
+// (d ≤ kFlashMaxD). scale multiplies q·k.
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                        int dtype, int path, int B, int S, int H, int KV, int d,
                                        long long qsb, long long qss, long long qsh,
                                        long long ksb, long long kss, long long ksh,
                                        long long vsb, long long vss, long long vsh, int causal,
                                        float scale, void* stream) {
-  if (B < 0 || S < 0 || H <= 0 || KV <= 0 || H % KV != 0 || d <= 0 || d > 128 ||
+  if (B < 0 || S < 0 || H <= 0 || KV <= 0 || H % KV != 0 || d <= 0 || d > kFlashMaxD ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
@@ -803,9 +844,12 @@ REPRO_EXPORT int repro_flash_attention(const void* q, const void* k, const void*
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const float sl2 = scale * 1.4426950408889634f;
   if (path == 2) {
-    if (dtype != 1 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
-    if (d == 64) return launch_wgmma<64>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
-    return launch_wgmma<128>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
+    if (dtype != 1 || (d != 64 && d != 128 && d != 256)) return (int)cudaErrorInvalidValue;
+    if (d == 64)
+      return launch_wgmma<64, kWgKeys>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
+    if (d == 128)
+      return launch_wgmma<128, kWgKeys>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
+    return launch_wgmma<256, kWgKeysWide>(q, k, v, o, B, S, H, KV, qs, ks, vs, sl2, causal, st);
   }
   if (path == 1) {
     if (dtype != 1 || (d != 16 && d != 32)) return (int)cudaErrorInvalidValue;

@@ -64,6 +64,7 @@ _SIGNATURES = {
 CUDA_CONSTANTS = {
     "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
+    "flash_attention.cu": {"kFlashMaxD": 256, "kWgKeys": 128, "kWgKeysWide": 64},
     "extremes.cu": {"kExtWideRd": 8, "kExtWideRr": 8, "kExtWideTileDirs": 128,
                     "kExtWideTileRows": 128, "kExtWideCtasPerSm": 2, "kExtWideOneWarps": 4,
                     "kExtWideOneCtasPerSm": 4},

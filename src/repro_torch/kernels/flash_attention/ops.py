@@ -7,7 +7,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-MAX_D = 128
+MAX_D = _lib.CUDA_CONSTANTS["flash_attention.cu"]["kFlashMaxD"]  # 256
 LAUNCHES = 0
 # launches of each body, beside the total
 PATH_LAUNCHES = {"wgmma": 0, "mma": 0, "simt": 0}
@@ -17,10 +17,10 @@ _PATH_CODE = {"simt": 0, "mma": 1, "wgmma": 2}
 
 def kernel_path(q: torch.Tensor) -> str:
     """Which body of the kernel q's dtype and width take: "wgmma" (bf16,
-    d ∈ {64, 128}: Hopper warpgroup tensor cores fed by TMA), "mma" (bf16,
-    d ∈ {16, 32}: mma.sync tensor cores) or "simt" (f32 FMA: f32, or any
-    other d ≤ 128)."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128):
+    d ∈ {64, 128, 256}: Hopper warpgroup tensor cores fed by TMA; key tiles
+    of 64 at d = 256, of 128 below), "mma" (bf16, d ∈ {16, 32}: mma.sync
+    tensor cores) or "simt" (f32 FMA: f32, or any other d ≤ MAX_D)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128, 256):
         return "wgmma"
     if q.dtype == torch.bfloat16 and q.shape[-1] in (16, 32):
         return "mma"

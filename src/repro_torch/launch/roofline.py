@@ -13,7 +13,7 @@ The constants are the H100 SXM data sheet's peaks, not measurements: bf16
 dense tensor-core FLOP/s, HBM3 bytes/s, and one direction of NVLink 4 (the
 chip-to-chip link, in the reference's ICI's place). ``chip_smoke.py`` takes
 its bounds from the same figures. ``analytic_flops`` covers the LM
-families the port has (dense, moe, ssm); the others raise, as the port does
+families the port has (dense, moe, ssm, hybrid); the others raise, as the port does
 not carry them yet (ROADMAP Queue A 11).
 """
 from __future__ import annotations
@@ -41,7 +41,7 @@ __all__ = [
     "TF32_FLOPS",
 ]
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -134,8 +134,8 @@ def count_params(tree) -> int:
 def _check_family(cfg) -> None:
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
-            f"analytic FLOPs of the {cfg.family!r} family: the port carries dense, moe and "
-            "ssm models only (ROADMAP Queue A 11)")
+            f"analytic FLOPs of the {cfg.family!r} family: the port carries dense, moe, ssm "
+            "and hybrid models only (ROADMAP Queue A 11)")
 
 
 def active_param_fraction(cfg) -> float:
@@ -158,7 +158,8 @@ def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
     """(analytic_total, model_flops = 6·N_active·D) of a global step, the
     reference's convention: ``shape`` carries ``global_batch`` and
     ``seq_len``; ``kind`` is train, prefill or decode. analytic_total adds
-    the quadratic attention term of a dense or MoE model."""
+    the quadratic attention term of a dense or MoE model, and a hybrid's
+    over its attn layers with the keys capped at the window."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     embed_params = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
@@ -174,4 +175,8 @@ def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
     attn = 0.0
     if cfg.family in ("dense", "moe"):  # decode reads S keys for 1 query
         attn = passes * 2 * cfg.n_layers * tokens * S * cfg.n_heads * cfg.head_dim
+    elif cfg.family == "hybrid":
+        n_attn = sum(k == "attn" for k in (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+        eff = min(cfg.attn_window or S, S)
+        attn = passes * 2 * n_attn * tokens * eff * cfg.n_heads * cfg.head_dim
     return base + attn, passes * n_active * tokens

@@ -12,15 +12,17 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model, check_supported
+from repro_torch.models.transformer import Model, check_supported, hybrid_layout
 from repro_torch.train.state import TrainState
 
 
 def model_from_jax(cfg: ModelConfig, np_params: dict, device=None, *, train: bool = False,
                    remat: str = "none", xent_chunk: int = 512) -> Model:
     """``np_params`` = {"emb": {...}, "layers": {part: {leaf: (L, ...)}},
-    "ln_f": {...}} of the reference's ``build_model(cfg).init``. ``train``,
-    ``remat``, ``xent_chunk``: as ``build_model``'s."""
+    "ln_f": {...}} of the reference's ``build_model(cfg).init``; a hybrid's
+    {"emb", "groups": {"b0": {part: {leaf: (G, ...)}}, ...}, "tail": {"b0":
+    {part: {leaf}}, ...}, "ln_f"}. ``train``, ``remat``, ``xent_chunk``: as
+    ``build_model``'s."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -30,13 +32,18 @@ def model_from_jax(cfg: ModelConfig, np_params: dict, device=None, *, train: boo
             for k, v in tree.items()
         }
 
-    stacked = np_params["layers"]
-    tree = {
-        "emb": tensors(np_params["emb"]),
-        "layers": [{part: tensors(leaves, i) for part, leaves in stacked.items()}
-                   for i in range(cfg.n_layers)],
-        "ln_f": tensors(np_params["ln_f"]),
-    }
+    def layer(parts: dict, index=None) -> dict:
+        return {part: tensors(leaves, index) for part, leaves in parts.items()}
+
+    if cfg.family == "hybrid":
+        plen, n_groups, n_tail = hybrid_layout(cfg)
+        groups, tail = np_params.get("groups", {}), np_params.get("tail", {})
+        layers = [layer(groups[f"b{b}"], g) for g in range(n_groups) for b in range(plen)]
+        layers += [layer(tail[f"b{b}"]) for b in range(n_tail)]
+    else:
+        layers = [layer(np_params["layers"], i) for i in range(cfg.n_layers)]
+    tree = {"emb": tensors(np_params["emb"]), "layers": layers,
+            "ln_f": tensors(np_params["ln_f"])}
     return Model(cfg, tree, train=train, remat=remat, xent_chunk=xent_chunk)
 
 

@@ -1,7 +1,7 @@
 """Layers of the decoder LMs the port serves and trains
 (``repro/models/layers.py``).
 
-The subset the dense (GQA and MLA), MoE and SSM families need. Each
+The subset the dense (GQA and MLA), MoE, SSM and hybrid families need. Each
 function keeps the reference's name, argument order and weight layout
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so a test feeds both the same
 numbers. Parameters are mappings of tensors; the init functions take an
@@ -14,17 +14,26 @@ masters.
 
 Attention routes as follows:
 
-- no cache (training): ``_sdpa`` under ``causal_mask``, or
-  ``blocked_causal_attention`` when ``cfg.prefill_flash_block`` > 0 and S
-  exceeds it, both plain PyTorch as in the reference (no Pallas kernel
-  computes either there), so autograd differentiates them;
-- prefill into an empty cache (S > 1, scalar ``pos == 0``): causal
-  attention over the fresh q/k/v through the flash-attention kernel, then
-  k/v are written into the cache. It is the function of ``_sdpa`` over the
-  cache with the ``kpos <= qpos`` mask, whose masked keys weigh exactly 0;
+- no cache (training): ``_sdpa`` under ``causal_mask`` (with a local
+  ``window``: its band, or ``local_attention_chunked`` when S exceeds it),
+  or ``blocked_causal_attention`` when ``cfg.prefill_flash_block`` > 0 and
+  S exceeds it, all plain PyTorch as in the reference (no Pallas kernel
+  computes them there), so autograd differentiates them;
+- prefill into an empty cache (S > 1, scalar ``pos == 0``; with a local
+  ``window``, S ≤ window): causal attention over the fresh q/k/v through the
+  flash-attention kernel, then k/v are written into the cache. It is the
+  function of ``_sdpa`` over the cache with the ``kpos <= qpos`` mask (a
+  ring cache's unwritten slots hold absolute positions < 0, and every key
+  lies inside the window), whose masked keys weigh exactly 0;
+- a ring cache (local attention, cache length == window) taking S ≥ window
+  tokens (but for a prefill from empty of exactly the window, which takes
+  the kernel): ``local_attention_chunked`` over the fresh q/k/v, then the last W
+  keys rolled into slots p % W, as the reference computes it in XLA (plain
+  PyTorch: no Pallas kernel computes windowed attention there);
 - chunked prefill (S > 1, scalar ``pos > 0``) and decode (S == 1, scalar or
   per-slot ``pos``): plain PyTorch mirroring ``_sdpa`` over the cache with
-  the offset mask and ``_vector_pos_decode``; no TPU kernel computes them;
+  the offset (and window, or ring-slot) mask and ``_vector_pos_decode``; no
+  TPU kernel computes them;
 - anything else raises ``NotImplementedError`` naming the ROADMAP item.
 
 MLA (``mla_apply``) is plain PyTorch on every path, as the reference's
@@ -55,7 +64,7 @@ Params = dict
 # parameters the reference uses in float32; every other one it casts to the
 # activation dtype at each use
 F32_PARAMS = frozenset({"scale", "bias", "A_log", "dt_bias", "norm_scale", "q_norm",
-                        "kv_norm"})
+                        "kv_norm", "lam"})
 
 
 def param_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
@@ -212,13 +221,56 @@ def blocked_causal_attention(q, k, v, block: int = 1024, logits_softcap: float =
     return torch.cat(outs, 1).reshape(B, S + pad, H, hd)[:, :S]
 
 
-def _vector_pos_decode(params, q, k, v, cache, cfg):
+def local_attention_chunked(q, k, v, window: int, logits_softcap: float = 0.0):
+    """Banded (local) causal attention without the S×S score matrix.
+
+    Splits S into window-sized chunks; chunk i attends to chunks i−1 and i
+    with the exact band mask: peak score memory W×2W per chunk instead of
+    S×S. A loop over the chunks (the reference's scan).
+    """
+    B, S, H, hd = q.shape
+    W = window
+    KV = k.shape[2]
+    pad = (-S) % W
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad, H, hd))], 1)
+        k = torch.cat([k, k.new_zeros((B, pad, KV, hd))], 1)
+        v = torch.cat([v, v.new_zeros((B, pad, KV, hd))], 1)
+    nc = (S + pad) // W
+    qc = q.reshape(B, nc, W, H, hd)
+    kc = k.reshape(B, nc, W, KV, hd)
+    vc = v.reshape(B, nc, W, KV, hd)
+    # key j (offset j − W from the chunk start) is visible to query i iff
+    # 0 ≤ i − (j − W) < W; chunk 0 has no predecessor
+    qpos = torch.arange(W, device=q.device)[:, None]
+    kpos = torch.arange(2 * W, device=q.device)[None, :] - W
+    band = (kpos <= qpos) & (kpos > qpos - W)
+    outs = []
+    for c in range(nc):
+        kp = kc[:, c - 1] if c else torch.zeros_like(kc[:, 0])
+        vp = vc[:, c - 1] if c else torch.zeros_like(vc[:, 0])
+        mask = band if c else band & (kpos >= 0)
+        outs.append(_sdpa(qc[:, c], torch.cat([kp, kc[:, c]], 1), torch.cat([vp, vc[:, c]], 1),
+                          mask, logits_softcap))
+    return torch.stack(outs, 1).reshape(B, S + pad, H, hd)[:, :S]
+
+
+def _ring_slot_positions(total: torch.Tensor, W: int) -> torch.Tensor:
+    """Absolute position held by each ring slot after ``total`` writes
+    (``total`` (...,) → (..., W)); slots not yet written hold positions < 0."""
+    i = torch.arange(W, device=total.device)
+    return total[..., None] - 1 - ((total[..., None] - 1 - i) % W)
+
+
+def _vector_pos_decode(params, q, k, v, cache, cfg, *, window: int = 0):
     """Single-token decode with per-row cache positions (continuous batching).
 
     q/k/v: (B, 1, H|KV, hd); cache['pos']: (B,) int32 on the cache's device.
-    Linear caches only (the ring cache waits with the hybrid family).
+    Linear caches (a write at pos_b, keys within ``window`` when it is set)
+    and ring caches (cache length == window > 0: a write at pos_b % W, the
+    mask from each slot's absolute position).
 
-    A row whose pos has run past the cache (a finished slot the engine
+    A row whose pos has run past a linear cache (a finished slot the engine
     keeps ticking until a new request takes it) writes nothing, as the
     reference's ``.at[rows, pos].set`` drops an out-of-range write: its
     index is clamped and the old entry written back.
@@ -228,21 +280,27 @@ def _vector_pos_decode(params, q, k, v, cache, cfg):
     K, V = cache["k"], cache["v"]
     L = K.shape[1]
     rows = torch.arange(B, device=K.device)
-    idx = pos.clamp(max=L - 1).long()
-    live = (pos < L)[:, None, None]
-    K[rows, idx] = torch.where(live, k[:, 0].to(K.dtype), K[rows, idx])
-    V[rows, idx] = torch.where(live, v[:, 0].to(V.dtype), V[rows, idx])
-    mask = torch.arange(L, device=K.device)[None, :] <= pos[:, None]
+    if window > 0 and L == window:
+        idx = (pos % window).long()
+        K[rows, idx] = k[:, 0].to(K.dtype)
+        V[rows, idx] = v[:, 0].to(V.dtype)
+        abs_pos = _ring_slot_positions(pos + 1, window)  # (B, W)
+        mask = ((abs_pos >= 0) & (abs_pos <= pos[:, None])
+                & (abs_pos > pos[:, None] - window))
+    else:
+        idx = pos.clamp(max=L - 1).long()
+        live = (pos < L)[:, None, None]
+        K[rows, idx] = torch.where(live, k[:, 0].to(K.dtype), K[rows, idx])
+        V[rows, idx] = torch.where(live, v[:, 0].to(V.dtype), V[rows, idx])
+        kpos = torch.arange(L, device=K.device)[None, :]
+        mask = kpos <= pos[:, None]
+        if window > 0:
+            mask &= kpos > pos[:, None] - window
     out = _sdpa(q, K.to(q.dtype), V.to(q.dtype), mask[:, None, None, :], cfg.logits_softcap)
     return out, {"k": K, "v": V, "pos": pos + 1}
 
 
-def _check_routable(cfg: ModelConfig, window: int, bidirectional: bool, use_rope: bool):
-    if window > 0:
-        raise NotImplementedError(
-            "local attention / ring cache: ROADMAP.md Queue A 14, hybrid with ring-cache "
-            "local attention (recurrentgemma)"
-        )
+def _check_routable(cfg: ModelConfig, bidirectional: bool, use_rope: bool):
     if bidirectional or not use_rope:
         raise NotImplementedError("encoder / rope-free attention: ROADMAP.md Queue A 14, encdec")
     if cfg.logits_softcap > 0:
@@ -265,9 +323,11 @@ def attention_apply(
     bidirectional: bool = False,
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, Params]:
-    """Returns (out, new_cache); cache = {'k', 'v', 'pos'} is a linear buffer,
-    None without a cache (training: new_cache is None)."""
-    _check_routable(cfg, window, bidirectional, use_rope)
+    """Returns (out, new_cache); cache = {'k', 'v', 'pos'} is a linear buffer
+    (global attention, or local with ``window`` > the cache's length) or a
+    ring buffer (local attention, cache length == ``window``), written in
+    place; None without a cache (training: new_cache is None)."""
+    _check_routable(cfg, bidirectional, use_rope)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"].to(x.dtype).reshape(d, H * hd)).reshape(B, S, H, hd)
@@ -277,10 +337,13 @@ def attention_apply(
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if cfg.prefill_flash_block and S > cfg.prefill_flash_block:
+        if window > 0 and S > window:
+            out = local_attention_chunked(q, k, v, window, cfg.logits_softcap)
+        elif cfg.prefill_flash_block and window == 0 and S > cfg.prefill_flash_block:
             out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, cfg.logits_softcap)
         else:
-            out = _sdpa(q, k, v, causal_mask(S, S, device=x.device), cfg.logits_softcap)
+            out = _sdpa(q, k, v, causal_mask(S, S, 0, window, device=x.device),
+                        cfg.logits_softcap)
         new_cache = None
     elif cache["pos"].ndim == 1:
         if S != 1:
@@ -288,23 +351,46 @@ def attention_apply(
                 "multi-token steps with per-slot positions: the reference has no such path "
                 "(ROADMAP.md Queue A, not ported by design)"
             )
-        out, new_cache = _vector_pos_decode(params, q, k, v, cache, cfg)
+        out, new_cache = _vector_pos_decode(params, q, k, v, cache, cfg, window=window)
     else:
         pos = cache["pos"]
         p = int(pos)
         K, V = cache["k"], cache["v"]
-        if p + S > K.shape[1]:
-            raise ValueError(f"cache of {K.shape[1]} positions cannot take {S} more at {p}")
-        K[:, p:p + S] = k.to(K.dtype)
-        V[:, p:p + S] = v.to(V.dtype)
-        if S > 1 and p == 0:
-            out = flash_attention(q, k, v, causal=True)
+        T = K.shape[1]
+        ring = window > 0 and T == window
+        if ring and S >= window and not (p == 0 and S == window):
+            # a ring cache taking at least a window: local attention over
+            # the fresh tokens, then the last W keys at slots (p + i) % W
+            # (from p > 0 the reference too attends only the fresh keys)
+            out = local_attention_chunked(q, k, v, window, cfg.logits_softcap)
+            shift = (p + S) % window  # the slot of tail element 0 is (p + S − W) % W
+            K.copy_(torch.roll(k[:, -window:].to(K.dtype), shift, 1))
+            V.copy_(torch.roll(v[:, -window:].to(V.dtype), shift, 1))
+        elif ring:
+            # writes at slots (p + i) % W, masked by each slot's absolute position
+            slots = (p + torch.arange(S, device=K.device)) % window
+            K[:, slots] = k.to(K.dtype)
+            V[:, slots] = v.to(V.dtype)
+            if S > 1 and p == 0:
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                abs_pos = _ring_slot_positions(pos.to(K.device) + S, window)[None, :]
+                qpos = p + torch.arange(S, device=K.device)[:, None]
+                mask = (abs_pos >= 0) & (abs_pos <= qpos) & (abs_pos > qpos - window)
+                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
         else:
-            # decode, or chunked prefill into a non-empty cache: the cache up
-            # to each query's position (here the reference's prefill_flash_block
-            # branch would attend only the fresh keys)
-            mask = causal_mask(S, K.shape[1], p, device=K.device)
-            out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
+            if p + S > T:
+                raise ValueError(f"cache of {T} positions cannot take {S} more at {p}")
+            K[:, p:p + S] = k.to(K.dtype)
+            V[:, p:p + S] = v.to(V.dtype)
+            if S > 1 and p == 0:
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                # decode, or chunked prefill into a non-empty cache: the cache
+                # up to each query's position (here the reference's
+                # prefill_flash_block branch would attend only the fresh keys)
+                mask = causal_mask(S, T, p, window, device=K.device)
+                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
         new_cache = {"k": K, "v": V, "pos": pos + S}
     return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype).reshape(H * hd, d), new_cache
 

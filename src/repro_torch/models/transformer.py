@@ -1,5 +1,7 @@
 """Decoder-LM assembly (``repro/models/transformer.py``) for the families the
-port serves and trains: dense (GQA or MLA attention), MoE and SSM (mamba2).
+port serves and trains: dense (GQA or MLA attention), MoE, SSM (mamba2) and
+the hybrid (recurrentgemma: super-blocks of ``cfg.block_pattern``, RG-LRU
+and local-attention blocks each with an MLP).
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` that holds
 its weights and keeps the reference's entry points:
@@ -19,11 +21,15 @@ reference's layout: the layers stacked on a leading axis, so
 ``param_tree()`` is the reference's parameter tree (its flatten order, its
 checkpoint leaf names, adafactor's factored axes). Each forward casts the
 stacked leaves to the activation dtype once and unbinds them into
-per-layer views; autograd stacks the per-layer gradients back.
+per-layer views; autograd stacks the per-layer gradients back. The
+hybrid's rec and attn blocks hold different leaves, so its masters are
+stacked over the groups per block position of the pattern (``groups`` →
+``b0``, ``b1``, ...), with the blocks of the last, partial group
+unstacked (``tail``), as the reference's tree is.
 
 The layer stack is a Python loop (the reference's ``lax.scan``). ``remat``
-(training): "full" recomputes each layer in the backward pass
-(``torch.utils.checkpoint``), "dots" saves only each layer's matrix
+(training): "full" recomputes each layer (the hybrid: each group) in the
+backward pass (``torch.utils.checkpoint``), "dots" saves only its matrix
 products and recomputes the rest (a selective checkpoint, the reference's
 ``checkpoint_dots_with_no_batch_dims``).
 """
@@ -38,6 +44,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
@@ -46,7 +53,6 @@ REMAT = ("none", "full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 UNPORTED_FAMILIES = {
-    "hybrid": "ROADMAP.md Queue A 14: hybrid with ring-cache local attention (recurrentgemma)",
     "encdec": "ROADMAP.md Queue A 14: encdec (whisper)",
 }
 
@@ -59,6 +65,14 @@ def _params(tree: dict, cfg: ModelConfig) -> nn.ParameterDict:
 
 def _masters(tree: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v.float()) for k, v in tree.items()})
+
+
+def _stacked_masters(layers: list) -> nn.ModuleDict:
+    """Float32 masters of ``layers`` (alike), each leaf stacked on a leading axis."""
+    return nn.ModuleDict({
+        part: _masters({k: torch.stack([lp[part][k] for lp in layers]) for k in leaves})
+        for part, leaves in layers[0].items()
+    })
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -79,7 +93,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not carry yet."""
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {UNPORTED_FAMILIES[cfg.family]}")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
     if cfg.attn_type not in ("gqa", "mla"):
         raise ValueError(f"unknown attention type {cfg.attn_type}")
@@ -87,12 +101,22 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.modality} prefix: ROADMAP.md Queue A 14, vision prefix")
 
 
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(pattern length, groups, tail blocks) of a hybrid config: layer i is
+    block i % plen of group i // plen, the last ``n_tail`` layers the
+    unstacked tail."""
+    plen = len(cfg.block_pattern)
+    n_groups, n_tail = divmod(cfg.n_layers, plen)
+    return plen, n_groups, n_tail
+
+
 class Model(nn.Module):
-    """A decoder LM of the dense, MoE or SSM family with its weights.
+    """A decoder LM of the dense, MoE, SSM or hybrid family with its weights.
 
     ``tree`` holds the parameters in the reference's layout, per layer:
     ``{"emb": {...}, "layers": [{"ln_attn": {...}, "attn": {...}, ...}, ...],
-    "ln_f": {...}}``.
+    "ln_f": {...}}`` (a hybrid's layers ``{"ln_mix", "mix", "ln_mlp",
+    "mlp"}`` in layer order, the kind of layer i ``block_pattern[i % plen]``).
     """
 
     def __init__(self, cfg: ModelConfig, tree: dict, *, train: bool = False,
@@ -114,13 +138,23 @@ class Model(nn.Module):
         self.xent_chunk = xent_chunk
         # a layers.DropCounter here counts the MoE pairs dropped at capacity
         self.drop_counter = None
-        if train:
+        if train and cfg.family == "hybrid":
+            plen, n_groups, n_tail = hybrid_layout(cfg)
+            layers = tree["layers"]
             self.emb = _masters(tree["emb"])
             self.stack = nn.ModuleDict({
-                part: _masters({k: torch.stack([lp[part][k] for lp in tree["layers"]])
-                                for k in leaves})
-                for part, leaves in tree["layers"][0].items()
+                f"b{b}": _stacked_masters(layers[b:n_groups * plen:plen])
+                for b in range(plen) if n_groups
             })
+            self.tail = nn.ModuleDict({
+                f"b{b}": nn.ModuleDict({part: _masters(leaves)
+                                        for part, leaves in layers[n_groups * plen + b].items()})
+                for b in range(n_tail)
+            })
+            self.ln_f = _masters(tree["ln_f"])
+        elif train:
+            self.emb = _masters(tree["emb"])
+            self.stack = _stacked_masters(tree["layers"])
             self.ln_f = _masters(tree["ln_f"])
         else:
             self.emb = _params(tree["emb"], cfg)
@@ -133,10 +167,22 @@ class Model(nn.Module):
 
     def param_tree(self) -> dict:
         """A training model's float32 masters as the reference's parameter
-        tree: ``{"emb": {...}, "layers": {part: {leaf: (L, ...)}}, "ln_f": {...}}``
-        (the tensors themselves: an optimizer step updates them in place)."""
+        tree: ``{"emb": {...}, "layers": {part: {leaf: (L, ...)}}, "ln_f": {...}}``,
+        a hybrid's ``{"emb", "groups": {"b0": {part: {leaf: (G, ...)}}, ...},
+        "tail": {"b0": {part: {leaf}}, ...}, "ln_f"}`` (the tensors themselves:
+        an optimizer step updates them in place)."""
         if not self.trainable:
             raise ValueError("a serving model has no training masters: build it with train=True")
+        if self.cfg.family == "hybrid":
+            def parts(md):
+                return {part: dict(pd.items()) for part, pd in md.items()}
+
+            tree = {"emb": dict(self.emb.items()),
+                    "groups": {b: parts(md) for b, md in self.stack.items()},
+                    "ln_f": dict(self.ln_f.items())}
+            if len(self.tail):
+                tree["tail"] = {b: parts(md) for b, md in self.tail.items()}
+            return tree
         return {"emb": dict(self.emb.items()),
                 "layers": {part: dict(pd.items()) for part, pd in self.stack.items()},
                 "ln_f": dict(self.ln_f.items())}
@@ -152,19 +198,21 @@ class Model(nn.Module):
         cfg = self.cfg
         x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), cfg, self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        layer = functools.partial(self._layer, positions=positions)
-        if self.remat == "full":
-            layer = functools.partial(ckpt.checkpoint, layer, use_reentrant=False)
-        elif self.remat == "dots":
-            layer = functools.partial(
-                ckpt.checkpoint, layer, use_reentrant=False,
-                context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                             _save_dots))
         aux = torch.zeros((), device=x.device)
-        for lp in self._layer_params():
-            x, a = layer(x, lp)
-            if a is not None:
-                aux = aux + a
+        if cfg.family == "hybrid":
+            # remat per group, as the reference's scan body; the tail plain
+            plen, n_groups, _ = hybrid_layout(cfg)
+            lps = self._layer_params()
+            group = self._remat(functools.partial(self._hybrid_blocks, positions=positions))
+            for g in range(n_groups):
+                x = group(x, lps[g * plen:(g + 1) * plen])
+            x = self._hybrid_blocks(x, lps[n_groups * plen:], positions)
+        else:
+            layer = self._remat(functools.partial(self._layer, positions=positions))
+            for lp in self._layer_params():
+                x, a = layer(x, lp)
+                if a is not None:
+                    aux = aux + a
         x = L.apply_norm(self.ln_f, x, cfg.norm_type)
         table = self.emb["unembed"] if "unembed" in self.emb else self.emb["embed"]
         weights = batch.get("weights")
@@ -172,12 +220,14 @@ class Model(nn.Module):
                    else to_tensor(weights, torch.float32, x.device))
         ce = L.chunked_xent_weighted(x, table, self._tokens(batch["labels"]), weights,
                                      chunk=self.xent_chunk)
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             return ce, {"ce": ce, "aux": aux}
         loss = ce + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
         return loss, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        if self.cfg.family == "hybrid":
+            return self._hybrid_cache(batch, max_len)
         if self.cfg.family == "ssm":
             return SSM.init_ssd_cache(self.cfg, batch, self.cfg.n_layers, device=self.device)
         if self.cfg.attn_type == "mla":
@@ -198,6 +248,30 @@ class Model(nn.Module):
         x, cache = self._run_with_cache(x, cache)
         return L.logits_from_hidden(self.emb, x, self.cfg), cache
 
+    def _hybrid_cache(self, batch: int, max_len: int) -> dict:
+        """The reference's nested layout: ``{"groups": {"b0": {...}, ...},
+        "tail": {...}, "pos"}``, group leaves stacked (n_groups, B, ...), tail
+        leaves (B, ...); an attn block's cache holds min(window, max_len)
+        positions (a ring when the window is the shorter)."""
+        cfg = self.cfg
+        plen, n_groups, n_tail = hybrid_layout(cfg)
+        length = min(cfg.attn_window or max_len, max_len)
+
+        def block(kind: str, n: int) -> dict:
+            if kind == "rec":
+                c = RG.init_rglru_cache(cfg, batch, n, self.device)
+            else:
+                c = L.init_kv_cache(cfg, batch, length, n, self.dtype, self.device)
+            return {k: v for k, v in c.items() if k != "pos"}
+
+        cache = {"groups": {f"b{b}": block(kind, n_groups)
+                            for b, kind in enumerate(cfg.block_pattern)}}
+        if n_tail:
+            cache["tail"] = {f"b{b}": {k: v[0] for k, v in block(kind, 1).items()}
+                             for b, kind in enumerate(cfg.block_pattern[:n_tail])}
+        cache["pos"] = torch.zeros((), dtype=torch.int32)
+        return cache
+
     # ------------------------------------------------------------------ stack
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -206,15 +280,58 @@ class Model(nn.Module):
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
 
     def _layer_params(self) -> list[dict]:
-        """Each layer's parameters, {part: {leaf: tensor}}: a serving model's
-        own, or views of a training model's stacked masters cast once to the
-        dtype each is used in."""
+        """Each layer's parameters, {part: {leaf: tensor}}, in layer order: a
+        serving model's own, or views of a training model's stacked masters
+        cast once to the dtype each is used in."""
         if not self.trainable:
             return [dict(layer.named_children()) for layer in self.layers]
-        views = {part: {k: v.to(L.param_dtype(k, self.cfg)).unbind(0) for k, v in pd.items()}
-                 for part, pd in self.stack.items()}
-        return [{part: {k: vs[i] for k, vs in leaves.items()} for part, leaves in views.items()}
-                for i in range(self.cfg.n_layers)]
+
+        def views(stack: nn.ModuleDict, n: int) -> list[dict]:
+            cast = {part: {k: v.to(L.param_dtype(k, self.cfg)).unbind(0) for k, v in pd.items()}
+                    for part, pd in stack.items()}
+            return [{part: {k: vs[i] for k, vs in leaves.items()}
+                     for part, leaves in cast.items()} for i in range(n)]
+
+        if self.cfg.family != "hybrid":
+            return views(self.stack, self.cfg.n_layers)
+        plen, n_groups, _ = hybrid_layout(self.cfg)
+        by_block = [views(self.stack[f"b{b}"], n_groups) for b in range(plen) if n_groups]
+        out = [by_block[b][g] for g in range(n_groups) for b in range(plen)]
+        for md in self.tail.values():
+            out.append({part: {k: v.to(L.param_dtype(k, self.cfg)) for k, v in pd.items()}
+                        for part, pd in md.items()})
+        return out
+
+    def _remat(self, fn):
+        """``fn`` under the model's ``remat`` policy (training)."""
+        if self.remat == "full":
+            return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        if self.remat == "dots":
+            return functools.partial(
+                ckpt.checkpoint, fn, use_reentrant=False,
+                context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots))
+        return fn
+
+    def _hybrid_block(self, kind: str, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cache=None):
+        """One hybrid block (the reference's ``_block_apply``): (x, new_cache)."""
+        cfg = self.cfg
+        h = L.apply_norm(lp["ln_mix"], x, cfg.norm_type)
+        if kind == "rec":
+            out, new_cache = RG.rglru_block_apply(lp["mix"], h, cfg, cache=cache)
+        else:
+            out, new_cache = L.attention_apply(lp["mix"], h, cfg, positions=positions,
+                                               cache=cache, window=cfg.attn_window)
+        x = x + out
+        h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache
+
+    def _hybrid_blocks(self, x: torch.Tensor, lps: list, positions: torch.Tensor):
+        """Blocks 0, 1, ... of the pattern without a cache (a group, or the tail)."""
+        for kind, lp in zip(self.cfg.block_pattern, lps):
+            x, _ = self._hybrid_block(kind, lp, x, positions)
+        return x
 
     def _layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor):
         """One layer without a cache (the training forward): (x, aux), aux
@@ -249,16 +366,26 @@ class Model(nn.Module):
 
     def _run_with_cache(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
         cfg, pos, S = self.cfg, cache["pos"], x.shape[1]
-        if cfg.family == "ssm":
+        steps = torch.arange(S, device=self.device)
+        # scalar pos → (S,) positions; per-slot vector pos → (B, S)
+        positions = pos[:, None] + steps if pos.ndim == 1 else steps + int(pos)
+        if cfg.family == "hybrid":
+            plen, n_groups, _ = hybrid_layout(cfg)
+            for i, lp in enumerate(self._layer_params()):
+                g, b = divmod(i, plen)
+                if g < n_groups:  # views of the group-stacked leaves, written in place
+                    lc = {k: v[g] for k, v in cache["groups"][f"b{b}"].items()}
+                else:
+                    lc = dict(cache["tail"][f"b{b}"])
+                x, _ = self._hybrid_block(cfg.block_pattern[b], lp, x, positions,
+                                          dict(lc, pos=pos))
+        elif cfg.family == "ssm":
             for i, lp in enumerate(self._layer_params()):
                 lc = {"conv": cache["conv"][i], "state": cache["state"][i], "pos": pos}
                 out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg,
                                        cache=lc)
                 x = x + out
         else:
-            steps = torch.arange(S, device=self.device)
-            # scalar pos → (S,) positions; per-slot vector pos → (B, S)
-            positions = pos[:, None] + steps if pos.ndim == 1 else steps + int(pos)
             for i, lp in enumerate(self._layer_params()):
                 lc = {k: v[i] for k, v in cache.items() if k != "pos"}
                 x, _, _ = self._lm_layer(lp, x, positions, dict(lc, pos=pos))
@@ -279,8 +406,15 @@ def _init_tree(cfg: ModelConfig, generator: torch.Generator, cast: bool = False)
         return {k: v.to(L.param_dtype(k, cfg)) for k, v in tree.items()} if cast else tree
 
     tree = {"emb": part(L.init_embeddings(g, cfg)), "layers": []}
-    for _ in range(cfg.n_layers):
-        if cfg.family == "ssm":
+    for i in range(cfg.n_layers):
+        if cfg.family == "hybrid":
+            kind = cfg.block_pattern[i % len(cfg.block_pattern)]
+            lp = {"ln_mix": part(L.init_norm(cfg, g.device)),
+                  "ln_mlp": part(L.init_norm(cfg, g.device)),
+                  "mix": part(RG.init_rglru_block(g, cfg) if kind == "rec"
+                              else L.init_attention(g, cfg)),
+                  "mlp": part(L.init_mlp(g, cfg))}
+        elif cfg.family == "ssm":
             lp = {"ln": part(L.init_norm(cfg, g.device)), "ssd": part(SSM.init_ssd(g, cfg))}
         else:
             lp = {"ln_attn": part(L.init_norm(cfg, g.device)),

@@ -157,10 +157,11 @@ class ServeEngine:
 
 
 def _scatter_slot(batched_cache: dict, one_cache: dict, slot: int) -> dict:
-    """Write a 1-slot cache into slot `slot` of the batched cache (in place).
+    """Write a 1-slot cache into slot `slot` of the batched cache (in place),
+    leaf by leaf through nested dicts (the hybrid's groups and tail).
 
     Layout contract: leaves with a leading layer axis carry batch at axis 1;
-    unstacked leaves carry batch at axis 0; scalar 'pos' merges by max
+    unstacked leaves (hybrid tail blocks) carry batch at axis 0; scalar 'pos' merges by max
     (per-slot positions tracked host-side; correctness for mixed-length
     decode comes from each slot's own attention mask built from cache
     contents — valid because shorter slots' future lanes hold zeros and are
@@ -171,7 +172,9 @@ def _scatter_slot(batched_cache: dict, one_cache: dict, slot: int) -> dict:
     out = dict(batched_cache)
     for key, o in one_cache.items():
         b = batched_cache[key]
-        if o.ndim == 0:  # 'pos' from the 1-slot cache
+        if isinstance(o, dict):
+            out[key] = _scatter_slot(b, o, slot)
+        elif o.ndim == 0:  # 'pos' from the 1-slot cache
             if b.ndim == 0:
                 out[key] = torch.maximum(b, o)  # legacy shared-scalar pos
             else:

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
+
 from repro_torch.analysis import (  # noqa: E402
     MaterializationBudget,
     ProgramSpec,
@@ -24,16 +26,6 @@ from repro_torch.analysis.violations import VIOLATIONS, stacked_basis_data  # no
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASELINE = ROOT / "src" / "repro_torch" / "analysis" / "baseline.json"
 PORT_NAMES = sorted(s.name for s in all_programs())
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The traces are tiny: one intra-op thread keeps them fast under the
-    suite's workers."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _gate():

@@ -702,6 +702,15 @@ _FA_CASES = [
 ] + [
     (1, 130, 4, 4, 16, "bfloat16"), (2, 257, 4, 2, 32, "bfloat16"), (1, 64, 2, 1, 48, "bfloat16"),
     (1, 100, 4, 2, 8, "float32"), (2, 257, 4, 2, 128, "float32"),
+] + [
+    # d = 256: the wgmma body's 64-key tiles around its 128-row q tiles, at
+    # GQA ratio 1 and recurrentgemma's 10 heads on one KV head
+    (2 if S == 777 else 1, S, H, KV, 256, "bfloat16")
+    for H, KV in ((2, 2), (10, 1)) for S in (1, 63, 64, 65, 129, 777, 1024)
+] + [
+    # past d = 128 on the f32-FMA body (four threads a row, 16-key tiles)
+    (B, S, H, KV, d, dtype) for d in (160, 256) for dtype in ("bfloat16", "float32")
+    if (d, dtype) != (256, "bfloat16") for B, S, H, KV in ((1, 1, 2, 1), (2, 130, 4, 2), (1, 257, 10, 1))
 ]
 
 
@@ -715,7 +724,7 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
     qkv = torch.randn(B, S, H + 2 * KV, d, generator=g).to(dev, getattr(torch, dtype))
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
     path = ops.kernel_path(q)
-    assert path == {64: "wgmma", 128: "wgmma", 16: "mma", 32: "mma"}.get(
+    assert path == {64: "wgmma", 128: "wgmma", 256: "wgmma", 16: "mma", 32: "mma"}.get(
         d if dtype == "bfloat16" else 0, "simt")
     before, before_path = ops.LAUNCHES, ops.PATH_LAUNCHES[path]
     out = ops.flash_attention(q, k, v, causal=causal)
@@ -730,7 +739,7 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
         assert bool(((out.float() - o).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_attention_copies_misaligned_bf16_rows(dev, d):
     """A bf16 input off the 16-byte grid runs the same tensor-core body on
     an aligned copy: the same bits as the aligned input."""

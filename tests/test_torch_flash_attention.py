@@ -37,7 +37,8 @@ def _oracle(q, k, v, causal):
     return np.asarray(ref, np.float32).reshape(B, H, S, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("B,S,H,KV,d", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 8, 1, 64)])
+@pytest.mark.parametrize("B,S,H,KV,d", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64), (1, 512, 8, 1, 64),
+                                       (1, 128, 4, 1, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_ref_matches_pallas_kernel(B, S, H, KV, d, causal):
     q, k, v = _inputs(B, S, H, KV, d, S + H)

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
+
 import numpy as np  # noqa: E402
 
 from repro_torch.distributed import DataMesh, host_gather, init_mesh, kv_allreduce, run_world  # noqa: E402

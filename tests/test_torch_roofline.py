@@ -16,7 +16,8 @@ from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import roofline as TR  # noqa: E402
 
-ARCHS = ["tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b"]
+ARCHS = ["tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
+         "recurrentgemma_2b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -35,4 +36,4 @@ def test_active_share_and_analytic_flops_match_the_reference(arch):
 
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="Queue A 11"):
-        TR.active_param_fraction(get_config("tinyllama_1b").replace(family="hybrid"))
+        TR.active_param_fraction(get_config("tinyllama_1b").replace(family="encdec"))

@@ -206,7 +206,8 @@ def test_unported_parts_raise_not_implemented(what):
     maintainer's ``serve_engine=`` and ``drift_mesh=`` and
     ``drift_window_nll(mesh=)`` are ported now, and so are attention without
     a cache (training) and prefill into a non-empty cache (chunked
-    prefill), and so are MLA (minicpm3) and MoE (qwen2-moe, arctic): their
+    prefill), and so are MLA (minicpm3), MoE (qwen2-moe, arctic) and the
+    hybrid with local attention over a ring cache (recurrentgemma): their
     cases check that they are taken (``attention_apply`` stays the GQA path
     and refuses an MLA config, which goes through ``mla_apply``)."""
     from repro_torch import configs
@@ -253,6 +254,33 @@ def test_unported_parts_raise_not_implemented(what):
             assert new_cache is None
         else:
             assert int(new_cache["pos"]) == 7
+        return
+    if what == "attention:local_window":
+        # ported: a decode step into a ring cache of the window's length
+        cfg = configs.get_reduced_config("tinyllama_1b").replace(dtype="float32")
+        model = build_model(cfg, device="cpu")
+        from repro_torch.models import layers as L
+
+        lc = {"k": torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim),
+              "v": torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim),
+              "pos": torch.tensor(11, dtype=torch.int32)}
+        x = torch.ones(1, 1, cfg.d_model)
+        out, new_cache = L.attention_apply(model.layers[0].attn, x, cfg,
+                                           positions=torch.arange(11, 12), cache=lc, window=8)
+        assert out.shape == (1, 1, cfg.d_model) and torch.isfinite(out).all()
+        assert int(new_cache["pos"]) == 12 and bool(new_cache["k"][0, 11 % 8].abs().sum() > 0)
+        return
+    if what in ("reduced:recurrentgemma_2b", "family:hybrid"):
+        # ported: the hybrid builds, and a prefill and a decode through its
+        # rec and local-attention blocks give finite logits
+        cfg = configs.get_reduced_config("recurrentgemma_2b")
+        assert cfg.family == "hybrid"
+        model = build_model(cfg, device="cpu")
+        cache = model.init_cache(1, 16)
+        logits, cache = model.prefill({"tokens": np.arange(5)[None]}, cache)
+        logits2, cache = model.decode_step(np.asarray([[3]]), cache)
+        assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+        assert int(cache["pos"]) == 6 and sorted(cache) == ["groups", "pos", "tail"]
         return
     if what in ("reduced:minicpm3_4b", "reduced:arctic_480b", "family:moe"):
         # ported: the reduced config builds, and a prefill and a decode

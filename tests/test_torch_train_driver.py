@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
+
 import numpy as np  # noqa: E402
 
 from repro_torch import ft  # noqa: E402
@@ -15,20 +17,11 @@ from repro_torch.launch import train  # noqa: E402
 ARGV = ["--device", "cpu", "--reduced", "--steps", "8", "--log-every", "0"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The reduced models' ops are tiny: intra-op threads only contend with
-    the suite's other workers (a step takes 30–60× longer with them)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("arch,coreset", [("tinyllama-1.1b", "l2-hull"),
                                           ("mamba2-370m", "uniform"),
                                           ("tinyllama-1.1b", "none"),
-                                          ("qwen2-moe-a2.7b", "l2-hull")])
+                                          ("qwen2-moe-a2.7b", "l2-hull"),
+                                          ("recurrentgemma-2b", "l2-hull")])
 def test_driver_losses_fall(arch, coreset):
     rec = train.main(ARGV + ["--arch", arch, "--coreset", coreset])
     losses = np.asarray(rec["losses"])

@@ -5,6 +5,7 @@ and returns what the parent compares. Spawned ranks import this module, so
 it imports the port alone, never the JAX package: a rank starts in about a
 second."""
 import copy
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -24,6 +25,12 @@ from repro_torch.distributed import run_world
 N, CHUNK, HULL_K, SK = 1003, 64, 20, 256
 WORLDS = (2, 4)
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+
+# A spawned rank imports this module in a process of its own: pin it to one
+# intra-op thread, as the test files pin theirs (tests/torch_threads.py), so
+# the ranks of a world and the suite's workers do not contend for the CPUs.
+if multiprocessing.parent_process() is not None:
+    torch.set_num_threads(1)
 
 
 def run_reference_and_worlds(script: str, path: str, body, inp, worlds=WORLDS):

@@ -13,18 +13,9 @@ from repro.models import build_model as jax_build
 from repro_torch.configs import get_reduced_config
 from repro_torch.models import model_from_jax
 from repro_torch.train.trainer import loss_and_grads
+from torch_threads import one_thread  # noqa: F401
 
 REL = {"float32": 1e-5, "bfloat16": 4e-2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The reduced models' ops are tiny: torch's intra-op threads only
-    contend with the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, ref, rel, what):
