@@ -3,9 +3,12 @@ NVIDIA H100: builds the kernels from this checkout's sources, holds each
 kernel against its plain PyTorch version at its path's shapes, drives the
 Algorithm 1 path end to end through ``repro_torch.launch.train_mctm``
 (two-pass, then one-pass), the LM serving path through ``ServeEngine``
-(tinyllama-1.1b, mamba2-370m, minicpm3-4b, qwen2-moe-a2.7b, arctic-480b)
-and the LM training path through ``repro_torch.launch.train`` at full
-width, and checks that every kernel of each path ran.
+(tinyllama-1.1b, mamba2-370m, minicpm3-4b, qwen2-moe-a2.7b, arctic-480b,
+recurrentgemma-2b, olmo-1b, gemma-2b) and through the models' own entry
+points (phi-3-vision-4.2b with its patch prefix, whisper-medium's
+encoder-decoder), and the LM training path through
+``repro_torch.launch.train`` at full width, and checks that every kernel
+of each path ran.
 
     python3 chip_smoke.py
 
@@ -39,8 +42,10 @@ Phases (any failure exits nonzero):
      (ε-kernel k = 400, a 64-step greedy projection: 65 wide launches);
      flash_attention's wgmma body at d = 128 at the MoE models' prefill
      shapes (qwen2-moe (1, 1,024, 16, 128), KV 16; arctic 56 heads, KV 8),
-     bf16 within 3e-2 of its plain version, timed in turns with SDPA
-     (events, device time, bound);
+     at d = 256 at recurrentgemma's, at d = 96 on the f32-FMA body at
+     phi-3-vision's prefill (1, 1,280, 32, 96) and non-causal at whisper's
+     encoder (4, 1,500, 16, 64), bf16 within 3e-2 of its plain version,
+     timed in turns with SDPA (events, device time, bound);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, 250 steps at lr 0.05): two-pass with the
      driver's default full-data fit, the streaming lbfgs (gtol 1e-5; its time,
@@ -68,9 +73,18 @@ Phases (any failure exits nonzero):
      for prefill and decode); then, with ``torch.profiler``, the device's busy
      time and idle share over one 1,024-token prefill (with the kernel's
      share of its device time) and over 3 batched decode ticks;
-     tinyllama's, qwen2-moe's and arctic's prefills must all take
-     flash_attention's wgmma body and mamba2's all take ssd's mma body (their
-     own launch counters), minicpm3's none (its MLA is plain PyTorch);
+     tinyllama's, qwen2-moe's, arctic's, recurrentgemma's, olmo's and
+     gemma's prefills must all take flash_attention's wgmma body and
+     mamba2's all take ssd's mma body (their own launch counters), minicpm3's
+     none (its MLA is plain PyTorch); then phi-3-vision and whisper-medium at
+     published width and depth through their own prefill and decode_step (4
+     requests in one batched prefill: 256 stub patches and 1,024 prompt
+     tokens, or 1,500 stub frames and a 4-token prompt; 32 greedy tokens
+     each), held to a teacher-forced run of each request alone (whisper's
+     the no-cache ``decode_hidden``), phi-3-vision's prefill one simt launch
+     a layer, whisper's 24 non-causal and 24 causal wgmma launches; the
+     reduced models and a soft-capped reduced gemma-2b (no flash_attention
+     launch) on the card against the CPU before them;
   6. the paper's core beyond Algorithm 1's path (it runs after phase 4,
      but for gram and the sweep at the conditional width D = 16, the sweep
      held to its plain version, which run beside phase 2): the conditional Algorithm 1 at n = 250,001 (J = 2,
@@ -83,7 +97,7 @@ Phases (any failure exits nonzero):
      each against float64 of its features, with a TF32-Gram control; the
      build's hull overlap; adam and lbfgs fits); the paper's Table 1
      workflow through ``evaluate_coreset`` (normal_mixture, n = 10,000,
-     700-step adam fits, k = 30 and 100, five methods; l2-hull at k = 100
+     350-step adam fits, k = 30 and 100, five methods; l2-hull at k = 100
      held against the CPU); and the standalone API at the path's width:
      the five leverage variants against float64 (relative, each beside a
      TF32-Gram or bf16 control the limit must reject),
@@ -98,9 +112,9 @@ Phases (any failure exits nonzero):
      hull rows and Gram equal to the uninterrupted build's bits, with the
      checkpointed build's time and bytes beside the plain build's; adam (250
      steps, a checkpoint every 50, crashes at step 120 and at the step-200
-     save) and lbfgs (a crash at step 30) on the k = 2,000 coreset recovered
+     save) and lbfgs (100 steps, a crash at step 30) on the k = 2,000 coreset recovered
      to the straight run's bits, two straight runs first held to each
-     other; the finiteness read's cost in turns; a NaN-weighted fit aborting
+     other; the finiteness read's cost in turns (25-step full fits); a NaN-weighted fit aborting
      with the supervisor's diagnostic; and the driver's drill
      (``train_mctm --inject-failures --n 50001 --ks 500 --steps 250``: three
      injections recovered, the ratio in its band);
@@ -125,7 +139,7 @@ Phases (any failure exits nonzero):
      two-pass and one-pass, at D = 32 (launch/train.py's proxy: a 32,000 ×
      32 projection mean-pooled over 262,144 sequences of 64 ids, sketch
      4,096) and D = 2,048 (tinyllama-1.1b's embedding table pooled over
-     65,536 sequences of 256 ids, chunk 16,384, sketch 16,384): scores
+     32,768 sequences of 256 ids, chunk 16,384, sketch 16,384): scores
      against float64 of the same features beside a TF32-Gram (two-pass) or
      bf16-feature (one-pass) control that must fail, the hull ids against
      the plain versions' selection on the card, Σ weights against n; the
@@ -133,7 +147,8 @@ Phases (any failure exits nonzero):
      modes) beside phase 3's adam full fit, with backup draws forced by a
      straggler deadline and a crash at step 120 recovered to the straight
      run's bits;
- 10. density serving: ``launch/serve_mctm.py`` at its defaults (captures
+ 10. density serving: ``launch/serve_mctm.py`` at its defaults but for 100
+     fit iterations in place of 200 (captures
      in warmup and after it, latency per kind, queries/s, the refit's
      build, fit and publish times; no dropped or mixed-version answer, each
      log density within 1e-4 of ``mctm.log_density`` of its version), then
@@ -141,7 +156,7 @@ Phases (any failure exits nonzero):
      clean-then-shifted stream (6 clean, 8 shifted windows);
  11. the data mesh at the path's width (n = 250,001, k = 500 and 2000,
      two-pass and one-pass at sketch 784): an NCCL world of 1 gives the
-     single-device bits (builds, ``streamed_nll``, a 250-step adam fit);
+     single-device bits (builds, ``streamed_nll``, a 50-step adam fit);
      gloo worlds of 2 and 4 whose ranks share the card hold their
      f64-Gram scores to world 1's, their f32 ridge-lss scores to float64 of
      the same features (beside a TF32-Gram control at each world and a
@@ -149,27 +164,29 @@ Phases (any failure exits nonzero):
      coresets to the same bits on every rank and their collectives to one
      fold a sweep and one gather pair; a crashed segmented sweep at world
      2 resumes to the same bits; per-rank ``build_s`` and fold bytes;
- 12. LM training through ``launch/train.py``: tinyllama-1.1b and mamba2-370m
-     at their published widths and depths, minicpm3-4b at 20 of 62 layers
-     and qwen2-moe-a2.7b at 2 of 24 (depth cuts: a step's peak takes about
-     34 B a parameter on one card; qwen2-moe's router aux term finite and
-     > 0),
+ 12. LM training through ``launch/train.py``: tinyllama-1.1b, mamba2-370m,
+     olmo-1b (launch/train.py's default: no ``--arch``) and whisper-medium at
+     their published widths and depths, minicpm3-4b at 20 of 62 layers,
+     qwen2-moe-a2.7b at 2 of 24, recurrentgemma-2b at 11 of 26 and
+     phi-3-vision at 12 of 32 (depth cuts: a step's peak takes about 42 B a
+     parameter on one card; qwen2-moe's router aux term finite and > 0; the
+     stub patches and frames in every batch),
      bf16 activations and float32 masters (``--coreset l2-hull --coreset-k 512 --batch 8 --seq 64``, 30
      steps at lr 1e-3): finite losses, the last 5 steps' mean below the
      first 5's, no launch of flash_attention or ssd (training runs the plain
      attention and SSD scan, as the reference trains through its jnp twins)
      and gram and extremes launched in the coreset stage; step ms (median of
      steps 5–30), tokens/s, peak memory, the device's busy share over a
-     3-step profiler window, ``select_s``; ``examples/train_lm_coreset.py``'s
-     comparison at tinyllama's full width (k = 256 of 2,048 examples
+     1-step profiler window, ``select_s``; ``examples/train_lm_coreset.py``'s
+     comparison at tinyllama's full width (15 steps; k = 256 of 2,048 examples
      featurized by the mean of the embeddings, D = 2,048: gram's large body
      and the wide-P route; l2-hull against uniform from the same weights,
      the gap printed, no gate on its sign); a crash-and-resume drill on
-     mamba2-370m at 12 of its 48 layers (crashed at step 7 of 10, resumed
+     mamba2-370m at 4 of its 48 layers (crashed at step 7 of 10, resumed
      from step 5's checkpoint
-     to the straight run's bits); the reduced configs in f32, 5 steps on the
-     card and on the CPU from the same weights and batches, losses within
-     1e-4 relative;
+     to the straight run's bits); the reduced configs (gemma-2b's too) in
+     f32, 5 steps on the card and on the CPU from the same weights and
+     batches, losses within 1e-4 relative;
  13. the invariant auditor on the card (``repro_torch.analysis``): every
      registered program (the fit steps and oracles, the streamed and drift
      evaluators, the sharded sweeps of ``DistributedScoringEngine`` and their
@@ -1224,11 +1241,12 @@ COND_SCORE_RTOL = 8e-4
 # test's fixture)
 COND_HULL_COMMON_FLOOR = 0.8
 FIT_RTOL = 1e-4                # phase 3's card-vs-CPU fit gate
-TABLE1_N, TABLE1_STEPS, TABLE1_KS = 10_000, 700, (30, 100)   # benchmarks/table1_dgp.py
+# benchmarks/table1_dgp.py's n and k; its fits take 700 steps, cut to 350
+TABLE1_N, TABLE1_STEPS, TABLE1_KS = 10_000, 350, (30, 100)
 TABLE1_METHODS = ("l2-hull", "l2-only", "uniform", "ridge-lss", "root-l2")
 # evaluate_coreset card vs CPU (l2-hull, k = 100, the same plans and start):
 # the hull tail follows each side's own featurize and the weights each
-# side's scores, so the 700-step refits differ a little: measured 1.1e-3
+# side's scores, so the refits differ a little: measured at 700 steps 1.1e-3
 # (param ℓ2, relative), 3.2e-2 (λ error, relative) and 6.6e-6 (likelihood
 # ratio, absolute), 9×, 3× and 15× inside the limits
 TABLE1_GATE = {"param_l2": 1e-2, "lambda_err": 1e-1, "likelihood_ratio": 1e-4}
@@ -1765,7 +1783,7 @@ def _core_standalone(dev, census, errs, params) -> dict:
 
 
 SERVE_MODELS = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
-                "recurrentgemma_2b")
+                "recurrentgemma_2b", "olmo_1b", "gemma_2b")
 # arctic-480b at 2 of its 35 layers, at the published widths: a layer holds
 # 13.61 B parameters (27.2 GB in bf16), so one card's 80 GB takes two; every
 # layer is alike, so two hold a whole period and a layer boundary
@@ -1778,7 +1796,9 @@ SERVE_KERNEL = {"tinyllama_1b": ("flash_attention", "wgmma"), "mamba2_370m": ("s
                 "arctic_480b": ("flash_attention", "wgmma"),
                 # every prompt lies inside the 2,048 window: each attn block's
                 # prefill from empty is causal attention at d = 256
-                "recurrentgemma_2b": ("flash_attention", "wgmma")}
+                "recurrentgemma_2b": ("flash_attention", "wgmma"),
+                # d = 128, 16 KV heads; d = 256, 8 heads on one KV head
+                "olmo_1b": ("flash_attention", "wgmma"), "gemma_2b": ("flash_attention", "wgmma")}
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 2048
 SERVE_PROMPTS = (256, 512, 768, 1024) * 2   # multiples of mamba2's chunk 256
@@ -1788,6 +1808,21 @@ SERVE_NEW = 32
 # batch differs (other GEMM tilings), through up to 62 layers, so agreement
 # is held to 5e-2 of max|logits| (≈ 6 bf16 ulps at the largest logit)
 TEACHER_FORCED_REL = 5e-2
+# the MoE models' gate compares the first 4 of the 8 requests (256, 512, 768
+# and 1,024 prompt tokens): their teacher-forced runs take one decode step a
+# token (qwen2-moe's gate took 29.0 s over all 8, PERF.md §6)
+MOE_GATE_REQUESTS = 4
+# served through their own prefill and decode_step (the engine serves
+# decoder requests; phi-3-vision's patches and whisper's frames ride in the
+# prefill's batch, and the reference's engine refuses encdec): 4 requests
+# in one batched prefill, then SERVE_NEW − 1 greedy decode steps
+SERVE_PREFIX_MODELS = ("phi3_vision_4b", "whisper_medium")
+SERVE_PREFIX_REQUESTS = 4
+# prompt tokens: phi-3-vision's 1,024 after its 256 patches; whisper's
+# decoder prompt of 4 tokens (its start-of-transcript sequence's length)
+# after 1,500 frames, so the new tokens stay within dec_max_len = 448
+SERVE_PREFIX_PROMPT = {"phi3_vision_4b": 1024, "whisper_medium": 4}
+WHISPER_FRAMES = 1500
 
 
 # flash_attention's d = 128 prefill shapes on the served path: (heads, KV
@@ -1798,6 +1833,13 @@ FA_D256_HEADS = (10, 1)
 # d = 256 against its plain version: (S, dtype, causal), ragged S included
 FA_D256_CHECKS = ((1024, "bfloat16", True), (777, "bfloat16", True), (1024, "bfloat16", False),
                   (777, "float32", True), (300, "float32", False))
+# the served shapes phase 4 adds, each a row of the kernels line: (model,
+# (B, S, H, KV, d), causal, body): phi-3-vision-4.2b's prefill of 256 stub
+# patches and 1,024 tokens (bf16 at d = 96: the f32-FMA body), and
+# whisper-medium's encoder over 1,500 stub frames (30 s at 50 frames/s,
+# arXiv:2212.04356) at phase 4's batch of 4 requests, non-causal
+FA_NEW_SHAPES = {"d96": ("phi3_vision_4b", (1, 1280, 32, 32, 96), True, "simt"),
+                 "enc": ("whisper_medium", (4, 1500, 16, 16, 64), False, "wgmma")}
 
 
 def fa_bound_use(got, q, k, v, causal) -> tuple[float, int]:
@@ -1971,6 +2013,52 @@ def phase_lm_kernels(dev):
         f"{row['device_ms'] / row['library_device_ms']:.3f}); bound {row['bound_ms']:.5f} ms "
         f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.3f} of it; the f32-FMA "
         f"body at the same shape in f32 {simt_ms:.5f} ms (events); {d256['seconds']:.1f} s")
+    # ---- flash_attention at the new served shapes: phi-3-vision's prefill
+    # (bf16 d = 96 on the f32-FMA body) and whisper-medium's encoder
+    # (non-causal, d = 64 on the wgmma body, 1,500 frames at the served
+    # batch), each against its plain version and timed in turns with SDPA
+    new_shapes = {}
+    for key, (name, (B_, S_, H_, KV_, d_), causal, body) in FA_NEW_SHAPES.items():
+        t_shape = time.perf_counter()
+        qn, kn, vn = (torch.randn(B_, S_, h, d_, generator=gen).to(dev, torch.bfloat16)
+                      for h in (H_, KV_, KV_))
+        got = flash_attention(qn, kn, vn, causal=causal)
+        e = max_err(got, flash_attention_ref(qn, kn, vn, causal=causal))
+        use, at = fa_bound_use(got, qn, kn, vn, causal)
+        if (e > 3e-2 or use > 1.0 or kernel_path(qn) != body
+                or not bool(torch.isfinite(got).all())):
+            errs.append(f"flash_attention {key}: err {e}, bound use {use}, "
+                        f"{kernel_path(qn)} body (want {body})")
+        pairs_n = H_ * B_ * (S_ * (S_ + 1) / 2 if causal else S_ * S_)
+        row = kernel_row(f"flash_attention_{key}", "src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention/kernel.py:62", e,
+                         lambda q_=qn, k_=kn, v_=vn, c=causal: flash_attention(q_, k_, v_,
+                                                                                causal=c),
+                         lambda q_=qn, k_=kn, v_=vn, c=causal: flash_attention_ref(q_, k_, v_,
+                                                                                    causal=c),
+                         lambda q_=qn, k_=kn, v_=vn, c=causal:
+                             torch.nn.functional.scaled_dot_product_attention(
+                                 *(t.transpose(1, 2) for t in (q_, k_, v_)), is_causal=c,
+                                 enable_gqa=True),
+                         nbytes=2 * (2 * qn.numel() + kn.numel() + vn.numel()),
+                         flops=4 * d_ * pairs_n, peak=H100_BF16_FLOPS)
+        row["shape"] = f"({B_}, {S_}, {H_}, {d_}), KV {KV_}, causal {causal}"
+        row["body"] = kernel_path(qn)
+        rows.append(row)
+        new_shapes[key] = rec_n = {
+            "model": name, "shape": [B_, S_, H_, d_], "kv_heads": KV_, "causal": causal,
+            "body": row["body"], "max_abs_err": e, "bound_use": use, "ms": row["ms"],
+            "sdpa_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "sdpa_device_ms": row["library_device_ms"],
+            "turns_device_ms": row["turns_device_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "seconds": time.perf_counter() - t_shape}
+        log(f"  flash_attention {key} ({name}) {row['shape']}, {row['body']} body: max abs err "
+            f"{e:.3e} (tol 3e-2), bound use {use:.3f} at query {at}; events {row['ms']:.5f} ms "
+            f"vs SDPA {row['library_ms']:.5f}; device {row['device_ms']:.5f} ms vs SDPA "
+            f"{row['library_device_ms']:.5f} (ratio "
+            f"{row['device_ms'] / row['library_device_ms']:.3f}); bound {row['bound_ms']:.5f} "
+            f"ms ({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.4f} of it; "
+            f"{rec_n['seconds']:.1f} s")
     # ---- ssd: mamba2 prefill, (1, 1024, 32, 64) x, N = 128, chunk 256
     T, H, P, N, Q = 1024, 32, 64, 128, 256
 
@@ -2040,22 +2128,34 @@ def phase_lm_kernels(dev):
     rows.append(ssd_row)
     if errs:
         fail("; ".join(errs))
-    return rows, d128, d256
+    return rows, d128, d256, new_shapes
+
+
+# phase 5's reduced gemma-2b with a softcap (no reference config sets one):
+# its prefill from empty must attend through _sdpa (the kernel has no
+# softcap); the same config without it takes the kernel (the control)
+SMALL_SOFTCAP = 30.0
+SMALL_PREFIX_PROMPT, SMALL_PREFIX_NEW = 12, 8
 
 
 def phase_lm_small_agreement(dev):
     """The reduced LMs served on the card and on the CPU from the same f32
-    weights: the same greedy tokens, logits within 1e-4."""
+    weights: the same greedy tokens, logits within 1e-4 (a soft-capped
+    gemma-2b too, with no flash_attention launch on the card; the prefix
+    models through their own entry points)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model
     from repro_torch.serve import GenerationConfig, Request, ServeEngine
 
-    for name in SERVE_MODELS:
+    cases = [(name, get_reduced_config(name).replace(dtype="float32")) for name in SERVE_MODELS]
+    cases.append(("gemma_2b softcap", get_reduced_config("gemma_2b").replace(
+        dtype="float32", logits_softcap=SMALL_SOFTCAP)))
+    for name, cfg in cases:
         t0 = time.perf_counter()
-        cfg = get_reduced_config(name).replace(dtype="float32")
         runs = {}
         for where in ("cpu", str(dev)):
             model = build_model(cfg, device="cpu", seed=5).to(where)
@@ -2067,13 +2167,33 @@ def phase_lm_small_agreement(dev):
             for i, (n, new) in enumerate(((16, 8), (48, 8), (7, 8), (32, 8), (4, 60))):
                 eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                                    gen=GenerationConfig(max_new_tokens=new)))
+            card_before = fa.LAUNCHES
             runs[where] = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+            card_launches = fa.LAUNCHES - card_before
             if int(eng.cache["pos"].max()) <= 80:
                 fail(f"reduced {name}: no finished slot ran past the cache end")
         e = max(float(np.abs(np.stack(a.logits) - np.stack(b.logits)).max())
                 for a, b in zip(runs[str(dev)], runs["cpu"]))
         same = len(runs["cpu"]) == 5 and all(
             a.output == b.output for a, b in zip(runs[str(dev)], runs["cpu"]))
+        log(f"small LM {name}: same greedy tokens {same}, max logit err {e:.3e}, "
+            f"flash_attention launches on the card {card_launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not same or e > 1e-4:
+            fail(f"reduced {name} on the card disagrees with the CPU: tokens {same}, err {e}")
+        if name.startswith("gemma_2b") and (card_launches == 0) != (cfg.logits_softcap > 0):
+            fail(f"reduced {name}: {card_launches} flash_attention launches on the card (the "
+                 f"soft-capped prefill takes none, the plain one takes the kernel)")
+    for name in SERVE_PREFIX_MODELS:
+        t0 = time.perf_counter()
+        cfg = get_reduced_config(name).replace(dtype="float32")
+        batch = _prefix_requests(cfg, SMALL_PREFIX_PROMPT, np.random.default_rng(6))
+        runs = {}
+        for where in ("cpu", str(dev)):
+            model = build_model(cfg, device="cpu", seed=5).to(where)
+            runs[where] = _prefix_generate(model, batch, SMALL_PREFIX_NEW)[:2]
+        e = float(np.abs(runs[str(dev)][0] - runs["cpu"][0]).max())
+        same = bool((runs[str(dev)][1] == runs["cpu"][1]).all())
         log(f"small LM {name}: same greedy tokens {same}, max logit err {e:.3e} "
             f"({time.perf_counter() - t0:.1f} s)")
         if not same or e > 1e-4:
@@ -2188,10 +2308,203 @@ def teacher_forced(model, req):
     return torch.cat(rows).float().cpu().numpy()
 
 
+def _prefix_requests(cfg, prompt: int, rng) -> dict:
+    """SERVE_PREFIX_REQUESTS requests' prefill batch: ``prompt`` tokens each
+    and the stub the model reads (``sample_modality_stub``: phi-3-vision's
+    256 patch embeddings, whisper's 1,500 frames)."""
+    from repro_torch.data.synthetic_lm import sample_modality_stub
+
+    n = SERVE_PREFIX_REQUESTS
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (n, prompt)).astype("int32")}
+    if cfg.family == "encdec":
+        batch["frames"] = sample_modality_stub(n, WHISPER_FRAMES, cfg.d_model, 0)
+    else:
+        batch["patch_embeds"] = sample_modality_stub(n, cfg.n_modality_positions, cfg.d_model, 0)
+    return batch
+
+
+def _prefix_cache(model, n: int) -> dict:
+    if model.cfg.family == "encdec":
+        return model.init_cache(n, SERVE_MAX_LEN, enc_len=WHISPER_FRAMES)
+    return model.init_cache(n, SERVE_MAX_LEN)
+
+
+def _prefix_generate(model, batch: dict, new: int):
+    """Greedy generation through the model's entry points: one batched
+    prefill, then new − 1 decode steps, each ending in the host's read of
+    its tokens. Returns (logits rows (n, new, V) f32, tokens (n, new),
+    prefill s, each tick's s)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, _prefix_cache(model, batch["tokens"].shape[0]))
+    row = logits[:, -1].float()
+    tok = row.argmax(-1)
+    rows, toks = [row.cpu()], [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    ticks = []
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(tok[:, None], cache)
+        row = logits[:, -1].float()
+        tok = row.argmax(-1)
+        rows.append(row.cpu())
+        toks.append(tok.cpu())
+        ticks.append(time.perf_counter() - t0)
+    return torch.stack(rows, 1).numpy(), np.stack([t.numpy() for t in toks], 1), prefill_s, ticks
+
+
+def _prefix_teacher_forced(model, batch: dict, i: int, toks) -> "np.ndarray":
+    """Request i alone, fed its prompt and then the generated tokens
+    (teacher forcing): the logits at the positions generation sampled from
+    (new, V) f32. phi-3-vision: a prefill of the patches and the prompt,
+    then the generated tokens as one chunked prefill; whisper: the no-cache
+    ``decode_hidden`` over prompt plus generated tokens on its encoding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    one = {k: v[i:i + 1] for k, v in batch.items()}
+    fed = toks[i:i + 1, :-1]
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            seq = np.concatenate([one["tokens"], fed], 1)
+            h, _ = model.decode_hidden(seq, model.encode(one["frames"]), None)
+            logits = L.logits_from_hidden(model.emb, h[0, one["tokens"].shape[1] - 1:], cfg)
+        else:
+            logits, cache = model.prefill(one, model.init_cache(1, SERVE_MAX_LEN))
+            x = L.embed_tokens(model.emb, model._tokens(fed), cfg, model.dtype)
+            h, _ = model._run_with_cache(x, cache)
+            logits = torch.cat([logits[0, -1:], L.logits_from_hidden(model.emb, h[0], cfg)])
+    return logits.float().cpu().numpy()
+
+
+def serve_prefix_model(dev, name: str, launches: dict) -> dict:
+    """A SERVE_PREFIX_MODELS model at published width and depth: built from
+    a seeded generator, SERVE_PREFIX_REQUESTS requests generated greedily
+    (one batched prefill, SERVE_NEW tokens each), held to a teacher-forced
+    run of each request alone at TEACHER_FORCED_REL; the prefill's
+    flash_attention launches counted by body and mask (phi-3-vision: one a
+    layer on the f32-FMA body; whisper: one non-causal a layer of the
+    encoder and one causal a layer of the decoder, all wgmma), then a
+    profile of one request's prefill and of PROFILE_TICKS decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+
+    cfg = get_config(name)
+    t_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    served_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve {name}: built in {load_s:.1f} s, {n_params / 1e9:.3f} B parameters, "
+        f"{served_gb:.2f} GB served, build peak {build_peak_gb:.2f} GB")
+    batch = _prefix_requests(cfg, SERVE_PREFIX_PROMPT[name], np.random.default_rng(0))
+    _prefix_generate(model, batch, 2)  # first calls: cuBLAS handles, allocator pools
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    fa.PATH_LAUNCHES.update(dict.fromkeys(fa.PATH_LAUNCHES, 0))
+    fa.MASK_LAUNCHES.update(dict.fromkeys(fa.MASK_LAUNCHES, 0))
+    t0 = time.perf_counter()
+    rows, toks, prefill_s, ticks = _prefix_generate(model, batch, SERVE_NEW)
+    gen_s = time.perf_counter() - t0
+    counts = {"flash_attention": fa.LAUNCHES, "by_body": dict(fa.PATH_LAUNCHES),
+              "by_mask": dict(fa.MASK_LAUNCHES)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(rows).all():
+        fail(f"{name}: a logit is not finite")
+    if cfg.family == "encdec":
+        L_e, L_d = cfg.n_enc_layers, cfg.n_dec_layers
+        ok = (counts["flash_attention"] == L_e + L_d and counts["by_body"]["wgmma"] == L_e + L_d
+              and counts["by_mask"] == {"causal": L_d, "full": L_e})
+        launches["flash_attention_enc"] += L_e
+        launches["flash_attention"] += L_d
+        want = f"{L_e} non-causal and {L_d} causal launches, all wgmma"
+    else:
+        ok = (counts["flash_attention"] == cfg.n_layers
+              and counts["by_body"]["simt"] == cfg.n_layers
+              and counts["by_mask"]["causal"] == cfg.n_layers)
+        launches["flash_attention_d96"] += cfg.n_layers
+        want = f"{cfg.n_layers} causal launches on the simt body"
+    if not ok:
+        fail(f"{name}: prefill launches {counts}, expected {want}")
+    t_gate = time.perf_counter()
+    tf_err, tf_scale, agree = 0.0, 0.0, 0
+    for i in range(SERVE_PREFIX_REQUESTS):
+        b = _prefix_teacher_forced(model, batch, i, toks)
+        tf_err = max(tf_err, float(np.abs(rows[i] - b).max()))
+        tf_scale = max(tf_scale, float(np.abs(b).max()))
+        agree += int((rows[i].argmax(-1) == b.argmax(-1)).sum())
+    gate_s = time.perf_counter() - t_gate
+    tick = np.asarray(ticks) * 1e3
+    n_new = SERVE_NEW * SERVE_PREFIX_REQUESTS
+    stub = "frames" if cfg.family == "encdec" else "patch_embeds"
+    rec = {
+        "model": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "load_s": load_s,
+        "served_gb": served_gb, "build_peak_memory_gb": build_peak_gb,
+        "requests": SERVE_PREFIX_REQUESTS, "stub_positions": int(batch[stub].shape[1]),
+        "prompt_tokens": int(batch["tokens"].shape[1]), "new_tokens": n_new,
+        "prefill_ms": prefill_s * 1e3, "ticks": len(ticks),
+        "decode_ms_per_tick_median": float(np.median(tick)),
+        "decode_ms_per_tick_mean": float(tick.mean()), "generate_s": gen_s,
+        "generated_tokens_per_s": n_new / gen_s, "peak_memory_gb": peak_gb,
+        "launches": counts, "teacher_forced_max_abs_err": tf_err,
+        "teacher_forced_max_abs_logit": tf_scale,
+        "teacher_forced_argmax_agree": f"{agree}/{n_new}", "gate_s": gate_s,
+    }
+    log(f"serve {name}: " + json.dumps(rec))
+    if tf_err > TEACHER_FORCED_REL * tf_scale:
+        fail(f"{name}: generated logits differ from the single-request run by {tf_err} "
+             f"(> {TEACHER_FORCED_REL} × {tf_scale})")
+    t_prof = time.perf_counter()
+    one = {k: v[:1] for k, v in batch.items()}
+
+    def prefill():
+        logits, _ = model.prefill(one, _prefix_cache(model, 1))
+        logits.float().cpu()
+
+    rec["profile"] = {"prefill_1": profile_window(prefill, match="flash")}
+    with torch.no_grad():
+        logits, cache = model.prefill(batch, _prefix_cache(model, SERVE_PREFIX_REQUESTS))
+    tok = logits[:, -1].argmax(-1)
+
+    def ticks_():
+        nonlocal tok, cache
+        for _ in range(PROFILE_TICKS):
+            logits, cache = model.decode_step(tok[:, None], cache)
+            tok = logits[:, -1].argmax(-1)
+        tok.cpu()
+
+    rec["profile"][f"decode_{PROFILE_TICKS}_ticks"] = profile_window(ticks_)
+    log(f"serve profile {name}: " + json.dumps(rec["profile"]))
+    rec["profile_s"] = time.perf_counter() - t_prof
+    rec["model_s"] = time.perf_counter() - t_model
+    log(f"serve {name}: {rec['model_s']:.1f} s in all (the gate {gate_s:.1f} s, the profile "
+        f"{rec['profile_s']:.1f} s)")
+    del model, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_serve(dev):
     """Each full-width model serving 8 requests through ServeEngine (arctic
-    at SERVE_DEPTH's cut); returns the launches of flash_attention (d = 64,
-    128 and 256 apart) and ssd over their serve runs, and the records."""
+    at SERVE_DEPTH's cut), then SERVE_PREFIX_MODELS through their own entry
+    points; returns the launches of flash_attention (d = 64, 128, 256, 96
+    and the non-causal encoder apart) and ssd over their serve runs, and the
+    records."""
     import numpy as np
     import torch
 
@@ -2203,7 +2516,7 @@ def phase_serve(dev):
     from repro_torch.serve import GenerationConfig, Request, ServeEngine
 
     launches = {"flash_attention": 0, "flash_attention_d128": 0, "flash_attention_d256": 0,
-                "ssd": 0}
+                "flash_attention_d96": 0, "flash_attention_enc": 0, "ssd": 0}
     records = {}
     for name in SERVE_MODELS:
         cfg = get_config(name)
@@ -2254,6 +2567,7 @@ def phase_serve(dev):
         for mod in (fa, ssd):
             mod.LAUNCHES = 0
             mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
+        fa.MASK_LAUNCHES.update(dict.fromkeys(fa.MASK_LAUNCHES, 0))
         if cfg.family == "moe":
             model.drop_counter = DropCounter()
         t0 = time.perf_counter()
@@ -2293,7 +2607,10 @@ def phase_serve(dev):
         if cfg.family == "moe":
             gate_cf = cfg.n_experts / cfg.top_k
             model.cfg = cfg.replace(capacity_factor=gate_cf)
-            gate_done = serve_all()[1]
+            # the teacher-forced runs step one token at a time here: held
+            # over the first MOE_GATE_REQUESTS requests, one of each prompt
+            # length
+            gate_done = serve_all()[1][:MOE_GATE_REQUESTS]
         else:
             gate_done = done
         tf_err, tf_scale, agree = 0.0, 0.0, 0
@@ -2338,6 +2655,8 @@ def phase_serve(dev):
             f"profile {rec['profile_s']:.1f} s)")
         del model, eng, done, gate_done
         torch.cuda.empty_cache()
+    for name in SERVE_PREFIX_MODELS:
+        records[name] = serve_prefix_model(dev, name, launches)
     return launches, records
 
 
@@ -2347,6 +2666,10 @@ FT_EVERY = 4                      # sweep_ckpt_every_chunks: 16 chunks, 4 saves 
 FT_SCORING_CRASHES = (6, 16 + 11)  # sweep 1's chunk 6, sweep 2's chunk 11 (two-pass)
 FT_K = 2000
 FT_STEPS = 250
+# the coreset fits crashed and recovered: adam at FT_STEPS (crashes at step
+# 120 and at the step-200 save), lbfgs at 100 (a crash at step 30)
+FT_FIT_STEPS = {"adam": FT_STEPS, "lbfgs": 100}
+FT_CHECK_STEPS = 25                # the finiteness read's full fits, in turns
 DRILL_ARGV = ["--inject-failures", "--n", "50001", "--ks", "500", "--steps", "250"]
 
 
@@ -2469,7 +2792,8 @@ def phase_fault_tolerance(dev, scratch: str):
         try:
             t0 = time.perf_counter()
             out = fit_mctm_streaming(cfg, scaler, Ycs, wcs, generator=torch.Generator().manual_seed(23),
-                                     steps=FT_STEPS, lr=0.05, method=method, chunk_size=CHUNK,
+                                     steps=FT_FIT_STEPS[method], lr=0.05, method=method,
+                                     chunk_size=CHUNK,
                                      checkpoint=mgr, ckpt_every=every, device=dev, **kw)
             _sync()
             return out, time.perf_counter() - t0, [(e["phase"], e["step"]) for e in sim.log]
@@ -2499,7 +2823,8 @@ def phase_fault_tolerance(dev, scratch: str):
             r["checked_s"], r["unchecked_s"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             r["check_turns_s"] = turns
         rec[f"fit_{method}"] = r
-        log(f"phase 7 {method} fit recovery (k={FT_K}, {FT_STEPS} steps, ckpt every {every}): "
+        log(f"phase 7 {method} fit recovery (k={FT_K}, {FT_FIT_STEPS[method]} steps, ckpt every "
+            f"{every}): "
             f"{json.dumps(r)}")
         if not r["straight_runs_agree"]:
             errs.append(f"two straight {method} fits on the card differ: an op on the fit path "
@@ -2507,18 +2832,20 @@ def phase_fault_tolerance(dev, scratch: str):
         if not r["recovered_same_bits"] or r["injected"] != list(inject):
             errs.append(f"{method} fit recovery: {r}")
     # the finiteness read on the full data's adam fit (16 microbatches a
-    # step, one read a step), 50 steps, in turns
+    # step, one read a step), FT_CHECK_STEPS steps, in turns
     turns = []
     for check in (True, False, False, True):
         with ft_overrides(nonfinite_rollback=check):
             _sync()
             t0 = time.perf_counter()
             fit_mctm_streaming(cfg, scaler, Yn, generator=torch.Generator().manual_seed(24),
-                               steps=50, method="adam", chunk_size=CHUNK, device=dev)
+                               steps=FT_CHECK_STEPS, method="adam", chunk_size=CHUNK,
+                               device=dev)
             _sync()
             turns.append(time.perf_counter() - t0)
     rec["full_fit_check_turns_s"] = turns
-    log(f"phase 7 adam full fit (n={MAIN_N:,}, 50 steps) with / without the finiteness read, "
+    log(f"phase 7 adam full fit (n={MAIN_N:,}, {FT_CHECK_STEPS} steps) with / without the "
+        f"finiteness read, "
         f"in turns (checked, unchecked, unchecked, checked): {[round(t, 4) for t in turns]} s")
     bad = wcs.copy()
     bad[0] = np.nan
@@ -2571,6 +2898,7 @@ STREAM_MAINTAINERS = {
     "sliding W=4": dict(policy="sliding", window=4, sketch_size=SKETCH),
     "decayed gamma=0.9": dict(policy="decayed", decay=0.9, sketch_size=SKETCH),
 }
+STREAM_REFIT_STEPS = 100           # the reported refit and its full fit
 STREAM_NLL_REL = 0.3               # tests/test_streaming.py::test_streaming_nll_close_to_full
 DRIFT_CLEAN, DRIFT_SHIFTED = 6, 6
 
@@ -2696,13 +3024,15 @@ def phase_streaming(dev, scratch: str):
     nll_rel = abs(cs_pp - full_pp) / abs(full_pp)
     t0 = time.perf_counter()
     full_fit = fit_mctm_streaming(cfg, scaler, Yn, generator=torch.Generator().manual_seed(33),
-                                  steps=FT_STEPS, method="adam", chunk_size=STREAM_ROWS, device=dev)
+                                  steps=STREAM_REFIT_STEPS, method="adam", chunk_size=STREAM_ROWS,
+                                  device=dev)
     full_fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cs_fit = fit_mctm_streaming(cfg, scaler, res.Y.astype(np.float32),
                                 np.asarray(res.weights, np.float32),
-                                generator=torch.Generator().manual_seed(33), steps=FT_STEPS,
-                                method="adam", chunk_size=STREAM_ROWS, device=dev)
+                                generator=torch.Generator().manual_seed(33),
+                                steps=STREAM_REFIT_STEPS, method="adam", chunk_size=STREAM_ROWS,
+                                device=dev)
     cs_fit_s = time.perf_counter() - t0
     at_cs = streamed_nll(cfg, scaler, cs_fit.params, Yn, chunk=STREAM_ROWS, device=dev) / n
     at_full = streamed_nll(cfg, scaler, full_fit.params, Yn, chunk=STREAM_ROWS, device=dev) / n
@@ -2757,7 +3087,7 @@ VOCAB = 32_000                       # tinyllama-1.1b's vocabulary
 # launch/train.py's proxy (a seeded 32,000 × 32 projection, ×0.05, mean-
 # pooled), its sketch 4·D²; D = 2,048 pools tinyllama-1.1b's embedding
 # table, drawn as phase 4 draws it (the first draw of a generator seeded 0)
-SELECT_CASES = {32: (262_144, 64, 65_536, 4_096), 2048: (65_536, 256, 16_384, 16_384)}
+SELECT_CASES = {32: (262_144, 64, 65_536, 4_096), 2048: (32_768, 256, 16_384, 16_384)}
 # scores against float64 of the same features (two-pass: the exact l2
 # scores; one-pass: the engine's float64 sketch, gram_dtype="float64", on the
 # same plan); a TF32 Gram (two-pass) and bf16-rounded features (one-pass)
@@ -3290,13 +3620,15 @@ def phase_pipeline(dev, scratch: str):
 
 # ---------------------------------------------------------------- phase 10
 
-SERVE_ARGV = ["--device", "cuda"]   # serve_mctm at its defaults
+# serve_mctm at its defaults but for its fits' iterations (200): the boot fit
+# and the background refit, whose length sets the serving window's
+SERVE_ARGV = ["--device", "cuda", "--steps", "100"]
 DRIFT_SERVE_CLEAN, DRIFT_SERVE_SHIFTED = 6, 8
 
 
 def phase_serving(dev):
     """Phase 10: ``launch/serve_mctm.py`` at its defaults (n = 200,000,
-    k = 1,000, 200 steps, chunk 16,384, 4,096 queries of which 25% are
+    k = 1,000, chunk 16,384; 100 fit steps in place of its 200, 4,096 queries of which 25% are
     conditional samples, max batch 256, min bucket 8) with its gates; then
     the streaming maintainer with ``serve_engine=`` and ``auto_trigger`` on
     phase 8's clean-then-shifted stream: drift fires, a refit publishes, the
@@ -3394,7 +3726,7 @@ def phase_serving(dev):
 # ---------------------------------------------------------------- phase 11
 
 MESH_WORLDS = (2, 4)                 # gloo ranks sharing the one card
-MESH_STEPS = 250                     # the world-1 adam fit, as phase 3's
+MESH_STEPS = 50                      # the world-1 adam fit (phase 3's takes 250)
 MESH_F64_ATOL = 1e-6                 # f64-Gram scores, world R against world 1
 # the f32 default's two-pass ridge-lss scores against float64 of the same
 # features (relative). Not l2: the degree-6 Gram's pseudo-inverse turns any
@@ -3509,7 +3841,7 @@ def phase_mesh(dev, scratch: str):
 
     (a) World 1 on NCCL (a process group of one rank): every collective is
         the identity, so ``distributed_build_coreset``, ``streamed_nll(mesh=)``
-        and the adam fit (250 steps) must give the single-device calls' bits.
+        and the adam fit (MESH_STEPS steps) must give the single-device calls' bits.
     (b) Worlds 2 and 4 on gloo, their ranks spawned on the one card (NCCL
         takes one rank a GPU; gloo stages each fold's buffer through the
         host): the f64-Gram scores within MESH_F64_ATOL of world 1's, the f32
@@ -3704,7 +4036,9 @@ def phase_mesh(dev, scratch: str):
 # ---------------------------------------------------------------- phase 12
 
 TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m", "minicpm3-4b", "qwen2-moe-a2.7b",
-                "recurrentgemma-2b")
+                "recurrentgemma-2b", "olmo-1b", "whisper-medium", "phi-3-vision-4.2b")
+# launch/train.py's default --arch: trained with no --arch flag
+TRAIN_DEFAULT_ARCH = "olmo-1b"
 # depth cuts at the published widths: a step's peak holds float32 masters,
 # gradients, clipped gradients, adamw's old and new moments and the updates
 # (the optimizer is functional), about 34 B a parameter (tinyllama's 1.10 B
@@ -3715,24 +4049,35 @@ TRAIN_MODELS = ("tinyllama-1.1b", "mamba2-370m", "minicpm3-4b", "qwen2-moe-a2.7b
 # (rec, rec, attn) groups and the two-block rec tail (1.61 B parameters, 0.66
 # B of them its tied 256,000-row table; all 26 would need ~122 GB at 42 B a
 # parameter): every cut keeps the tail, so its code runs
-TRAIN_DEPTH = {"minicpm3-4b": 20, "qwen2-moe-a2.7b": 2, "recurrentgemma-2b": 11}
+# phi-3-vision at 12 of 32 layers (1.56 B parameters, 0.20 B of them its
+# two 32,064-row tables; all 32 would need ~160 GB); olmo-1b (1.18 B) and
+# whisper-medium (0.96 B) train whole
+TRAIN_DEPTH = {"minicpm3-4b": 20, "qwen2-moe-a2.7b": 2, "recurrentgemma-2b": 11,
+               "phi-3-vision-4.2b": 12}
 TRAIN_STEPS = 30
 TRAIN_LR = 1e-3                      # the phase's learning rate (launch/train.py's default: 3e-3)
 TRAIN_ARGV = ["--coreset", "l2-hull", "--coreset-k", "512", "--batch", "8", "--seq", "64",
               "--lr", str(TRAIN_LR), "--log-every", "0"]
 TRAIN_REDUCED = False                # a CPU rehearsal sets True (and the argv's --device)
-TRAIN_PROFILE_STEPS = 3
+# a profiled step of a 48-layer model took ~5 s of post-processing (mamba2's
+# 3-step window most of its 27.8 s, PERF.md §5): one step is profiled
+TRAIN_PROFILE_STEPS = 1
 EXAMPLE_CORPUS = (16, 128, 32)       # examples/train_lm_coreset.py: 16 batches of 128 × 32 tokens
 EXAMPLE_K = 256
 EXAMPLE_BATCH = 16
-EXAMPLE_STEPS = 30
+EXAMPLE_STEPS = 15                   # the example trains 200 steps
 DRILL_STEPS, DRILL_EVERY, DRILL_CRASH = 10, 5, 7   # mamba2-370m: crash at step 7, resume from 5
 # the drill's depth, a cut of mamba2-370m's 48 layers that keeps the script
 # within its time: the resume bits do not depend on depth, and writing the
 # checkpoints took most of the drill
-DRILL_DEPTH = 12
+DRILL_DEPTH = 4
 SMALL_STEPS = 5
 SMALL_REL = 1e-4                     # reduced f32 losses, card against CPU
+# trained only at its reduced config, card against CPU: gemma-2b's 2.51 B
+# parameters would need ~105 GB at ~42 B a parameter, and its training path
+# is tinyllama's dense one with GeGLU, MQA and scaled embeddings, which the
+# reduced config runs
+SMALL_ONLY = ("gemma-2b",)
 
 
 def lm_kernel_modules() -> dict:
@@ -3747,6 +4092,8 @@ def reset_all_counts() -> None:
     for mod in lm_kernel_modules().values():
         mod.LAUNCHES = 0
         mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
+        if hasattr(mod, "MASK_LAUNCHES"):
+            mod.MASK_LAUNCHES.update(dict.fromkeys(mod.MASK_LAUNCHES, 0))
 
 
 def read_all_counts() -> dict:
@@ -3762,8 +4109,8 @@ def _lm_config(arch: str):
 
 
 def _train_argv(arch: str, steps: int) -> list:
-    return TRAIN_ARGV + ["--arch", arch, "--steps", str(steps)] + (
-        ["--reduced"] if TRAIN_REDUCED else [])
+    return TRAIN_ARGV + ([] if arch == TRAIN_DEFAULT_ARCH else ["--arch", arch]) + [
+        "--steps", str(steps)] + (["--reduced"] if TRAIN_REDUCED else [])
 
 
 def _falling(losses) -> bool:
@@ -3783,15 +4130,16 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
 
     t_model = time.perf_counter()
     cfg = _lm_config(arch)
+    cut = None  # the config the arguments name, unless a depth cut replaces it
     if TRAIN_DEPTH.get(arch, cfg.n_layers) < cfg.n_layers:
-        cfg = cfg.replace(n_layers=TRAIN_DEPTH[arch])
+        cfg = cut = cfg.replace(n_layers=TRAIN_DEPTH[arch])
         log(f"train {arch}: a depth cut, {cfg.n_layers} of {_lm_config(arch).n_layers} layers "
             f"at the published widths (one card's 80 GB)")
     reset_all_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run = train.run(train.parse_args(_train_argv(arch, TRAIN_STEPS)), cfg=cfg)
+    run = train.run(train.parse_args(_train_argv(arch, TRAIN_STEPS)), cfg=cut)
     _sync()
     run_s = time.perf_counter() - t0
     counts = read_all_counts()
@@ -3806,6 +4154,8 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
         "params": sum(p.numel() for p in run.model.parameters()), "n_layers": cfg.n_layers,
         "launches": counts,
     })
+    if rec["arch"] != cfg.name:
+        errs.append(f"{arch}: launch/train.py trained {rec['arch']}")
     if not _falling(rec["losses"]):
         errs.append(f"{arch}: losses not finite or not falling {rec['losses']}")
     if counts["ssd"] or counts["flash_attention"]:
@@ -3827,7 +4177,7 @@ def _train_driver(dev, arch: str, census: dict, errs: list) -> dict:
         float(m["loss"])
 
     prof = profile_window(steps)
-    rec["profile_3_steps"] = prof
+    rec[f"profile_{TRAIN_PROFILE_STEPS}_steps"] = prof
     rec["device_busy_share"] = 1.0 - prof["device_idle_share"]
     # the profiler slows the host's issue, so the window's wall exceeds the
     # unprofiled steps': the device's time a step against those too
@@ -3950,12 +4300,13 @@ def _small_agreement(dev, errs: list) -> dict:
 
     from repro_torch.configs import get_reduced_config
     from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch
+    from repro_torch.launch.train import augment
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, chain, clip_by_global_norm, cosine_warmup
     from repro_torch.train import init_train_state, make_train_step
 
     out = {}
-    for arch in TRAIN_MODELS:
+    for arch in TRAIN_MODELS + SMALL_ONLY:
         t0 = time.perf_counter()
         cfg = get_reduced_config(arch).replace(dtype="float32")
         stream = TokenStreamConfig(cfg.vocab_size, 64)
@@ -3966,7 +4317,7 @@ def _small_agreement(dev, errs: list) -> dict:
             state, step = init_train_state(model.param_tree(), opt), make_train_step(model, opt)
             ls = []
             for i in range(SMALL_STEPS):
-                state, m = step(state, sample_batch(stream, 8, i))
+                state, m = step(state, augment(cfg, sample_batch(stream, 8, i), i, 64))
                 ls.append(float(m["loss"]))
             losses[where] = np.asarray(ls)
         rel = float(np.max(np.abs(losses[str(dev)] - losses["cpu"]) / np.abs(losses["cpu"])))
@@ -4102,7 +4453,7 @@ def main() -> None:
     mctm_kernels, wide = phase_kernels(dev)
     kernels_at_d16 = phase_kernels_d16(dev)
     wide_row, wide["extremes_wide"] = phase_wide_extremes(dev)
-    lm_rows, flash_d128, flash_d256 = phase_lm_kernels(dev)
+    lm_rows, flash_d128, flash_d256, flash_new = phase_lm_kernels(dev)
     p9_rows, wide["wide_d"] = phase_kernels_wide_d(dev)
     kernels = mctm_kernels + [wide_row] + p9_rows + lm_rows
     phase_small_agreement(dev)
@@ -4163,7 +4514,7 @@ def main() -> None:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "wide": wide, "flash_d128": flash_d128,
-                   "flash_d256": flash_d256,
+                   "flash_d256": flash_d256, "flash_new_shapes": flash_new,
                    "serve": serve, "core": core,
                    "core_census": core_census, "fault_tolerance": ft_rec,
                    "ft_census": ft_census, "streaming": stream_rec,

@@ -1,11 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_reduced_config(name)``.
 
-The ported architectures live in their own modules with the exact published
-numbers (copies of ``repro/configs/<id>.py``); ``reduced()`` shrinks each to
-CPU-test size (same family and topology, tiny widths). The reference's other
-architectures raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. Random init only: no weights are downloaded.
+Every architecture of the reference lives in its own module with the exact
+published numbers (copies of ``repro/configs/<id>.py``); ``reduced()``
+shrinks each to CPU-test size (same family and topology, tiny widths).
+Random init only: no weights are downloaded.
 """
 from __future__ import annotations
 
@@ -13,7 +12,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_NAMES = ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
+ARCH_NAMES = ("phi3_vision_4b", "olmo_1b", "minicpm3_4b", "tinyllama_1b", "gemma_2b",
+              "arctic_480b", "qwen2_moe_a2_7b", "whisper_medium", "mamba2_370m",
               "recurrentgemma_2b")
 
 # public ids → module names, the reference's full list
@@ -30,19 +30,9 @@ ARCH_IDS = {
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
-# architectures of the reference that the port does not carry yet
-UNPORTED = {
-    "phi3_vision_4b": "ROADMAP.md Queue A 14: vision prefix (phi3-vision)",
-    "olmo_1b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
-    "gemma_2b": "ROADMAP.md Queue A 14: further dense configs (olmo-1b, gemma-2b)",
-    "whisper_medium": "ROADMAP.md Queue A 14: encdec (whisper)",
-}
-
 
 def _module(name: str):
     mod_name = ARCH_IDS.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod_name in UNPORTED:
-        raise NotImplementedError(f"{name} is not ported yet: {UNPORTED[mod_name]}")
     if mod_name not in ARCH_NAMES:
         raise ValueError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -11,6 +11,8 @@ MAX_D = _lib.CUDA_CONSTANTS["flash_attention.cu"]["kFlashMaxD"]  # 256
 LAUNCHES = 0
 # launches of each body, beside the total
 PATH_LAUNCHES = {"wgmma": 0, "mma": 0, "simt": 0}
+# launches by mask: causal, or every key attended (an encoder's)
+MASK_LAUNCHES = {"causal": 0, "full": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODE = {"simt": 0, "mma": 1, "wgmma": 2}
 
@@ -85,4 +87,5 @@ def flash_attention(
     )
     LAUNCHES += 1
     PATH_LAUNCHES[path] += 1
+    MASK_LAUNCHES["causal" if causal else "full"] += 1
     return o

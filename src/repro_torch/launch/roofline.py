@@ -12,9 +12,9 @@ terms (seconds) are
 The constants are the H100 SXM data sheet's peaks, not measurements: bf16
 dense tensor-core FLOP/s, HBM3 bytes/s, and one direction of NVLink 4 (the
 chip-to-chip link, in the reference's ICI's place). ``chip_smoke.py`` takes
-its bounds from the same figures. ``analytic_flops`` covers the LM
-families the port has (dense, moe, ssm, hybrid); the others raise, as the port does
-not carry them yet (ROADMAP Queue A 11).
+its bounds from the same figures. ``analytic_flops`` covers every LM
+family of the reference (dense, moe, ssm, hybrid, encdec) as the reference
+counts it; an unknown family raises.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ __all__ = [
     "TF32_FLOPS",
 ]
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass
@@ -132,10 +132,8 @@ def count_params(tree) -> int:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"analytic FLOPs of the {cfg.family!r} family: the port carries dense, moe, ssm "
-            "and hybrid models only (ROADMAP Queue A 11)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"analytic FLOPs of an unknown family {cfg.family!r}")
 
 
 def active_param_fraction(cfg) -> float:
@@ -158,8 +156,9 @@ def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
     """(analytic_total, model_flops = 6·N_active·D) of a global step, the
     reference's convention: ``shape`` carries ``global_batch`` and
     ``seq_len``; ``kind`` is train, prefill or decode. analytic_total adds
-    the quadratic attention term of a dense or MoE model, and a hybrid's
-    over its attn layers with the keys capped at the window."""
+    the quadratic attention term of a dense, MoE or encdec model (over all
+    ``n_layers``, as the reference counts it), and a hybrid's over its attn
+    layers with the keys capped at the window."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     embed_params = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
@@ -173,7 +172,7 @@ def analytic_flops(cfg, n_params: int, shape, kind: str) -> tuple[float, float]:
         tokens, passes = B * 1, 2.0
     base = passes * n_active * tokens
     attn = 0.0
-    if cfg.family in ("dense", "moe"):  # decode reads S keys for 1 query
+    if cfg.family in ("dense", "moe", "encdec"):  # decode reads S keys for 1 query
         attn = passes * 2 * cfg.n_layers * tokens * S * cfg.n_heads * cfg.head_dim
     elif cfg.family == "hybrid":
         n_attn = sum(k == "attn" for k in (cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])

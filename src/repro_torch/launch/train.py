@@ -5,11 +5,14 @@
 
 Wires together: model zoo → data (the synthetic token stream, with the
 coreset selection stage in front) → train step → checkpoint manager → the
-step loop. ``--device`` defaults to the CUDA device. The model trains
-float32 masters with activations in the config's dtype, through the plain
-PyTorch attention and SSD scan (the reference trains through its jnp
-twins; no kernel of the reference lies on this path); the coreset stage
-scores the corpus on the card's kernels. ``--ckpt-dir`` saves the train
+step loop. ``--device`` defaults to the CUDA device, ``--arch`` to
+olmo-1b (the reference's). The model trains float32 masters with
+activations in the config's dtype, through the plain PyTorch attention and
+SSD scan (the reference trains through its jnp twins; no kernel of the
+reference lies on this path); the coreset stage scores the corpus on the
+card's kernels. A vision config's batches carry stub patch embeddings and
+an encdec config's stub frames (``augment``); the model moves them to the
+device with the tokens. ``--ckpt-dir`` saves the train
 state every ``--ckpt-every`` steps and at the end; ``--resume`` restarts
 from the latest save, and a resumed run gives the straight run's losses.
 """
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced_config
-from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch
+from repro_torch.data.synthetic_lm import TokenStreamConfig, sample_batch, sample_modality_stub
 from repro_torch.device import resolve_device
 from repro_torch.launch.stages import coreset_subset_loader
 from repro_torch.models import build_model
@@ -35,17 +38,30 @@ from repro_torch.train import init_train_state, make_train_step, restore_train_s
 SELECTION_SEED = 7  # the selection's draws (the reference's PRNGKey(7))
 
 
+def augment(cfg, batch: dict, step: int, seq_len: int) -> dict:
+    """``batch`` with the modality stubs a config's model reads (the
+    reference's ``augment``): a vision config's "patch_embeds" (B,
+    n_modality_positions, d), an encdec config's "frames" (B, seq_len, d),
+    both ``sample_modality_stub(..., step)``."""
+    if cfg.modality == "vision":
+        batch["patch_embeds"] = sample_modality_stub(
+            batch["tokens"].shape[0], cfg.n_modality_positions, cfg.d_model, step)
+    if cfg.family == "encdec":
+        batch["frames"] = sample_modality_stub(batch["tokens"].shape[0], seq_len, cfg.d_model,
+                                               step)
+    return batch
+
+
 def build_batch_fn(cfg, batch_size: int, seq_len: int, coreset: str, coreset_k: int,
                    generator: torch.Generator | None = None, device=None) -> Callable[[int], dict]:
     """``batch_fn(step)``: the token stream's batch, or with ``coreset`` a
     batch drawn from the coreset of a corpus scored once on ``device`` (a
     random-projected bag of tokens, D = 32, as the reference featurizes);
-    the selection's draws come from ``generator``. The vision and encdec
-    configs, whose batches carry modality stubs, are not ported
-    (``configs.get_config`` raises)."""
+    the selection's draws come from ``generator``. Either way ``augment``
+    adds the config's modality stubs of the step."""
     stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq_len)
     if coreset == "none":
-        return lambda step: sample_batch(stream, batch_size, step)
+        return lambda step: augment(cfg, sample_batch(stream, batch_size, step), step, seq_len)
 
     corpus = [sample_batch(stream, 64, s) for s in range(max(coreset_k // 16, 8))]
     data = {k: np.concatenate([c[k] for c in corpus]) for k in ("tokens", "labels")}
@@ -55,8 +71,9 @@ def build_batch_fn(cfg, batch_size: int, seq_len: int, coreset: str, coreset_k: 
     def featurize(tokens):  # cheap proxy: random-projected bag of tokens
         return proj[tokens].mean(axis=1)
 
-    return coreset_subset_loader(data, featurize, method=coreset, k=coreset_k,
-                                 generator=generator, batch=batch_size, device=device)
+    fn = coreset_subset_loader(data, featurize, method=coreset, k=coreset_k,
+                               generator=generator, batch=batch_size, device=device)
+    return lambda step: augment(cfg, fn(step), step, seq_len)
 
 
 def parse_args(argv=None) -> argparse.Namespace:

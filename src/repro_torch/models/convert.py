@@ -12,17 +12,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model, check_supported, hybrid_layout
+from repro_torch.models.transformer import EncDecModel, Model, check_supported, hybrid_layout
 from repro_torch.train.state import TrainState
 
 
 def model_from_jax(cfg: ModelConfig, np_params: dict, device=None, *, train: bool = False,
-                   remat: str = "none", xent_chunk: int = 512) -> Model:
+                   remat: str = "none", xent_chunk: int = 512) -> Model | EncDecModel:
     """``np_params`` = {"emb": {...}, "layers": {part: {leaf: (L, ...)}},
     "ln_f": {...}} of the reference's ``build_model(cfg).init``; a hybrid's
     {"emb", "groups": {"b0": {part: {leaf: (G, ...)}}, ...}, "tail": {"b0":
-    {part: {leaf}}, ...}, "ln_f"}. ``train``, ``remat``, ``xent_chunk``: as
-    ``build_model``'s."""
+    {part: {leaf}}, ...}, "ln_f"}; an encdec's {"emb", "enc": {part: {leaf:
+    (Le, ...)}}, "dec": {part: {leaf: (Ld, ...)}}, "ln_enc", "ln_dec"}.
+    ``train``, ``remat``, ``xent_chunk``: as ``build_model``'s."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -35,6 +36,12 @@ def model_from_jax(cfg: ModelConfig, np_params: dict, device=None, *, train: boo
     def layer(parts: dict, index=None) -> dict:
         return {part: tensors(leaves, index) for part, leaves in parts.items()}
 
+    if cfg.family == "encdec":
+        tree = {"emb": tensors(np_params["emb"]),
+                "enc": [layer(np_params["enc"], i) for i in range(cfg.n_enc_layers)],
+                "dec": [layer(np_params["dec"], i) for i in range(cfg.n_dec_layers)],
+                "ln_enc": tensors(np_params["ln_enc"]), "ln_dec": tensors(np_params["ln_dec"])}
+        return EncDecModel(cfg, tree, train=train, remat=remat, xent_chunk=xent_chunk)
     if cfg.family == "hybrid":
         plen, n_groups, n_tail = hybrid_layout(cfg)
         groups, tail = np_params.get("groups", {}), np_params.get("tail", {})

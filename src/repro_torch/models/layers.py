@@ -1,7 +1,8 @@
 """Layers of the decoder LMs the port serves and trains
 (``repro/models/layers.py``).
 
-The subset the dense (GQA and MLA), MoE, SSM and hybrid families need. Each
+The subset the dense (GQA and MLA), MoE, SSM, hybrid and encoder-decoder
+families need. Each
 function keeps the reference's name, argument order and weight layout
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), so a test feeds both the same
 numbers. Parameters are mappings of tensors; the init functions take an
@@ -12,19 +13,28 @@ serving ``Model`` stores the weights in that dtype already
 (``param_dtype``), where the cast is a no-op; a training one keeps float32
 masters.
 
-Attention routes as follows:
+Attention (rope on q and k unless ``use_rope=False``; every route applies
+``cfg.logits_softcap`` but the kernel's, which none with a softcap takes)
+routes as follows:
 
 - no cache (training): ``_sdpa`` under ``causal_mask`` (with a local
   ``window``: its band, or ``local_attention_chunked`` when S exceeds it),
   or ``blocked_causal_attention`` when ``cfg.prefill_flash_block`` > 0 and
   S exceeds it, all plain PyTorch as in the reference (no Pallas kernel
   computes them there), so autograd differentiates them;
+- no cache, ``bidirectional`` (the encoder's): every key attended, through
+  the flash-attention kernel with ``causal=False`` when none of q, k, v
+  requires grad (serving, or under ``torch.no_grad()``), else (training,
+  or a softcap) through ``_sdpa`` under an all-ones mask;
 - prefill into an empty cache (S > 1, scalar ``pos == 0``; with a local
-  ``window``, S ≤ window): causal attention over the fresh q/k/v through the
+  ``window``, S ≤ window; no softcap): causal attention over the fresh
+  q/k/v through the
   flash-attention kernel, then k/v are written into the cache. It is the
   function of ``_sdpa`` over the cache with the ``kpos <= qpos`` mask (a
   ring cache's unwritten slots hold absolute positions < 0, and every key
-  lies inside the window), whose masked keys weigh exactly 0;
+  lies inside the window), whose masked keys weigh exactly 0. With a
+  softcap it attends as the reference does: ``_sdpa`` over the cache, or
+  ``blocked_causal_attention`` past ``cfg.prefill_flash_block``;
 - a ring cache (local attention, cache length == window) taking S ≥ window
   tokens (but for a prefill from empty of exactly the window, which takes
   the kernel): ``local_attention_chunked`` over the fresh q/k/v, then the last W
@@ -34,7 +44,8 @@ Attention routes as follows:
   per-slot ``pos``): plain PyTorch mirroring ``_sdpa`` over the cache with
   the offset (and window, or ring-slot) mask and ``_vector_pos_decode``; no
   TPU kernel computes them;
-- anything else raises ``NotImplementedError`` naming the ROADMAP item.
+- multi-token steps with per-slot positions raise ``NotImplementedError``
+  (the reference has no such path).
 
 MLA (``mla_apply``) is plain PyTorch on every path, as the reference's
 einsums are: no cache (training), a scalar ``pos`` (prefill, chunked
@@ -300,13 +311,7 @@ def _vector_pos_decode(params, q, k, v, cache, cfg, *, window: int = 0):
     return out, {"k": K, "v": V, "pos": pos + 1}
 
 
-def _check_routable(cfg: ModelConfig, bidirectional: bool, use_rope: bool):
-    if bidirectional or not use_rope:
-        raise NotImplementedError("encoder / rope-free attention: ROADMAP.md Queue A 14, encdec")
-    if cfg.logits_softcap > 0:
-        raise NotImplementedError(
-            "logit soft-capping: ROADMAP.md Queue A 14, further dense configs (olmo-1b, gemma-2b)"
-        )
+def _check_routable(cfg: ModelConfig):
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"attention_apply is the GQA path: {cfg.attn_type!r} attention goes through mla_apply")
@@ -326,24 +331,36 @@ def attention_apply(
     """Returns (out, new_cache); cache = {'k', 'v', 'pos'} is a linear buffer
     (global attention, or local with ``window`` > the cache's length) or a
     ring buffer (local attention, cache length == ``window``), written in
-    place; None without a cache (training: new_cache is None)."""
-    _check_routable(cfg, bidirectional, use_rope)
+    place; None without a cache (training: new_cache is None).
+    ``use_rope=False`` leaves q and k unrotated; ``bidirectional`` (the
+    encoder's) attends every key when there is no cache (with a cache the
+    reference ignores it, and so does the port)."""
+    _check_routable(cfg)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    softcap = cfg.logits_softcap
     q = (x @ params["wq"].to(x.dtype).reshape(d, H * hd)).reshape(B, S, H, hd)
     k = (x @ params["wk"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
     v = (x @ params["wv"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         if window > 0 and S > window:
-            out = local_attention_chunked(q, k, v, window, cfg.logits_softcap)
+            out = local_attention_chunked(q, k, v, window, softcap)
+        elif bidirectional:
+            # the kernel has no backward and no softcap: training and a
+            # soft-capped config attend through _sdpa
+            if softcap > 0 or any(t.requires_grad for t in (q, k, v)):
+                out = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device),
+                            softcap)
+            else:
+                out = flash_attention(q, k, v, causal=False)
         elif cfg.prefill_flash_block and window == 0 and S > cfg.prefill_flash_block:
-            out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, cfg.logits_softcap)
+            out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, softcap)
         else:
-            out = _sdpa(q, k, v, causal_mask(S, S, 0, window, device=x.device),
-                        cfg.logits_softcap)
+            out = _sdpa(q, k, v, causal_mask(S, S, 0, window, device=x.device), softcap)
         new_cache = None
     elif cache["pos"].ndim == 1:
         if S != 1:
@@ -358,11 +375,14 @@ def attention_apply(
         K, V = cache["k"], cache["v"]
         T = K.shape[1]
         ring = window > 0 and T == window
-        if ring and S >= window and not (p == 0 and S == window):
+        # a prefill from empty takes the kernel, which has no softcap: a
+        # soft-capped one attends as the reference does
+        kernel = S > 1 and p == 0 and softcap == 0
+        if ring and S >= window and not (p == 0 and S == window and softcap == 0):
             # a ring cache taking at least a window: local attention over
             # the fresh tokens, then the last W keys at slots (p + i) % W
             # (from p > 0 the reference too attends only the fresh keys)
-            out = local_attention_chunked(q, k, v, window, cfg.logits_softcap)
+            out = local_attention_chunked(q, k, v, window, softcap)
             shift = (p + S) % window  # the slot of tail element 0 is (p + S − W) % W
             K.copy_(torch.roll(k[:, -window:].to(K.dtype), shift, 1))
             V.copy_(torch.roll(v[:, -window:].to(V.dtype), shift, 1))
@@ -371,26 +391,31 @@ def attention_apply(
             slots = (p + torch.arange(S, device=K.device)) % window
             K[:, slots] = k.to(K.dtype)
             V[:, slots] = v.to(V.dtype)
-            if S > 1 and p == 0:
+            if kernel:
                 out = flash_attention(q, k, v, causal=True)
             else:
                 abs_pos = _ring_slot_positions(pos.to(K.device) + S, window)[None, :]
                 qpos = p + torch.arange(S, device=K.device)[:, None]
                 mask = (abs_pos >= 0) & (abs_pos <= qpos) & (abs_pos > qpos - window)
-                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
+                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, softcap)
         else:
             if p + S > T:
                 raise ValueError(f"cache of {T} positions cannot take {S} more at {p}")
             K[:, p:p + S] = k.to(K.dtype)
             V[:, p:p + S] = v.to(V.dtype)
-            if S > 1 and p == 0:
+            if kernel:
                 out = flash_attention(q, k, v, causal=True)
+            elif cfg.prefill_flash_block and window == 0 and S > cfg.prefill_flash_block \
+                    and p == 0:
+                # a soft-capped long prefill from empty: the reference's
+                # blocked attention over the fresh keys
+                out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, softcap)
             else:
                 # decode, or chunked prefill into a non-empty cache: the cache
                 # up to each query's position (here the reference's
                 # prefill_flash_block branch would attend only the fresh keys)
                 mask = causal_mask(S, T, p, window, device=K.device)
-                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, cfg.logits_softcap)
+                out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, softcap)
         new_cache = {"k": K, "v": V, "pos": pos + S}
     return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype).reshape(H * hd, d), new_cache
 

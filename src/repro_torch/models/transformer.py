@@ -1,15 +1,23 @@
-"""Decoder-LM assembly (``repro/models/transformer.py``) for the families the
-port serves and trains: dense (GQA or MLA attention), MoE, SSM (mamba2) and
-the hybrid (recurrentgemma: super-blocks of ``cfg.block_pattern``, RG-LRU
-and local-attention blocks each with an MLP).
+"""LM assembly (``repro/models/transformer.py``) for every family of the
+reference: dense (GQA or MLA attention; with a vision config, stub patch
+embeddings prepended to the text), MoE, SSM (mamba2), the hybrid
+(recurrentgemma: super-blocks of ``cfg.block_pattern``, RG-LRU and
+local-attention blocks each with an MLP) and the encoder-decoder (whisper:
+a bidirectional rope-free encoder over stub frame embeddings, a decoder of
+rope-free causal self-attention and cross-attention).
 
-``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` that holds
-its weights and keeps the reference's entry points:
+``build_model(cfg)`` returns a :class:`Model` (an :class:`EncDecModel` for
+the encdec family), an ``nn.Module`` that holds its weights and keeps the
+reference's entry points:
 
   * ``loss_fn(batch) -> (loss, {"ce", "aux"})``: per-example-weighted CE
   * ``init_cache(batch, max_len) -> cache``
   * ``prefill(batch, cache) -> (logits_last, cache)``
   * ``decode_step(tokens, cache) -> (logits, cache)``
+
+A vision config's ``batch`` may carry "patch_embeds" (B, P, d): they are
+prepended to the token embeddings (positions 0 .. P + S − 1), and the loss
+drops the first P positions; ``decode_step`` takes tokens only.
 
 A serving model (the default) stores each weight once, per layer, in the
 dtype the reference casts it to at each use (``layers.param_dtype``): the
@@ -43,6 +51,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
@@ -52,9 +61,8 @@ REMAT = ("none", "full", "dots")
 # products without batch dims: what remat="dots" saves
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-UNPORTED_FAMILIES = {
-    "encdec": "ROADMAP.md Queue A 14: encdec (whisper)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+MODALITIES = ("text", "vision", "audio")
 
 
 def _params(tree: dict, cfg: ModelConfig) -> nn.ParameterDict:
@@ -90,15 +98,13 @@ class _Block(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not carry yet."""
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r}: {UNPORTED_FAMILIES[cfg.family]}")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise ``ValueError`` for a config no family of the reference builds."""
+    if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
     if cfg.attn_type not in ("gqa", "mla"):
         raise ValueError(f"unknown attention type {cfg.attn_type}")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.modality} prefix: ROADMAP.md Queue A 14, vision prefix")
+    if cfg.modality not in MODALITIES:
+        raise ValueError(f"unknown modality {cfg.modality}")
 
 
 def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -110,21 +116,13 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return plen, n_groups, n_tail
 
 
-class Model(nn.Module):
-    """A decoder LM of the dense, MoE, SSM or hybrid family with its weights.
+class _LM(nn.Module):
+    """What every family's model shares: the config, the activation dtype,
+    the training options, and the helpers of the entry points."""
 
-    ``tree`` holds the parameters in the reference's layout, per layer:
-    ``{"emb": {...}, "layers": [{"ln_attn": {...}, "attn": {...}, ...}, ...],
-    "ln_f": {...}}`` (a hybrid's layers ``{"ln_mix", "mix", "ln_mlp",
-    "mlp"}`` in layer order, the kind of layer i ``block_pattern[i % plen]``).
-    """
-
-    def __init__(self, cfg: ModelConfig, tree: dict, *, train: bool = False,
-                 remat: str = "none", xent_chunk: int = 512):
+    def __init__(self, cfg: ModelConfig, *, train: bool, remat: str, xent_chunk: int):
         super().__init__()
         check_supported(cfg)
-        if len(tree["layers"]) != cfg.n_layers:
-            raise ValueError(f"{len(tree['layers'])} layers given, the config has {cfg.n_layers}")
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         if remat == "dots" and not hasattr(ckpt, "create_selective_checkpoint_contexts"):
@@ -138,6 +136,67 @@ class Model(nn.Module):
         self.xent_chunk = xent_chunk
         # a layers.DropCounter here counts the MoE pairs dropped at capacity
         self.drop_counter = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb["embed"].device
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(device=self.device, dtype=torch.long)
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+
+    def _stub(self, x) -> torch.Tensor:
+        """A modality stub's embeddings (patches, frames) in the activation
+        dtype on the model's device (the reference's ``astype(dtype)``)."""
+        return to_tensor(x, None, self.device).to(self.dtype)
+
+    def _views(self, stack: nn.ModuleDict, n: int) -> list[dict]:
+        """Per-layer views, {part: {leaf: tensor}}, of stacked training
+        masters, each leaf cast once to the dtype it is used in."""
+        cast = {part: {k: v.to(L.param_dtype(k, self.cfg)).unbind(0) for k, v in pd.items()}
+                for part, pd in stack.items()}
+        return [{part: {k: vs[i] for k, vs in leaves.items()}
+                 for part, leaves in cast.items()} for i in range(n)]
+
+    def _remat(self, fn):
+        """``fn`` under the model's ``remat`` policy (training)."""
+        if self.remat == "full":
+            return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        if self.remat == "dots":
+            return functools.partial(
+                ckpt.checkpoint, fn, use_reentrant=False,
+                context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots))
+        return fn
+
+    def _xent(self, x: torch.Tensor, batch: dict) -> torch.Tensor:
+        """The per-example-weighted CE of the final hidden states x against
+        ``batch["labels"]`` (weights default to ones)."""
+        table = self.emb["unembed"] if "unembed" in self.emb else self.emb["embed"]
+        weights = batch.get("weights")
+        weights = (torch.ones((x.shape[0],), device=x.device) if weights is None
+                   else to_tensor(weights, torch.float32, x.device))
+        return L.chunked_xent_weighted(x, table, self._tokens(batch["labels"]), weights,
+                                       chunk=self.xent_chunk)
+
+
+class Model(_LM):
+    """A decoder LM of the dense, MoE, SSM or hybrid family with its weights.
+
+    ``tree`` holds the parameters in the reference's layout, per layer:
+    ``{"emb": {...}, "layers": [{"ln_attn": {...}, "attn": {...}, ...}, ...],
+    "ln_f": {...}}`` (a hybrid's layers ``{"ln_mix", "mix", "ln_mlp",
+    "mlp"}`` in layer order, the kind of layer i ``block_pattern[i % plen]``).
+    """
+
+    def __init__(self, cfg: ModelConfig, tree: dict, *, train: bool = False,
+                 remat: str = "none", xent_chunk: int = 512):
+        super().__init__(cfg, train=train, remat=remat, xent_chunk=xent_chunk)
+        if cfg.family == "encdec":
+            raise ValueError("an encdec config builds an EncDecModel")
+        if len(tree["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(tree['layers'])} layers given, the config has {cfg.n_layers}")
         if train and cfg.family == "hybrid":
             plen, n_groups, n_tail = hybrid_layout(cfg)
             layers = tree["layers"]
@@ -160,10 +219,6 @@ class Model(nn.Module):
             self.emb = _params(tree["emb"], cfg)
             self.layers = nn.ModuleList(_Block(lp, cfg) for lp in tree["layers"])
             self.ln_f = _params(tree["ln_f"], cfg)
-
-    @property
-    def device(self) -> torch.device:
-        return self.emb["embed"].device
 
     def param_tree(self) -> dict:
         """A training model's float32 masters as the reference's parameter
@@ -191,12 +246,13 @@ class Model(nn.Module):
 
     def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Per-example-weighted CE of ``batch`` ("tokens", "labels" (B, S),
-        optional "weights" (B,), default ones) through the layer stack with
-        no cache: (loss, {"ce", "aux"}); the dense and MoE families add
-        ``router_aux_coef``·aux/n_layers, aux the layers' summed router
-        loss (0 without a router)."""
+        optional "weights" (B,), default ones; a vision config's optional
+        "patch_embeds" (B, P, d), whose positions the CE skips) through the
+        layer stack with no cache: (loss, {"ce", "aux"}); the dense and MoE
+        families add ``router_aux_coef``·aux/n_layers, aux the layers' summed
+        router loss (0 without a router)."""
         cfg = self.cfg
-        x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), cfg, self.dtype)
+        x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
         if cfg.family == "hybrid":
@@ -214,12 +270,8 @@ class Model(nn.Module):
                 if a is not None:
                     aux = aux + a
         x = L.apply_norm(self.ln_f, x, cfg.norm_type)
-        table = self.emb["unembed"] if "unembed" in self.emb else self.emb["embed"]
-        weights = batch.get("weights")
-        weights = (torch.ones((x.shape[0],), device=x.device) if weights is None
-                   else to_tensor(weights, torch.float32, x.device))
-        ce = L.chunked_xent_weighted(x, table, self._tokens(batch["labels"]), weights,
-                                     chunk=self.xent_chunk)
+        x = x[:, x.shape[1] - batch["tokens"].shape[1]:]  # the text positions
+        ce = self._xent(x, batch)
         if cfg.family in ("ssm", "hybrid"):
             return ce, {"ce": ce, "aux": aux}
         loss = ce + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
@@ -238,8 +290,9 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
-        x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), self.cfg, self.dtype)
-        x, cache = self._run_with_cache(x, cache)
+        """``batch``: "tokens" (B, S), and a vision config's optional
+        "patch_embeds" (B, P, d) before them; the cache advances P + S."""
+        x, cache = self._run_with_cache(self._embed(batch), cache)
         return L.logits_from_hidden(self.emb, x[:, -1:], self.cfg), cache
 
     @torch.no_grad()
@@ -274,10 +327,15 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ stack
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        if isinstance(tokens, torch.Tensor):
-            return tokens.to(device=self.device, dtype=torch.long)
-        return torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+    def _embed(self, batch: dict) -> torch.Tensor:
+        """Token embeddings, with a vision config's patch prefix when the
+        batch carries one (the reference's ``_embed_with_prefix``; the dense
+        and MoE families)."""
+        x = L.embed_tokens(self.emb, self._tokens(batch["tokens"]), self.cfg, self.dtype)
+        if (self.cfg.modality == "vision" and "patch_embeds" in batch
+                and self.cfg.family in ("dense", "moe")):
+            x = torch.cat([self._stub(batch["patch_embeds"]), x], 1)
+        return x
 
     def _layer_params(self) -> list[dict]:
         """Each layer's parameters, {part: {leaf: tensor}}, in layer order: a
@@ -285,33 +343,15 @@ class Model(nn.Module):
         cast once to the dtype each is used in."""
         if not self.trainable:
             return [dict(layer.named_children()) for layer in self.layers]
-
-        def views(stack: nn.ModuleDict, n: int) -> list[dict]:
-            cast = {part: {k: v.to(L.param_dtype(k, self.cfg)).unbind(0) for k, v in pd.items()}
-                    for part, pd in stack.items()}
-            return [{part: {k: vs[i] for k, vs in leaves.items()}
-                     for part, leaves in cast.items()} for i in range(n)]
-
         if self.cfg.family != "hybrid":
-            return views(self.stack, self.cfg.n_layers)
+            return self._views(self.stack, self.cfg.n_layers)
         plen, n_groups, _ = hybrid_layout(self.cfg)
-        by_block = [views(self.stack[f"b{b}"], n_groups) for b in range(plen) if n_groups]
+        by_block = [self._views(self.stack[f"b{b}"], n_groups) for b in range(plen) if n_groups]
         out = [by_block[b][g] for g in range(n_groups) for b in range(plen)]
         for md in self.tail.values():
             out.append({part: {k: v.to(L.param_dtype(k, self.cfg)) for k, v in pd.items()}
                         for part, pd in md.items()})
         return out
-
-    def _remat(self, fn):
-        """``fn`` under the model's ``remat`` policy (training)."""
-        if self.remat == "full":
-            return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
-        if self.remat == "dots":
-            return functools.partial(
-                ckpt.checkpoint, fn, use_reentrant=False,
-                context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                             _save_dots))
-        return fn
 
     def _hybrid_block(self, kind: str, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                       cache=None):
@@ -393,6 +433,193 @@ class Model(nn.Module):
         return x, dict(cache, pos=pos + S)
 
 
+class EncDecModel(_LM):
+    """The encoder-decoder (whisper) with its weights, the reference's
+    ``_build_encdec``: ``tree`` is ``{"emb": {...}, "enc": [{"ln_attn",
+    "attn", "ln_mlp", "mlp"}, ...], "dec": [{"ln_self", "self", "ln_cross",
+    "cross", "ln_mlp", "mlp"}, ...], "ln_enc": {...}, "ln_dec": {...}}``.
+
+    The encoder attends bidirectionally without rope over the frames plus
+    sinusoid positions (through the flash-attention kernel, non-causal, when
+    serving); the decoder's self-attention is causal and rope-free over a
+    linear cache of ``cfg.dec_max_len`` positions, its positions sinusoid,
+    and its cross-attention attends the encoder's output. Where the
+    reference clamps a write or a position slice past ``dec_max_len``, the
+    port raises ``ValueError``. The cache is ``{"self": {"k", "v"}: (Ld, B,
+    dec_max_len, KV, hd), "cross_k", "cross_v": (Ld, B, T, KV, hd), "pos"}``
+    with a scalar host-side ``pos``; ``ServeEngine`` refuses the family, as
+    the reference's does, so requests go through these entry points.
+    """
+
+    def __init__(self, cfg: ModelConfig, tree: dict, *, train: bool = False,
+                 remat: str = "none", xent_chunk: int = 512):
+        super().__init__(cfg, train=train, remat=remat, xent_chunk=xent_chunk)
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDecModel builds the encdec family, not {cfg.family!r}")
+        if (len(tree["enc"]), len(tree["dec"])) != (cfg.n_enc_layers, cfg.n_dec_layers):
+            raise ValueError(f"{len(tree['enc'])} encoder and {len(tree['dec'])} decoder layers "
+                             f"given, the config has {cfg.n_enc_layers} and {cfg.n_dec_layers}")
+        if train:
+            self.emb = _masters(tree["emb"])
+            self.enc = _stacked_masters(tree["enc"]) if tree["enc"] else nn.ModuleDict()
+            self.dec = _stacked_masters(tree["dec"]) if tree["dec"] else nn.ModuleDict()
+            self.ln_enc, self.ln_dec = _masters(tree["ln_enc"]), _masters(tree["ln_dec"])
+        else:
+            self.emb = _params(tree["emb"], cfg)
+            self.enc = nn.ModuleList(_Block(lp, cfg) for lp in tree["enc"])
+            self.dec = nn.ModuleList(_Block(lp, cfg) for lp in tree["dec"])
+            self.ln_enc, self.ln_dec = _params(tree["ln_enc"], cfg), _params(tree["ln_dec"], cfg)
+        # sinusoid position tables on the device, by length: a decode step
+        # reads a slice with no host-to-device copy
+        self._pe: dict = {}
+
+    def param_tree(self) -> dict:
+        """A training model's float32 masters as the reference's parameter
+        tree: ``{"emb", "enc": {part: {leaf: (Le, ...)}}, "dec": {part: {leaf:
+        (Ld, ...)}}, "ln_enc", "ln_dec"}`` (the tensors themselves)."""
+        if not self.trainable:
+            raise ValueError("a serving model has no training masters: build it with train=True")
+        return {"emb": dict(self.emb.items()),
+                "enc": {part: dict(pd.items()) for part, pd in self.enc.items()},
+                "dec": {part: dict(pd.items()) for part, pd in self.dec.items()},
+                "ln_enc": dict(self.ln_enc.items()), "ln_dec": dict(self.ln_dec.items())}
+
+    # ------------------------------------------------------------- entry points
+
+    def encode(self, frames) -> torch.Tensor:
+        """The encoder's output (B, T, d) of stub frame embeddings (B, T, d)."""
+        cfg = self.cfg
+        x = self._stub(frames)
+        T = x.shape[1]
+        x = x + self._positions(T)[None]
+        layer = self._remat(functools.partial(self._enc_layer,
+                                              positions=torch.arange(T, device=self.device)))
+        for lp in self._layer_params("enc"):
+            x = layer(x, lp)
+        return L.apply_norm(self.ln_enc, x, cfg.norm_type)
+
+    def decode_hidden(self, tokens, memory: torch.Tensor | None = None,
+                      cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+        """The decoder's final hidden states of ``tokens`` (B, S): without a
+        cache over the encoder's output ``memory`` (training, positions 0 ..
+        S − 1; returns None for the cache), or with one from its ``pos``
+        (the cross K/V in the cache; the cache written in place)."""
+        cfg = self.cfg
+        x = L.embed_tokens(self.emb, self._tokens(tokens), cfg, self.dtype)
+        S = x.shape[1]
+        if cache is None:
+            x = x + self._positions(S)[None]
+            layer = self._remat(functools.partial(
+                self._dec_layer_full, positions=torch.arange(S, device=self.device),
+                memory=memory))
+            for lp in self._layer_params("dec"):
+                x = layer(x, lp)
+            new_cache = None
+        else:
+            pos = cache["pos"]
+            if pos.ndim:
+                raise ValueError("the encdec decoder takes a scalar cache pos")
+            p = int(pos)
+            if p + S > cfg.dec_max_len:
+                raise ValueError(f"decoder positions {p}..{p + S - 1} run past dec_max_len = "
+                                 f"{cfg.dec_max_len}")
+            x = x + self._positions(cfg.dec_max_len)[p:p + S][None]
+            positions = p + torch.arange(S, device=self.device)
+            for i, lp in enumerate(self._layer_params("dec")):
+                sc = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i], "pos": pos}
+                x, _ = self._dec_layer(lp, x, positions, sc, cache["cross_k"][i],
+                                       cache["cross_v"][i])
+            new_cache = dict(cache, pos=pos + S)
+        return L.apply_norm(self.ln_dec, x, cfg.norm_type), new_cache
+
+    def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Per-example-weighted CE of ``batch`` ("frames" (B, T, d), "tokens",
+        "labels" (B, S), optional "weights" (B,)): (loss, {"ce", "aux"}), aux
+        0."""
+        x, _ = self.decode_hidden(batch["tokens"], self.encode(batch["frames"]), None)
+        ce = self._xent(x, batch)
+        return ce, {"ce": ce, "aux": torch.zeros((), device=x.device)}
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int | None = None) -> dict:
+        """The decoder's self-attention cache of ``cfg.dec_max_len`` positions
+        (``max_len`` sizes the cross K/V when ``enc_len`` is not given, as in
+        the reference), zeros, and a scalar host-side ``pos``."""
+        cfg = self.cfg
+        enc_len = enc_len or max_len
+        Ld, KV, hd = cfg.n_dec_layers, cfg.n_kv_heads, cfg.head_dim
+
+        def zeros(T):
+            return torch.zeros((Ld, batch, T, KV, hd), dtype=self.dtype, device=self.device)
+
+        return {"self": {"k": zeros(cfg.dec_max_len), "v": zeros(cfg.dec_max_len)},
+                "cross_k": zeros(enc_len), "cross_v": zeros(enc_len),
+                "pos": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
+        """Encode ``batch["frames"]``, install every layer's cross K/V in the
+        cache (of the frames' length, replacing the cache's), then prefill
+        the decoder prompt ``batch["tokens"]``: (last logits, cache)."""
+        memory = self.encode(batch["frames"])
+        kv = [ED.cross_kv(lp["cross"], memory) for lp in self._layer_params("dec")]
+        cache = dict(cache, cross_k=torch.stack([k for k, _ in kv]).to(self.dtype),
+                     cross_v=torch.stack([v for _, v in kv]).to(self.dtype))
+        logits, cache = self.decode_step(batch["tokens"], cache)
+        return logits[:, -1:], cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: dict) -> tuple[torch.Tensor, dict]:
+        x, cache = self.decode_hidden(tokens, None, cache)
+        return L.logits_from_hidden(self.emb, x, self.cfg), cache
+
+    # ------------------------------------------------------------------ stack
+
+    def _positions(self, T: int) -> torch.Tensor:
+        """``encdec.sinusoid_pos(T, d_model)`` in the activation dtype on the
+        model's device, kept by (length, device)."""
+        key = (T, self.device)
+        if key not in self._pe:
+            self._pe[key] = ED.sinusoid_pos(T, self.cfg.d_model, self.dtype, self.device)
+        return self._pe[key]
+
+    def _layer_params(self, which: str) -> list[dict]:
+        """The encoder's ("enc") or decoder's ("dec") layer parameters in
+        layer order: a serving model's own, or views of the stacked masters."""
+        stack = getattr(self, which)
+        if not self.trainable:
+            return [dict(layer.named_children()) for layer in stack]
+        n = self.cfg.n_enc_layers if which == "enc" else self.cfg.n_dec_layers
+        return self._views(stack, n) if n else []
+
+    def _enc_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
+        a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions, bidirectional=True,
+                                 use_rope=False)
+        x = x + a
+        h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
+
+    def _dec_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor, self_cache,
+                   ck: torch.Tensor, cv: torch.Tensor):
+        """One decoder layer (the reference's ``_dec_layer``): (x, new_cache)."""
+        cfg = self.cfg
+        h = L.apply_norm(lp["ln_self"], x, cfg.norm_type)
+        a, new_cache = L.attention_apply(lp["self"], h, cfg, positions=positions,
+                                         cache=self_cache, use_rope=False)
+        x = x + a
+        h = L.apply_norm(lp["ln_cross"], x, cfg.norm_type)
+        x = x + ED.cross_attention_apply(lp["cross"], h, ck, cv, cfg)
+        h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache
+
+    def _dec_layer_full(self, x: torch.Tensor, lp: dict, positions: torch.Tensor,
+                        memory: torch.Tensor) -> torch.Tensor:
+        """A decoder layer without a cache, its cross K/V from ``memory``."""
+        ck, cv = ED.cross_kv(lp["cross"], memory)
+        return self._dec_layer(lp, x, positions, None, ck, cv)[0]
+
+
 def _init_tree(cfg: ModelConfig, generator: torch.Generator, cast: bool = False) -> dict:
     """Random parameters in the reference's layout (random init only: no
     weights are downloaded), drawn in float32; the draws differ from
@@ -405,6 +632,18 @@ def _init_tree(cfg: ModelConfig, generator: torch.Generator, cast: bool = False)
     def part(tree: dict) -> dict:
         return {k: v.to(L.param_dtype(k, cfg)) for k, v in tree.items()} if cast else tree
 
+    if cfg.family == "encdec":
+        def norms(*names):
+            return {n: part(L.init_norm(cfg, g.device)) for n in names}
+
+        return {"emb": part(L.init_embeddings(g, cfg)),
+                "enc": [dict(norms("ln_attn", "ln_mlp"), attn=part(L.init_attention(g, cfg)),
+                             mlp=part(L.init_mlp(g, cfg))) for _ in range(cfg.n_enc_layers)],
+                "dec": [dict(norms("ln_self", "ln_cross", "ln_mlp"),
+                             self=part(L.init_attention(g, cfg)),
+                             cross=part(ED.init_cross_attention(g, cfg)),
+                             mlp=part(L.init_mlp(g, cfg))) for _ in range(cfg.n_dec_layers)],
+                **norms("ln_enc", "ln_dec")}
     tree = {"emb": part(L.init_embeddings(g, cfg)), "layers": []}
     for i in range(cfg.n_layers):
         if cfg.family == "hybrid":
@@ -437,7 +676,7 @@ def _init_tree(cfg: ModelConfig, generator: torch.Generator, cast: bool = False)
 
 def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
                 generator: torch.Generator | None = None, train: bool = False,
-                remat: str = "none", xent_chunk: int = 512) -> Model:
+                remat: str = "none", xent_chunk: int = 512) -> Model | EncDecModel:
     """A randomly initialised model on ``device`` (default: the CUDA device).
     The weights are drawn on the device from ``generator``, or from a
     generator there seeded with ``seed``. ``train``: float32 masters that
@@ -449,5 +688,6 @@ def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
         generator = torch.Generator(device=dev).manual_seed(seed)
     elif generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}, the model on {dev}")
-    return Model(cfg, _init_tree(cfg, generator, cast=not train), train=train, remat=remat,
-                 xent_chunk=xent_chunk)
+    cls = EncDecModel if cfg.family == "encdec" else Model
+    return cls(cfg, _init_tree(cfg, generator, cast=not train), train=train, remat=remat,
+               xent_chunk=xent_chunk)

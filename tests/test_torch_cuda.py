@@ -711,6 +711,14 @@ _FA_CASES = [
     # past d = 128 on the f32-FMA body (four threads a row, 16-key tiles)
     (B, S, H, KV, d, dtype) for d in (160, 256) for dtype in ("bfloat16", "float32")
     if (d, dtype) != (256, "bfloat16") for B, S, H, KV in ((1, 1, 2, 1), (2, 130, 4, 2), (1, 257, 10, 1))
+] + [
+    # the served shapes no earlier case covers: phi-3-vision's bf16 d = 96
+    # on the f32-FMA body (its prefill of 256 patches and 1,024 tokens),
+    # whisper-medium's encoder on the wgmma body at d = 64 over 1,500
+    # frames at the served batch of 4, gemma-2b's 8 heads on one KV head
+    (1, S, 32, 32, 96, "bfloat16") for S in (1, 65, 1280)
+] + [(4, 1500, 16, 16, 64, "bfloat16")] + [
+    (1, S, 8, 1, 256, "bfloat16") for S in (65, 1024)
 ]
 
 

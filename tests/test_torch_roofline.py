@@ -1,7 +1,8 @@
 """The port's ``launch/roofline.py`` accounting against the reference's
-at the full configs the port carries (the MoE active share, the analytic
-FLOPs of a train, prefill and decode step with the quadratic attention
-term), and its refusal of a family the port does not carry."""
+at every full config (the MoE active share, the analytic FLOPs of a train,
+prefill and decode step with the quadratic attention term, the encdec
+family's as the reference counts it), and its refusal of an unknown
+family."""
 import types
 
 import pytest
@@ -17,7 +18,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import roofline as TR  # noqa: E402
 
 ARCHS = ["tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b", "arctic_480b",
-         "recurrentgemma_2b"]
+         "recurrentgemma_2b", "olmo_1b", "gemma_2b", "phi3_vision_4b", "whisper_medium"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -35,5 +36,17 @@ def test_active_share_and_analytic_flops_match_the_reference(arch):
 
 
 def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        TR.active_param_fraction(get_config("tinyllama_1b").replace(family="encdec"))
+    """encdec is counted now: the reference's figures at a cut whisper
+    (its quadratic term over all n_layers, as the reference counts it); an
+    unknown family raises."""
+    jcfg = jax_config("whisper_medium").replace(n_enc_layers=2, n_dec_layers=3)
+    cfg = get_config("whisper_medium").replace(n_enc_layers=2, n_dec_layers=3)
+    shapes = jax.eval_shape(lambda k: jax_build(jcfg).init(k)[0], jax.random.PRNGKey(0))
+    n_params = RR.count_params(shapes)
+    assert TR.active_param_fraction(cfg) == RR.active_param_fraction(jcfg) == 1.0
+    shape = types.SimpleNamespace(global_batch=4, seq_len=1500)
+    for kind in ("train", "prefill", "decode"):
+        assert TR.analytic_flops(cfg, n_params, shape, kind) == \
+            RR.analytic_flops(jcfg, n_params, shape, kind), kind
+    with pytest.raises(ValueError, match="unknown family"):
+        TR.active_param_fraction(cfg.replace(family="retnet"))

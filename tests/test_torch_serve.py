@@ -41,7 +41,7 @@ def _greedy_reference(model, prompt, n_new, max_len):
 
 
 @pytest.mark.parametrize("name", ["tinyllama_1b", "mamba2_370m", "minicpm3_4b",
-                                  "qwen2_moe_a2_7b", "arctic_480b"])
+                                  "qwen2_moe_a2_7b", "arctic_480b", "olmo_1b", "gemma_2b"])
 def test_engine_matches_jax_engine(name):
     jcfg = jax_config(name).replace(dtype="float32")
     jm = jax_build(jcfg)
@@ -136,17 +136,12 @@ def test_engine_recycles_slots(setup):
 
 
 def test_engine_rejects_encdec(setup):
-    """The encdec family is not ported; the engine refuses a model of that
-    family as the reference's does, before touching anything else."""
-    cfg, model = setup
-
-    class EncDec:
-        pass
-
-    stub = EncDec()
-    stub.cfg = cfg.replace(family="encdec")
-    with pytest.raises(ValueError):
-        ServeEngine(stub, device="cpu")
+    """The engine refuses an encdec model (the reduced whisper) as the
+    reference's does: a request needs its own encoder state, so whisper is
+    served through the model's prefill and decode_step."""
+    whisper = build_model(get_reduced_config("whisper_medium"), device="cpu")
+    with pytest.raises(ValueError, match="encdec"):
+        ServeEngine(whisper, device="cpu")
 
 
 def test_engine_samples_with_an_explicit_generator(setup):

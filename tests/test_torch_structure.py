@@ -207,9 +207,11 @@ def test_unported_parts_raise_not_implemented(what):
     ``drift_window_nll(mesh=)`` are ported now, and so are attention without
     a cache (training) and prefill into a non-empty cache (chunked
     prefill), and so are MLA (minicpm3), MoE (qwen2-moe, arctic) and the
-    hybrid with local attention over a ring cache (recurrentgemma): their
-    cases check that they are taken (``attention_apply`` stays the GQA path
-    and refuses an MLA config, which goes through ``mla_apply``)."""
+    hybrid with local attention over a ring cache (recurrentgemma), and so
+    are gemma-2b, whisper-medium (the encdec family, bidirectional
+    attention), the vision prefix (phi3-vision) and soft-capped attention:
+    their cases check that they are taken (``attention_apply`` stays the
+    GQA path and refuses an MLA config, which goes through ``mla_apply``)."""
     from repro_torch import configs
     from repro_torch.core import mctm as TM
     from repro_torch.core import streaming as TSt
@@ -294,6 +296,69 @@ def test_unported_parts_raise_not_implemented(what):
         logits2, cache = model.decode_step(np.asarray([[3]]), cache)
         assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
         assert int(cache["pos"]) == 6 and ("ckv" in cache) == (cfg.attn_type == "mla")
+        return
+    if what in ("config:gemma_2b", "config:whisper-medium"):
+        # ported: the published configs (gemma-2b's MQA at head_dim 256,
+        # whisper-medium's 24 + 24 layers)
+        cfg = configs.get_config(what.split(":")[1])
+        got = (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        assert got == {"config:gemma_2b": ("dense", 18, 2048, 8, 1, 256),
+                       "config:whisper-medium": ("encdec", 48, 1024, 16, 16, 64)}[what]
+        return
+    if what in ("reduced:phi3_vision_4b", "modality:vision"):
+        # ported: the vision prefix, P patch positions before the text in
+        # the prefill (the cache advances P + S), then a token decode
+        cfg = (configs.get_reduced_config("phi3_vision_4b") if what.startswith("reduced")
+               else configs.get_reduced_config("tinyllama_1b").replace(modality="vision",
+                                                                       n_modality_positions=3))
+        model = build_model(cfg, device="cpu")
+        P = cfg.n_modality_positions
+        cache = model.init_cache(1, 16)
+        patches = np.full((1, P, cfg.d_model), 0.02, np.float32)
+        logits, cache = model.prefill({"tokens": np.arange(5)[None], "patch_embeds": patches},
+                                      cache)
+        logits2, cache = model.decode_step(np.asarray([[3]]), cache)
+        assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+        assert int(cache["pos"]) == P + 6
+        return
+    if what == "family:encdec":
+        # ported: the reduced whisper builds, its prefill encodes the frames
+        # and installs cross K/V of their length, and a decode step follows
+        from repro_torch.models import EncDecModel
+
+        cfg = configs.get_reduced_config("whisper_medium")
+        model = build_model(cfg, device="cpu")
+        assert isinstance(model, EncDecModel)
+        cache = model.init_cache(1, 16)
+        frames = np.full((1, 10, cfg.d_model), 0.02, np.float32)
+        logits, cache = model.prefill({"frames": frames, "tokens": np.arange(5)[None]}, cache)
+        logits2, cache = model.decode_step(np.asarray([[3]]), cache)
+        assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+        assert int(cache["pos"]) == 6 and cache["cross_k"].shape[2] == 10
+        return
+    if what == "attention:softcap":
+        # ported: a soft-capped decode step over the cache
+        out, new_cache = _lm_cache_case("softcap")()
+        assert out.shape == (1, 1, 64) and torch.isfinite(out).all()
+        assert int(new_cache["pos"]) == 4
+        return
+    if what == "attention:bidirectional":
+        # ported: without a cache every key is attended (the kernel's plain
+        # version on the CPU); with a cache the reference ignores it, and so
+        # does the port
+        from repro_torch.models import layers as L
+
+        cfg = configs.get_reduced_config("tinyllama_1b").replace(dtype="float32")
+        attn = build_model(cfg, device="cpu").layers[0].attn
+        x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(0))
+        pos = torch.arange(4)
+        full, _ = L.attention_apply(attn, x, cfg, positions=pos, bidirectional=True)
+        causal, _ = L.attention_apply(attn, x, cfg, positions=pos)
+        assert torch.allclose(full[:, -1], causal[:, -1], atol=1e-5)
+        assert not torch.allclose(full[:, 0], causal[:, 0], atol=1e-3)
+        out, new_cache = _lm_cache_case("bidirectional")()
+        ref, _ = _lm_cache_case("prefill_into_nonempty_cache")()
+        assert torch.equal(out, ref) and int(new_cache["pos"]) == 7
         return
     if what == "attention:mla":
         # attention_apply is the GQA path: an MLA config is refused there

@@ -1,5 +1,7 @@
 """The port's training forward against the JAX package's ``loss_fn`` on the
-same weights (reduced tinyllama here, mamba2 in
+same weights (reduced tinyllama, minicpm3, qwen2-moe, arctic, olmo-1b,
+gemma-2b (also soft-capped), phi-3-vision with its patch prefix and
+whisper-medium with its frames here, mamba2 in
 ``test_torch_train_loss_ssm.py``; the JAX params carried across by
 ``model_from_jax(train=True)``): the loss, its CE and aux, and the
 gradient of every parameter leaf, with non-uniform example weights, the
@@ -38,6 +40,15 @@ CASES = [
     ("qwen2_moe_a2_7b", "float32", {"capacity_factor": 1.25}, {}, 12, False),
     ("qwen2_moe_a2_7b", "bfloat16", {}, {"remat": "dots"}, 12, False),
     ("arctic_480b", "float32", {"moe_pad_experts": 12}, {"remat": "full"}, 12, False),
+    ("olmo_1b", "float32", {}, {}, 12, False),
+    ("olmo_1b", "bfloat16", {}, {"remat": "dots"}, 12, False),
+    ("gemma_2b", "float32", {"logits_softcap": 2.0}, {}, 12, False),
+    ("gemma_2b", "bfloat16", {}, {}, 12, True),
+    ("phi3_vision_4b", "float32", {}, {}, 12, False),
+    ("phi3_vision_4b", "bfloat16", {}, {"remat": "full"}, 12, False),
+    ("whisper_medium", "float32", {}, {}, 12, False),
+    ("whisper_medium", "float32", {}, {"remat": "dots", "xent_chunk": 5}, 15, False),
+    ("whisper_medium", "bfloat16", {}, {}, 12, True),
 ]
 
 

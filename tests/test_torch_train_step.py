@@ -1,6 +1,7 @@
 """The port's train step against the JAX package's ``make_train_step`` on
 the same weights and batches (reduced tinyllama, mamba2, minicpm3 (MLA),
-qwen2-moe and arctic (MoE) at f32):
+qwen2-moe and arctic (MoE), olmo-1b, gemma-2b, phi-3-vision (patch
+prefix) and whisper-medium (encdec) at f32):
 ``chain(clip_by_global_norm(1.0), adamw(cosine_warmup(...)))`` at 1 and 2
 microbatches, the losses, grad norms, params and moments after 3 steps; one
 step from a reference ``TrainState`` carried across (step 2 of a reference
@@ -25,7 +26,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch_train_cases import one_thread  # noqa: E402,F401
+from torch_train_cases import one_thread, with_stubs  # noqa: E402,F401
 
 from repro.configs import get_reduced_config as jax_config  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
@@ -58,13 +59,14 @@ def _opt(M):
     return M.chain(M.clip_by_global_norm(1.0), M.adamw(SCHEDULE(M)))
 
 
-def _batches(vocab, n, B=4, T=16, seed=0):
+def _batches(cfg, n, B=4, T=16, seed=0):
+    """n batches of ``cfg``'s vocabulary, with its modality stubs."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        toks = rng.integers(0, vocab, (B, T + 1)).astype(np.int32)
-        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                    "weights": rng.uniform(0.2, 3.0, B).astype(np.float32)})
+        toks = rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
+        out.append(with_stubs(cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                                    "weights": rng.uniform(0.2, 3.0, B).astype(np.float32)}, rng))
     return out
 
 
@@ -73,7 +75,7 @@ def _jax_run(arch, microbatches):
     """The reference's 3 steps (one jitted step function per case; the
     carried-state test reuses the 1-microbatch run)."""
     jm = jax_build(jax_config(arch).replace(dtype="float32"))
-    batches = _batches(jm.cfg.vocab_size, 3, seed=microbatches)
+    batches = _batches(jm.cfg, 3, seed=microbatches)
     params, _ = jm.init(jax.random.PRNGKey(0))
     opt = _opt(RO)
     state = jax_init_state(params, opt)
@@ -114,7 +116,8 @@ def _check_state(state, ref, what):
 # 2-microbatch run and its loss-and-gradient case hold it to the reference
 THREE_STEP_CASES = [(m, a) for m in (1, 2)
                     for a in ("tinyllama_1b", "mamba2_370m", "minicpm3_4b", "qwen2_moe_a2_7b",
-                              "arctic_480b")
+                              "arctic_480b", "olmo_1b", "gemma_2b", "phi3_vision_4b",
+                              "whisper_medium")
                     if (m, a) != (1, "arctic_480b")]
 
 
@@ -156,7 +159,7 @@ def test_moe_expert_stacks_carry_their_moments(name):
     jm = jax_build(jax_config("qwen2_moe_a2_7b").replace(dtype="float32"))
     params, _ = jm.init(jax.random.PRNGKey(2))
     step = jax.jit(jax_train_step(jm, make(RO)))
-    batches = _batches(jm.cfg.vocab_size, 2, seed=3)
+    batches = _batches(jm.cfg, 2, seed=3)
     state, _ = step(jax_init_state(params, make(RO)),
                     {k: jnp.asarray(v) for k, v in batches[0].items()})
     tm, tstate = train_state_from_jax(cfg, _np(state), make(TO), device="cpu")

@@ -1,7 +1,7 @@
 """The loss-and-gradient comparison of the LM training forward, port
-against the JAX package, shared by ``test_torch_train_loss.py`` (dense)
-and ``test_torch_train_loss_ssm.py`` (mamba2); the tolerances are stated
-there."""
+against the JAX package, shared by ``test_torch_train_loss.py`` (dense,
+MoE, the vision prefix, encdec) and ``test_torch_train_loss_ssm.py``
+(mamba2); the tolerances are stated there."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +27,26 @@ def _close(got, ref, rel, what):
 
 
 def _batch(cfg, B, T, seed, uniform=False):
+    """Tokens, labels and weights, with the config's modality stubs: a
+    vision config's patch embeddings, an encdec config's frames (T + 3 of
+    them: the encoder's length differs from the decoder's)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
     w = np.ones(B, np.float32) if uniform else rng.uniform(0.2, 3.0, B).astype(np.float32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": w}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "weights": w}
+    return with_stubs(cfg, batch, rng)
+
+
+def with_stubs(cfg, batch, rng):
+    """``batch`` with the stubs of ``tests/test_models_smoke.py``'s batches
+    (N(0, 0.02²) float32) that the config's model reads."""
+    B, T = batch["tokens"].shape
+    if cfg.modality == "vision":
+        batch["patch_embeds"] = (rng.standard_normal((B, cfg.n_modality_positions, cfg.d_model))
+                                 * 0.02).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.standard_normal((B, T + 3, cfg.d_model)) * 0.02).astype(np.float32)
+    return batch
 
 
 def check_loss_and_grads(arch, dtype, over, opts, T, uniform):
