@@ -42,10 +42,12 @@ Phases (any failure exits nonzero):
      (ε-kernel k = 400, a 64-step greedy projection: 65 wide launches);
      flash_attention's wgmma body at d = 128 at the MoE models' prefill
      shapes (qwen2-moe (1, 1,024, 16, 128), KV 16; arctic 56 heads, KV 8),
-     at d = 256 at recurrentgemma's, at d = 96 on the f32-FMA body at
-     phi-3-vision's prefill (1, 1,280, 32, 96) and non-causal at whisper's
-     encoder (4, 1,500, 16, 64), bf16 within 3e-2 of its plain version,
-     timed in turns with SDPA (events, device time, bound);
+     at d = 256 at recurrentgemma's and gemma-2b's (the split grid, two
+     calls' bits compared), at d = 96 at phi-3-vision's prefill (1, 1,280,
+     32, 96; the f32-FMA body it took before timed beside it) and
+     non-causal at whisper's encoder (4, 1,500, 16, 64), bf16 within 3e-2
+     of its plain version, timed in turns with SDPA (events, device time,
+     bound);
   3. the path at n = 250,001 (normal_mixture, J = 2, degree 6, chunk 16,384,
      α = 0.8, k = 500 and 2000, 250 steps at lr 0.05): two-pass with the
      driver's default full-data fit, the streaming lbfgs (gtol 1e-5; its time,
@@ -81,8 +83,10 @@ Phases (any failure exits nonzero):
      requests in one batched prefill: 256 stub patches and 1,024 prompt
      tokens, or 1,500 stub frames and a 4-token prompt; 32 greedy tokens
      each), held to a teacher-forced run of each request alone (whisper's
-     the no-cache ``decode_hidden``), phi-3-vision's prefill one simt launch
-     a layer, whisper's 24 non-causal and 24 causal wgmma launches; the
+     the no-cache ``decode_hidden``), phi-3-vision's prefill one wgmma
+     launch a layer (none simt), whisper's 24 non-causal and 24 causal wgmma
+     launches, recurrentgemma's and gemma's d = 256 prefills from 512
+     tokens on the split grid; the
      reduced models and a soft-capped reduced gemma-2b (no flash_attention
      launch) on the card against the CPU before them;
   6. the paper's core beyond Algorithm 1's path (it runs after phase 4,
@@ -287,7 +291,7 @@ def phase_environment():
 
 
 # redesigned kernels → the template arguments to report (None: every one)
-REDESIGNED = {"flash_wgmma_kernel": None, "flash_simt_kernel": ("256",),
+REDESIGNED = {"flash_wgmma_kernel": ("64", "96", "128", "256"), "flash_simt_kernel": ("256",),
               "gram_cluster_kernel": None,
               "gram_tiled_kernel": ("2", "6"),
               "ssd_state_kernel": None, "ssd_pass_kernel": None, "ssd_scan_mma_kernel": None,
@@ -1828,17 +1832,18 @@ WHISPER_FRAMES = 1500
 # flash_attention's d = 128 prefill shapes on the served path: (heads, KV
 # heads) of qwen2-moe-a2.7b and arctic-480b at one 1,024-token prompt
 FA_D128_SHAPES = {"qwen2_moe_a2_7b": (16, 16), "arctic_480b": (56, 8)}
-# and d = 256: recurrentgemma-2b's 10 heads on one KV head
-FA_D256_HEADS = (10, 1)
+# and d = 256: (heads, KV heads) of recurrentgemma-2b (the row's shape) and
+# gemma-2b, whose grids of 80 and 64 q tiles split the heaviest in two
+FA_D256_SHAPES = {"recurrentgemma_2b": (10, 1), "gemma_2b": (8, 1)}
 # d = 256 against its plain version: (S, dtype, causal), ragged S included
 FA_D256_CHECKS = ((1024, "bfloat16", True), (777, "bfloat16", True), (1024, "bfloat16", False),
                   (777, "float32", True), (300, "float32", False))
 # the served shapes phase 4 adds, each a row of the kernels line: (model,
 # (B, S, H, KV, d), causal, body): phi-3-vision-4.2b's prefill of 256 stub
-# patches and 1,024 tokens (bf16 at d = 96: the f32-FMA body), and
-# whisper-medium's encoder over 1,500 stub frames (30 s at 50 frames/s,
-# arXiv:2212.04356) at phase 4's batch of 4 requests, non-causal
-FA_NEW_SHAPES = {"d96": ("phi3_vision_4b", (1, 1280, 32, 32, 96), True, "simt"),
+# patches and 1,024 tokens (bf16 at d = 96: the wgmma body, two 64-column
+# chunks), and whisper-medium's encoder over 1,500 stub frames (30 s at 50
+# frames/s, arXiv:2212.04356) at phase 4's batch of 4 requests, non-causal
+FA_NEW_SHAPES = {"d96": ("phi3_vision_4b", (1, 1280, 32, 32, 96), True, "wgmma"),
                  "enc": ("whisper_medium", (4, 1500, 16, 16, 64), False, "wgmma")}
 
 
@@ -1863,6 +1868,8 @@ def phase_lm_kernels(dev):
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_path
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ops import kernel_path as ssd_path
@@ -1961,11 +1968,13 @@ def phase_lm_kernels(dev):
             f"{rec8['sdpa_device_ms']:.5f} (ratio {rec8['device_ms'] / rec8['sdpa_device_ms']:.3f},"
             f" in turns {[round(x, 5) for x in rec8['turns_device_ms']]}); bound {b8:.5f} ms "
             f"({by8}), {b8 / rec8['device_ms']:.3f} of it")
-    # ---- flash_attention at d = 256: recurrentgemma-2b's prefill (phase 4
-    # serves it through this body), bf16 and f32, ragged S, KV 1, causal and
-    # not, against its plain version; timed in turns with SDPA
+    # ---- flash_attention at d = 256: recurrentgemma-2b's and gemma-2b's
+    # prefill (phase 4 serves both through this body; their grids split the
+    # heaviest q tiles in two), bf16 and f32, ragged S, KV 1, causal and
+    # not, against its plain version; each shape timed in turns with SDPA,
+    # two calls' bits compared
     t_d256 = time.perf_counter()
-    H6, KV6 = FA_D256_HEADS
+    H6, KV6 = FA_D256_SHAPES["recurrentgemma_2b"]
     d256 = {"checks": []}
     for S_, dt, causal in FA_D256_CHECKS:
         dtype = getattr(torch, dt)
@@ -1984,37 +1993,66 @@ def phase_lm_kernels(dev):
         log(f"  flash_attention d=256 " + json.dumps(chk))
         if not ok:
             errs.append(f"flash_attention d=256 disagrees: {chk}")
-    q6, k6, v6 = (torch.randn(B, S, h, 256, generator=gen).to(dev, torch.bfloat16)
-                  for h in (H6, KV6, KV6))
-    pairs6 = H6 * B * S * (S + 1) / 2
-    nbytes6 = 2 * (2 * q6.numel() + k6.numel() + v6.numel())
-    e6 = max_err(flash_attention(q6, k6, v6), flash_attention_ref(q6, k6, v6))
-    row = kernel_row("flash_attention_d256", "src/repro_torch/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention/kernel.py:62", e6,
-                     lambda: flash_attention(q6, k6, v6), lambda: flash_attention_ref(q6, k6, v6),
-                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                         *(t.transpose(1, 2) for t in (q6, k6, v6)), is_causal=True,
-                         enable_gqa=True),
-                     nbytes=nbytes6, flops=4 * 256 * pairs6, peak=H100_BF16_FLOPS)
-    row["shape"] = f"(1, {S}, {H6}, 256), KV {KV6}"
-    row["body"] = kernel_path(q6)
-    rows.append(row)
-    qf, kf, vf = (t.float() for t in (q6, k6, v6))
-    simt_ms = cuda_ms(lambda: flash_attention(qf, kf, vf))
-    d256.update({"shape": [B, S, H6, 256], "kv_heads": KV6, "body": row["body"],
-                 "max_abs_err": e6, "ms": row["ms"], "sdpa_ms": row["library_ms"],
-                 "device_ms": row["device_ms"], "sdpa_device_ms": row["library_device_ms"],
-                 "turns_device_ms": row["turns_device_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "f32_simt_ms": simt_ms,
-                 "seconds": time.perf_counter() - t_d256})
-    log(f"  flash_attention d=256 (1, {S}, {H6}, 256) KV {KV6} causal, {row['body']} body: "
-        f"events {row['ms']:.5f} ms vs SDPA {row['library_ms']:.5f}; device "
-        f"{row['device_ms']:.5f} ms vs SDPA {row['library_device_ms']:.5f} (ratio "
-        f"{row['device_ms'] / row['library_device_ms']:.3f}); bound {row['bound_ms']:.5f} ms "
-        f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.3f} of it; the f32-FMA "
-        f"body at the same shape in f32 {simt_ms:.5f} ms (events); {d256['seconds']:.1f} s")
+    for model, (H6_, KV6_) in FA_D256_SHAPES.items():
+        q6, k6, v6 = (torch.randn(B, S, h, 256, generator=gen).to(dev, torch.bfloat16)
+                      for h in (H6_, KV6_, KV6_))
+        pairs6 = H6_ * B * S * (S + 1) / 2
+        nbytes6 = 2 * (2 * q6.numel() + k6.numel() + v6.numel())
+        got = flash_attention(q6, k6, v6)
+        e6 = max_err(got, flash_attention_ref(q6, k6, v6))
+        use6, _ = fa_bound_use(got, q6, k6, v6, True)
+        bits6 = bool(torch.equal(got, flash_attention(q6, k6, v6)))
+        plan6 = fa.split_plan(S, B * H6_, 256, True, _lib.sm_count(dev.index or 0))
+        if (e6 > 3e-2 or use6 > 1.0 or not bits6 or kernel_path(q6) != "wgmma"
+                or not bool(torch.isfinite(got).all())):
+            errs.append(f"flash_attention d=256 {model}: err {e6}, bound use {use6}, same bits "
+                        f"{bits6}, {kernel_path(q6)} body")
+
+        def sdpa6(q6=q6, k6=k6, v6=v6):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (q6, k6, v6)), is_causal=True, enable_gqa=True)
+
+        if model == "recurrentgemma_2b":
+            row = kernel_row("flash_attention_d256", "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:62", e6,
+                             lambda q6=q6, k6=k6, v6=v6: flash_attention(q6, k6, v6),
+                             lambda q6=q6, k6=k6, v6=v6: flash_attention_ref(q6, k6, v6),
+                             sdpa6, nbytes=nbytes6, flops=4 * 256 * pairs6,
+                             peak=H100_BF16_FLOPS)
+            row["shape"] = f"(1, {S}, {H6_}, 256), KV {KV6_}"
+            row["body"] = kernel_path(q6)
+            rows.append(row)
+            t6 = {"ms": row["ms"], "library_ms": row["library_ms"],
+                  "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+                  "turns_device_ms": row["turns_device_ms"]}
+            qf, kf, vf = (t.float() for t in (q6, k6, v6))
+            d256["f32_simt_ms"] = cuda_ms(lambda: flash_attention(qf, kf, vf))
+            del qf, kf, vf
+        else:
+            t6 = in_turns(lambda q6=q6, k6=k6, v6=v6: flash_attention(q6, k6, v6), sdpa6)
+        b6, by6 = bound_ms(nbytes6, 4 * 256 * pairs6, H100_BF16_FLOPS)
+        d256[model] = rec6 = {
+            "shape": [B, S, H6_, 256], "kv_heads": KV6_, "body": kernel_path(q6),
+            "split_plan": list(plan6), "same_bits": bits6, "max_abs_err": e6, "bound_use": use6,
+            "ms": t6["ms"], "sdpa_ms": t6["library_ms"], "device_ms": t6["device_ms"],
+            "sdpa_device_ms": t6["library_device_ms"], "turns_device_ms": t6["turns_device_ms"],
+            "bound_ms": b6, "bound_by": by6}
+        log(f"  flash_attention d=256 {model} (1, {S}, {H6_}, 256) KV {KV6_} causal, "
+            f"{rec6['body']} body, split plan (cap, slots) {tuple(plan6)}, same bits {bits6}: "
+            f"events {rec6['ms']:.5f} ms vs SDPA {rec6['sdpa_ms']:.5f}; device "
+            f"{rec6['device_ms']:.5f} ms vs SDPA {rec6['sdpa_device_ms']:.5f} (ratio "
+            f"{rec6['device_ms'] / rec6['sdpa_device_ms']:.3f}, in turns "
+            f"{[round(x, 5) for x in rec6['turns_device_ms']]}); bound {b6:.5f} ms ({by6}), "
+            f"{b6 / rec6['device_ms']:.3f} of it")
+    rg = d256["recurrentgemma_2b"]
+    d256.update({k: rg[k] for k in ("shape", "kv_heads", "body", "max_abs_err", "ms", "sdpa_ms",
+                                    "device_ms", "sdpa_device_ms", "turns_device_ms",
+                                    "bound_ms", "bound_by")})
+    d256["seconds"] = time.perf_counter() - t_d256
+    log(f"  flash_attention d=256: the f32-FMA body at recurrentgemma's shape in f32 "
+        f"{d256['f32_simt_ms']:.5f} ms (events); {d256['seconds']:.1f} s")
     # ---- flash_attention at the new served shapes: phi-3-vision's prefill
-    # (bf16 d = 96 on the f32-FMA body) and whisper-medium's encoder
+    # (bf16 d = 96 on the wgmma body) and whisper-medium's encoder
     # (non-causal, d = 64 on the wgmma body, 1,500 frames at the served
     # batch), each against its plain version and timed in turns with SDPA
     new_shapes = {}
@@ -2045,13 +2083,23 @@ def phase_lm_kernels(dev):
         row["shape"] = f"({B_}, {S_}, {H_}, {d_}), KV {KV_}, causal {causal}"
         row["body"] = kernel_path(qn)
         rows.append(row)
+        if key == "d96":  # the f32-FMA body this width took before, on the same inputs
+            simt = lambda q_=qn, k_=kn, v_=vn: fa._launch(q_, k_, v_, True, "simt")[0]  # noqa: E731
+            e_simt = max_err(simt(), flash_attention_ref(qn, kn, vn))
+            if e_simt > 3e-2:
+                errs.append(f"flash_attention d96 on the f32-FMA body: err {e_simt}")
+            row["simt_device_ms"] = device_ms(simt)
+            log(f"  flash_attention d96 on the f32-FMA body it took before: device "
+                f"{row['simt_device_ms']:.5f} ms (max abs err {e_simt:.3e}), "
+                f"{row['simt_device_ms'] / row['device_ms']:.1f}× the wgmma body's")
         new_shapes[key] = rec_n = {
             "model": name, "shape": [B_, S_, H_, d_], "kv_heads": KV_, "causal": causal,
             "body": row["body"], "max_abs_err": e, "bound_use": use, "ms": row["ms"],
             "sdpa_ms": row["library_ms"], "device_ms": row["device_ms"],
             "sdpa_device_ms": row["library_device_ms"],
             "turns_device_ms": row["turns_device_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "seconds": time.perf_counter() - t_shape}
+            "bound_by": row["bound_by"], "simt_device_ms": row.get("simt_device_ms"),
+            "seconds": time.perf_counter() - t_shape}
         log(f"  flash_attention {key} ({name}) {row['shape']}, {row['body']} body: max abs err "
             f"{e:.3e} (tol 3e-2), bound use {use:.3f} at query {at}; events {row['ms']:.5f} ms "
             f"vs SDPA {row['library_ms']:.5f}; device {row['device_ms']:.5f} ms vs SDPA "
@@ -2389,7 +2437,7 @@ def serve_prefix_model(dev, name: str, launches: dict) -> dict:
     (one batched prefill, SERVE_NEW tokens each), held to a teacher-forced
     run of each request alone at TEACHER_FORCED_REL; the prefill's
     flash_attention launches counted by body and mask (phi-3-vision: one a
-    layer on the f32-FMA body; whisper: one non-causal a layer of the
+    layer on the wgmma body; whisper: one non-causal a layer of the
     encoder and one causal a layer of the decoder, all wgmma), then a
     profile of one request's prefill and of PROFILE_TICKS decode steps."""
     import numpy as np
@@ -2435,10 +2483,10 @@ def serve_prefix_model(dev, name: str, launches: dict) -> dict:
         want = f"{L_e} non-causal and {L_d} causal launches, all wgmma"
     else:
         ok = (counts["flash_attention"] == cfg.n_layers
-              and counts["by_body"]["simt"] == cfg.n_layers
+              and counts["by_body"]["wgmma"] == cfg.n_layers and counts["by_body"]["simt"] == 0
               and counts["by_mask"]["causal"] == cfg.n_layers)
         launches["flash_attention_d96"] += cfg.n_layers
-        want = f"{cfg.n_layers} causal launches on the simt body"
+        want = f"{cfg.n_layers} causal launches on the wgmma body, none on simt"
     if not ok:
         fail(f"{name}: prefill launches {counts}, expected {want}")
     t_gate = time.perf_counter()
@@ -2568,6 +2616,7 @@ def phase_serve(dev):
             mod.LAUNCHES = 0
             mod.PATH_LAUNCHES.update(dict.fromkeys(mod.PATH_LAUNCHES, 0))
         fa.MASK_LAUNCHES.update(dict.fromkeys(fa.MASK_LAUNCHES, 0))
+        fa.SPLIT_LAUNCHES = 0
         if cfg.family == "moe":
             model.drop_counter = DropCounter()
         t0 = time.perf_counter()
@@ -2578,6 +2627,10 @@ def phase_serve(dev):
         model.drop_counter = None
         counts = {"flash_attention": fa.LAUNCHES, "ssd": ssd.LAUNCHES}
         bodies = {"flash_attention": dict(fa.PATH_LAUNCHES), "ssd": dict(ssd.PATH_LAUNCHES)}
+        split = fa.SPLIT_LAUNCHES
+        if cfg.head_dim == 256 and want is not None and not split:
+            fail(f"{name}: no d = 256 prefill took the split grid (its prompts from 512 tokens "
+                 f"leave SMs idle unsplit)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if want is None:
             if any(counts.values()):
@@ -2635,6 +2688,7 @@ def phase_serve(dev):
             "decode_ms_per_tick_mean": float(tick.mean()), "drain_s": drain_s,
             "generated_tokens_per_s": SERVE_NEW * len(done) / drain_s,
             "peak_memory_gb": peak_gb, "launches": counts, "launches_by_body": bodies,
+            "flash_split_launches": split,
             "dropped_at_capacity": drops, "gate_capacity_factor": gate_cf,
             "teacher_forced_max_abs_err": tf_err, "teacher_forced_max_abs_logit": tf_scale,
             "teacher_forced_argmax_agree": f"{agree}/{SERVE_NEW * len(gate_done)}",

@@ -51,7 +51,7 @@ _SIGNATURES = {
     ),
     "repro_flash_attention": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F,
-        _P,
+        _I, _P, _L, _P, _P,
     ),
     "repro_ssd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
@@ -64,7 +64,8 @@ _SIGNATURES = {
 CUDA_CONSTANTS = {
     "common.cuh": {"REPRO_MAX_DP": 16, "kExtWarpDirs": 128, "kExtMaxWarps": 13, "kExtTile": 16,
                    "kExtCtasPerSm": 2, "kExtMaxBlockRows": 512},
-    "flash_attention.cu": {"kFlashMaxD": 256, "kWgKeys": 128, "kWgKeysWide": 64},
+    "flash_attention.cu": {"kFlashMaxD": 256, "kWgRows": 128, "kWgKeys": 128, "kWgKeysWide": 64,
+                           "kSplitMinCap": 4, "kSplitMaxParts": 2, "kPartPad": 8},
     "extremes.cu": {"kExtWideRd": 8, "kExtWideRr": 8, "kExtWideTileDirs": 128,
                     "kExtWideTileRows": 128, "kExtWideCtasPerSm": 2, "kExtWideOneWarps": 4,
                     "kExtWideOneCtasPerSm": 4},

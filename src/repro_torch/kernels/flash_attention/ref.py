@@ -1,6 +1,8 @@
 """Plain PyTorch version of the flash-attention kernel: dense masked softmax
 attention in f32 (``repro/kernels/flash_attention/ref.py::attention_ref``)
-with the GQA head mapping, on the (B, S, H, d) layout."""
+with the GQA head mapping, on the (B, S, H, d) layout; and a plain model of
+the wgmma body's split grid (``key_tiles``, ``split_parts``,
+``split_attention_ref``)."""
 from __future__ import annotations
 
 import torch
@@ -49,3 +51,59 @@ def bf16_error_bound(
     o = torch.einsum("bkgst,btkd->bskgd", w, vf).reshape(q.shape)
     spread = torch.einsum("bkgst,btkd->bskgd", w.square(), vf.square()).sqrt().reshape(q.shape)
     return o, BF16_U * o.abs() + 4 * BF16_U * spread + 1e-4
+
+
+def key_tiles(S: int, kt: int, causal: bool, rows: int) -> list[int]:
+    """Key tiles of kt keys that each q tile of ``rows`` rows walks (the
+    kernel's ``wg_tiles``): up to the diagonal's tile when causal."""
+    n_kv = -(-S // kt)
+    return [min(n_kv, -(-(t + 1) * rows // kt)) if causal else n_kv
+            for t in range(-(-S // rows))]
+
+
+def split_parts(n: int, cap: int) -> list[tuple[int, int]]:
+    """The key-tile ranges [j0, j1) of the ceil(n / cap) near-even parts
+    that the kernel's ``wg_part`` cuts n key tiles into."""
+    parts = -(-n // cap)
+    return [(y * n // parts, (y + 1) * n // parts) for y in range(parts)]
+
+
+def split_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, cap: int, kt: int,
+    rows: int = 128,
+) -> torch.Tensor:
+    """The split grid's arithmetic in f32, part by part: each part of a q
+    tile (at most ``cap`` key tiles) attends its key range alone and keeps
+    its unnormalised O_p, row max m_p (−1e30 where it holds no key of the
+    row, as the kernel) and row sum l_p; the parts then merge in part
+    order, m = max_p m_p, w_p = e^(m_p − m), O = Σ_p w_p O_p / Σ_p w_p l_p.
+    The same function as ``flash_attention_ref`` up to the order of the
+    sums."""
+    B, S, H, d = q.shape
+    g = H // k.shape[2]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(g, dim=2) for t in (k, v))
+    out = torch.empty(B, S, H, d, device=q.device)
+    for t, n in enumerate(key_tiles(S, kt, causal, rows)):
+        r0, r1 = t * rows, min(S, (t + 1) * rows)
+        ms, ls, os_ = [], [], []
+        for j0, j1 in split_parts(n, cap):
+            k0, k1 = j0 * kt, min(S, j1 * kt)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, r0:r1], kf[:, k0:k1]) * d ** -0.5
+            if causal:
+                keep = (torch.arange(k0, k1, device=q.device)[None, :]
+                        <= torch.arange(r0, r1, device=q.device)[:, None])
+                s = s.masked_fill(~keep, float("-inf"))
+            m = torch.cat([s, s.new_full((*s.shape[:-1], 1), -1e30)], -1).amax(-1)
+            w = torch.exp(s - m[..., None])
+            ms.append(m)
+            ls.append(w.sum(-1))
+            os_.append(torch.einsum("bhqk,bkhd->bhqd", w, vf[:, k0:k1]))
+        m = torch.stack(ms).amax(0)
+        acc, total = torch.zeros_like(os_[0]), torch.zeros_like(ls[0])
+        for m_p, l_p, o_p in zip(ms, ls, os_):
+            w_p = torch.exp(m_p - m)
+            acc = acc + w_p[..., None] * o_p
+            total = total + w_p * l_p
+        out[:, r0:r1] = (acc / total.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype)

@@ -695,7 +695,8 @@ def test_scoring_on_the_card_matches_the_cpu_path_at_j10(dev):
 
 
 # the wgmma body (bf16, d ∈ {64, 128}) at GQA ratios H/KV ∈ {1, 4, 8} and S
-# around its 128-row tiles, then the mma.sync (d ∈ {16, 32}) and f32-FMA bodies
+# around its 128-row tiles (small grids split the heaviest q tiles' key
+# ranges), then the mma.sync (d ∈ {16, 32}) and f32-FMA bodies
 _FA_CASES = [
     (2 if S == 777 else 1, S, 2 * ratio, 2, d, "bfloat16")
     for d in (64, 128) for ratio in (1, 4, 8) for S in (1, 63, 64, 65, 777, 1024, 2048)
@@ -713,12 +714,16 @@ _FA_CASES = [
     if (d, dtype) != (256, "bfloat16") for B, S, H, KV in ((1, 1, 2, 1), (2, 130, 4, 2), (1, 257, 10, 1))
 ] + [
     # the served shapes no earlier case covers: phi-3-vision's bf16 d = 96
-    # on the f32-FMA body (its prefill of 256 patches and 1,024 tokens),
+    # on the wgmma body (its prefill of 256 patches and 1,024 tokens),
     # whisper-medium's encoder on the wgmma body at d = 64 over 1,500
     # frames at the served batch of 4, gemma-2b's 8 heads on one KV head
     (1, S, 32, 32, 96, "bfloat16") for S in (1, 65, 1280)
 ] + [(4, 1500, 16, 16, 64, "bfloat16")] + [
     (1, S, 8, 1, 256, "bfloat16") for S in (65, 1024)
+] + [
+    # d = 96 on the wgmma body (two 64-column chunks, the second zero-filled
+    # past 96) around its 128-row tiles, at GQA ratios 1 and 4
+    (1, S, 2 * ratio, 2, 96, "bfloat16") for ratio in (1, 4) for S in (1, 63, 64, 65, 129, 1280)
 ]
 
 
@@ -732,8 +737,8 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
     qkv = torch.randn(B, S, H + 2 * KV, d, generator=g).to(dev, getattr(torch, dtype))
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
     path = ops.kernel_path(q)
-    assert path == {64: "wgmma", 128: "wgmma", 256: "wgmma", 16: "mma", 32: "mma"}.get(
-        d if dtype == "bfloat16" else 0, "simt")
+    assert path == {64: "wgmma", 96: "wgmma", 128: "wgmma", 256: "wgmma", 16: "mma",
+                    32: "mma"}.get(d if dtype == "bfloat16" else 0, "simt")
     before, before_path = ops.LAUNCHES, ops.PATH_LAUNCHES[path]
     out = ops.flash_attention(q, k, v, causal=causal)
     assert ops.LAUNCHES == before + 1 and ops.PATH_LAUNCHES[path] == before_path + 1
@@ -747,7 +752,7 @@ def test_flash_attention_kernel(dev, B, S, H, KV, d, dtype, causal):
         assert bool(((out.float() - o).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_attention_copies_misaligned_bf16_rows(dev, d):
     """A bf16 input off the 16-byte grid runs the same tensor-core body on
     an aligned copy: the same bits as the aligned input."""
@@ -762,6 +767,73 @@ def test_flash_attention_copies_misaligned_bf16_rows(dev, d):
     outs = [ops.flash_attention(t[:, :, :H], t[:, :, H:H + KV], t[:, :, H + KV:])
             for t in (odd, even)]
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_d96_reads_and_writes_its_own_columns(dev, causal):
+    """At d = 96 the wgmma body pads to 128 columns in shared memory only:
+    q, k and v whose next head in memory is NaN give a finite output within
+    the bound (TMA reads no column past 96), and an output whose last row
+    is followed by sentinels leaves them alone (the store, and the merge of
+    a split q tile's parts, write columns < 96 only)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, KV, d = 1, 1280, 4, 1, 96
+    buf = torch.randn(B, S, 2 * (H + 2 * KV), d, generator=_g(96)).to(dev, torch.bfloat16)
+    buf[:, :, 1::2] = float("nan")  # every head's neighbour in memory
+    q, k, v = buf[:, :, 0:2 * H:2], buf[:, :, 2 * H:2 * H + 2 * KV:2], buf[:, :, 2 * H + 2 * KV::2]
+    assert ops.kernel_path(q) == "wgmma"
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(out).all())
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    o, bound = ref.bf16_error_bound(qc, kc, vc, causal=causal)
+    assert bool(((out.float() - o).abs() <= bound).all())
+    torch.testing.assert_close(out.float(), o, rtol=0, atol=3e-2)
+
+    sentinel = -7.0
+    flat = torch.full((out.numel() + 64,), sentinel, dtype=torch.bfloat16, device=dev)
+    dst = flat[:out.numel()].view(out.shape)
+    cap, slots = ops.split_plan(S, B * H, d, causal, _lib.sm_count(dev.index or 0))
+    assert slots  # 40 CTAs split: the merge of a q tile's two parts writes too
+    work = torch.empty(slots * ops.ROWS * (d + ops._C["kPartPad"] + 2), dtype=torch.float32,
+                       device=dev)
+    stream = _lib.stream_ptr(dev)
+    _lib.check(_lib.lib().repro_flash_attention(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), dst.data_ptr(), 1, 2, B, S, H, KV, d,
+        *qc.stride()[:3], *kc.stride()[:3], *vc.stride()[:3], int(causal), d ** -0.5, cap,
+        work.data_ptr(), slots, ops._tickets(dev, stream, 2 * slots).data_ptr(), stream),
+        "repro_flash_attention")
+    torch.cuda.synchronize()
+    assert bool((flat[out.numel():] == sentinel).all())
+    assert torch.equal(dst, out)
+
+
+@pytest.mark.parametrize("S,H,KV,d,causal,split", [
+    (1024, 8, 1, 256, True, True), (1024, 8, 1, 256, False, True),
+    (1024, 10, 1, 256, True, True), (1024, 10, 1, 256, False, False),
+    (1280, 2, 2, 96, True, True), (1280, 2, 2, 96, False, True),
+    (1024, 2, 2, 64, True, True), (1024, 2, 2, 64, False, True),
+])
+def test_flash_attention_split_grid_is_bit_identical(dev, S, H, KV, d, causal, split):
+    """gemma-2b's and recurrentgemma's d = 256 prefill (and small grids at
+    d = 96 and 64) split the heaviest q tiles where the unsplit grid leaves
+    SMs idle (on the H100's 132 SMs as listed; another card by its plan);
+    the part of a q tile to finish second merges the two in part order, so
+    two calls give the same bits, within the bound of the plain version."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    qkv = torch.randn(1, S, H + 2 * KV, d, generator=_g(S + H)).to(dev, torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    if _lib.sm_count(dev.index or 0) != 132:
+        split = ops.split_plan(S, H, d, causal, _lib.sm_count(dev.index or 0))[1] > 0
+    before = ops.SPLIT_LAUNCHES
+    outs = [ops.flash_attention(q, k, v, causal=causal) for _ in range(2)]
+    assert ops.SPLIT_LAUNCHES == before + 2 * split
+    assert torch.equal(outs[0], outs[1])
+    o, bound = ref.bf16_error_bound(q, k, v, causal=causal)
+    assert bool(((outs[0].float() - o).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("B,T,H,P,N,chunk,dtype,with_state", [

@@ -86,9 +86,61 @@ def test_flash_dispatch_follows_the_tensor():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 16, "mma"),
     (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "simt"), (torch.bfloat16, 8, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float16, 64, "simt"),
+    (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 80, "simt"),
+    (torch.bfloat16, 160, "simt"), (torch.float32, 96, "simt"),
 ])
 def test_flash_kernel_path_picks_the_body(dtype, d, path):
-    """bf16 at the dense heads' widths (64, 128) takes the wgmma body, bf16
-    at 16 and 32 the mma.sync body, anything else the f32-FMA body."""
+    """bf16 at the zoo's head widths (64, 96, 128, 256) takes the wgmma
+    body, bf16 at 16 and 32 the mma.sync body, anything else the f32-FMA
+    body."""
     assert ops.kernel_path(torch.zeros(1, 2, 2, d, dtype=dtype)) == path
     assert set(ops.PATH_LAUNCHES) == {"wgmma", "mma", "simt"}
+
+
+@pytest.mark.parametrize("S,heads,d,causal,n_sm,want", [
+    # recurrentgemma-2b's and gemma-2b's prefill at d = 256 (64-key tiles):
+    # 80 and 64 CTAs unsplit; the q tiles past 8 key tiles in two parts,
+    # 120 and 96 CTAs in one wave of 132
+    (1024, 10, 256, True, 132, (8, 80)), (1024, 8, 256, True, 132, (8, 64)),
+    # the grids that already fill the card stay whole: qwen2-moe and olmo
+    # (128 CTAs), tinyllama (256), phi-3-vision (320), whisper's encoder
+    (1024, 16, 128, True, 132, (8, 0)), (1024, 32, 64, True, 132, (8, 0)),
+    (1280, 32, 96, True, 132, (10, 0)), (1500, 64, 64, False, 132, (12, 0)),
+    # non-causal, every q tile alike: two parts each would be 160 CTAs
+    (1024, 10, 256, False, 132, (16, 0)), (1024, 8, 256, False, 132, (8, 128)),
+    # a split grid caps a CTA at kSplitMinCap key tiles at least, and a q
+    # tile at kSplitMaxParts parts
+    (256, 32, 64, True, 132, (2, 0)), (512, 10, 256, True, 132, (4, 40)),
+    (1280, 4, 96, True, 132, (5, 40)), (2048, 1, 64, True, 132, (8, 16)),
+])
+def test_flash_split_plan(S, heads, d, causal, n_sm, want):
+    """The wgmma grid splits the heaviest q tiles' key ranges only where the
+    unsplit grid leaves SMs idle, into the fewest key tiles a CTA that keep
+    every CTA in one wave; the slots count the split parts."""
+    from repro_torch.kernels.flash_attention.ref import key_tiles
+
+    cap, slots = ops.split_plan(S, heads, d, causal, n_sm)
+    assert (cap, slots) == want
+    tiles = key_tiles(S, 64 if d > 128 else 128, causal, ops.ROWS)
+    parts = [-(-n // cap) for n in tiles]
+    assert slots == heads * sum(p for p in parts if p > 1)
+    assert heads * sum(parts) <= n_sm or slots == 0
+    assert max(parts) <= ops._C["kSplitMaxParts"]
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,kt", [(1, 300, 2, 1, 64, 64), (2, 257, 4, 2, 32, 128),
+                                          (1, 129, 2, 2, 16, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap", [1, 2, 3, 64])
+def test_flash_split_model_matches_attention_ref(B, S, H, KV, d, kt, causal, cap):
+    """The split grid's arithmetic (each part alone, then the merge of the
+    parts' O, max and sum in part order) is attention: the plain model
+    against the JAX package's ``attention_ref`` at the reference's f32
+    tolerance, for every cap down to one key tile a part (where a causal
+    part above a row's diagonal holds no key of it)."""
+    from repro_torch.kernels.flash_attention.ref import split_attention_ref
+
+    q, k, v = _inputs(B, S, H, KV, d, S + cap)
+    got = split_attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal, cap=cap, kt=kt,
+                              rows=128).numpy()
+    np.testing.assert_allclose(got, _oracle(q, k, v, causal), rtol=0, atol=2e-5)
