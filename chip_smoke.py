@@ -4491,6 +4491,356 @@ def phase_audit(dev):
     return census, rec
 
 
+# ---------------------------------------------------------------- phase 14
+
+SHARD_ARCH = "tinyllama-1.1b"
+SHARD_STEPS = 5
+SHARD_BATCH, SHARD_SEQ = 8, 64        # phase 12's batch
+SHARD_REL = 1e-5                      # losses, relative (tests/test_torch_shard_train_step.py)
+SHARD_PARAM_LR = 1e-3                 # params: 1e-5 of their largest + this × Σ lr (same test)
+COLL_WORLDS = (2, 4)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False), ("tinyllama-1.1b", "decode_32k", False),
+                ("mamba2-370m", "long_500k", True), ("arctic-480b", "prefill_32k", True))
+
+
+def _shard_optimizer():
+    from repro_torch import optim as TO
+
+    return TO.chain(TO.clip_by_global_norm(1.0), TO.adamw(TO.cosine_warmup(1e-2, 2, 6)))
+
+
+def _shard_lr_sum(steps: int) -> float:
+    from repro_torch import optim as TO
+
+    return sum(float(TO.cosine_warmup(1e-2, 2, 6)(i)) for i in range(steps))
+
+
+def _shard_batches(cfg, dev, n: int, batch: int, seq: int) -> list:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(14)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int64)
+        out.append({"tokens": torch.tensor(toks[:, :-1], device=dev),
+                    "labels": torch.tensor(toks[:, 1:], device=dev),
+                    "weights": torch.tensor(rng.uniform(0.2, 3.0, batch).astype(np.float32),
+                                            device=dev)})
+    return out
+
+
+def _shard_run(cfg, dev, mesh=None, steps: int = SHARD_STEPS, batch: int = SHARD_BATCH,
+               seq: int = SHARD_SEQ) -> dict:
+    """``steps`` steps of ``make_train_step`` (``mesh`` None) or of
+    ``shard_train_step`` on the DeviceMesh ``mesh``: losses, step ms, the
+    params on the host (gathered)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state, make_train_step, shard_train_step
+    from repro_torch.train.state import tree_leaves
+
+    model = build_model(cfg, device=dev, train=True, seed=0)
+    opt = _shard_optimizer()
+    step = make_train_step(model, opt)
+    if mesh is not None:
+        step, _, _ = shard_train_step(step, model, opt, mesh)
+    state = init_train_state(model.param_tree(), opt)
+    losses, ms = [], []
+    for b in _shard_batches(cfg, dev, steps, batch, seq):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    params = [(p.full_tensor() if hasattr(p, "full_tensor") else p).detach().float().cpu()
+              for p in tree_leaves(state.params)]
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms, "params": params,
+            "median_ms_after_first": float(np.median(ms[1:])) if len(ms) > 1 else ms[0]}
+
+
+def _shard_compare(got: dict, ref: dict, steps: int, *, same_bits: bool = False) -> dict:
+    """The losses within SHARD_REL and the params within the tests' rule;
+    with ``same_bits``, every loss and param bit for bit as well."""
+    import numpy as np
+    import torch
+
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    bound_lr = SHARD_PARAM_LR * _shard_lr_sum(steps)
+    worst = 0.0
+    same = got["losses"] == ref["losses"]
+    for g, r in zip(got["params"], ref["params"], strict=True):
+        g, r = torch.as_tensor(g), torch.as_tensor(r)
+        err = float((g - r).abs().max())
+        same = same and bool(torch.equal(g, r))
+        worst = max(worst, err / (1e-5 * float(r.abs().max()) + bound_lr))
+    ok = rel <= SHARD_REL and worst <= 1.0 and np.isfinite(rel) and (same or not same_bits)
+    return {"loss_rel": rel, "param_err_over_bound": worst, "same_bits": same, "ok": bool(ok)}
+
+
+def _gloo_cuda_failure(exc: RuntimeError) -> bool:
+    """Whether a gloo world's failure is the known one of DTensor's CUDA
+    collectives over gloo: every rank killed by a signal (a SIGSEGV in
+    gloo's CUDA path), or gloo refusing CUDA tensors."""
+    text = str(exc)
+    if not text.startswith("mesh world failed"):
+        return False
+    codes = re.findall(r"rank \d+: exited with code (-?\d+) and no result", text)
+    if len(codes) == 2 and all(int(c) < 0 for c in codes):
+        return True
+    if re.search(r"no backend type associated with device type cuda", text, re.I):
+        return True  # the world's only backend, gloo, has no CUDA collectives
+    return bool(re.search(r"gloo", text, re.I) and re.search(r"cuda", text, re.I)
+                and re.search(r"not support", text, re.I))
+
+
+def phase14_collectives_rank(mesh, inp):
+    """One rank of phase 14 (b): the ring and reduce-scatter matmuls, the
+    int8 all-reduce, compress_and_average (two rounds) and the GPipe
+    forward on the rank's CUDA blocks, gloo staging them through the host."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.collectives import (psum_quantized, reduce_scatter_matmul,
+                                                     ring_allgather_matmul)
+    from repro_torch.distributed.grad_compress import compress_and_average, init_error_state
+    from repro_torch.distributed.pipeline_parallel import pipeline_forward, split_stages
+
+    dev, R, r = mesh.device, mesh.world, mesh.rank
+    ranks = torch.arange(R)
+    t = {k: torch.tensor(v, device=dev) for k, v in inp.items()}
+    model = DeviceMesh("cpu", ranks, mesh_dim_names=("model",))
+    k = t["X"].shape[1] // R
+    xs, ws = t["X"][:, r * k:(r + 1) * k], t["W"][r * k:(r + 1) * k]
+    out = {"ring": ring_allgather_matmul(xs, ws, model, "model").cpu().numpy(),
+           "rs": reduce_scatter_matmul(xs, ws, model, "model").cpu().numpy(),
+           "psum_q": psum_quantized(t["Q"][r], mesh, "data").cpu().numpy()}
+    grads = {"a": t["GA"][r], "b": t["GB"][r]}
+    err = init_error_state(grads)
+    out["compress"] = []
+    for _ in range(2):
+        avg, err = compress_and_average(grads, err, mesh, "data")
+        out["compress"].append({k: (avg[k].cpu().numpy(), err[k].cpu().numpy()) for k in avg})
+    stage = DeviceMesh("cpu", ranks, mesh_dim_names=("stage",))
+    out["pipeline"] = pipeline_forward(t["XM"], split_stages(t["LW"], R),
+                                       lambda w, h: torch.tanh(h @ w), stage).cpu().numpy()
+    out["device"] = str(dev)
+    return out
+
+
+def _collectives_expected(inp: dict, R: int, dev) -> dict:
+    """The single-process results phase 14 (b) holds each rank to: the
+    products in f32 on the card, the int8 all-reduce and the compression
+    emulated on the stacked blocks (integer sums, the same f32 roundings),
+    the pipeline as the sequential stack."""
+    import numpy as np
+    import torch
+
+    t = {k: torch.tensor(v, device=dev) for k, v in inp.items()}
+    qmax = 127
+
+    def psum_q(stack):
+        scale = torch.clamp(torch.abs(stack).amax() / qmax, min=1e-12)
+        q = torch.clamp(torch.round(stack / scale), -qmax, qmax).to(torch.int32)
+        return q.sum(0).to(torch.float32) * scale, scale
+
+    exp = {"ring": (t["X"] @ t["W"]).cpu().numpy()}
+    exp["psum_q"] = psum_q(t["Q"])[0].cpu().numpy()
+    rounds = []
+    err = {"a": torch.zeros_like(t["GA"]), "b": torch.zeros_like(t["GB"])}
+    for _ in range(2):
+        one = {}
+        for key in ("a", "b"):
+            corrected = t["G" + key.upper()] + err[key]
+            total, scale = psum_q(corrected)
+            sent = torch.clamp(torch.round(corrected / scale), -qmax, qmax) * scale
+            err[key] = corrected - sent
+            one[key] = ((total / R).cpu().numpy(), err[key].cpu().numpy())
+        rounds.append(one)
+    exp["compress"] = rounds
+    h = t["XM"]
+    for w in t["LW"]:
+        h = torch.tanh(h @ w)
+    exp["pipeline"] = h.cpu().numpy()
+    return exp
+
+
+def phase14_sharded_rank(mesh, arch):
+    """Phase 14 (c): the sharded step on the (1, 2) mesh of a gloo world of
+    2 whose ranks share the card (reduced config, f32)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import device_mesh
+
+    cfg = get_reduced_config(arch).replace(dtype="float32")
+    run = _shard_run(cfg, mesh.device, device_mesh(mesh, model=2), steps=3, batch=8, seq=16)
+    run["params"] = [p.numpy() for p in run["params"]] if mesh.rank == 0 else None
+    return run
+
+
+def phase_sharding(dev, scratch: str):
+    """Phase 14: the LM's sharding layer.
+
+    (a) ``shard_train_step`` at full width (tinyllama-1.1b, phase 12's
+        batch 8 × 64, SHARD_STEPS steps of the train-step tests' optimizer)
+        on an NCCL world of 1 with a 1 × 1 ("data", "model") DeviceMesh,
+        against ``make_train_step`` on the same weights and batches: every
+        placement is Replicate there, so the losses and params must agree
+        bit for bit; each step's ms beside the plain step's (the
+        difference is DTensor's host cost).
+    (b) The ring and reduce-scatter matmuls, the int8 all-reduce,
+        compress_and_average and the GPipe forward on gloo worlds of 2 and
+        4 whose ranks share the card, each held to its single-process
+        result.
+    (c) The sharded step on a gloo world of 2 ((1, 2) mesh) sharing the
+        card: DTensor's collectives on CUDA tensors over gloo. If it runs,
+        its losses and params are held to the same steps in one process;
+        the known failure (every rank killed by a signal, or gloo refusing
+        CUDA tensors) is printed (the CPU tests carry that mesh), and any
+        other error fails the run.
+    (d) ``launch/dryrun.py`` on DRYRUN_CELLS, traced on the CPU: per-rank
+        argument bytes, peak, FLOPs, collective bytes, the dominant term.
+    Returns the record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import init_mesh, run_world
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh
+
+    errs: list[str] = []
+    rec: dict = {}
+    os.makedirs(scratch, exist_ok=True)
+
+    # ---- (a) full width, NCCL world of 1
+    cfg = get_config(SHARD_ARCH)
+    t0 = time.perf_counter()
+    plain = _shard_run(cfg, dev)
+    mesh = init_mesh(0, 1, backend="nccl", device=dev,
+                     init_method="file://" + os.path.join(scratch, "nccl14"))
+    try:
+        sharded = _shard_run(cfg, dev, device_mesh(mesh, model=1))
+    finally:
+        mesh.close()
+    cmp = _shard_compare(sharded, plain, SHARD_STEPS, same_bits=True)
+    rec["a"] = {"plain_step_ms": plain["step_ms"], "sharded_step_ms": sharded["step_ms"],
+                "plain_losses": plain["losses"], "sharded_losses": sharded["losses"], **cmp,
+                "seconds": time.perf_counter() - t0}
+    log(f"phase 14 (a) {SHARD_ARCH} full width, 1 × 1 mesh on NCCL: losses "
+        f"{[round(x, 6) for x in sharded['losses']]} vs plain "
+        f"{[round(x, 6) for x in plain['losses']]}; loss rel {cmp['loss_rel']:.3g}, param err "
+        f"{cmp['param_err_over_bound']:.3g} of its bound, same bits {cmp['same_bits']}; step ms "
+        f"sharded {[round(x, 1) for x in sharded['step_ms']]} vs plain "
+        f"{[round(x, 1) for x in plain['step_ms']]} (median after the first "
+        f"{sharded['median_ms_after_first']:.1f} vs {plain['median_ms_after_first']:.1f}: "
+        f"DTensor's host cost {sharded['median_ms_after_first'] - plain['median_ms_after_first']:.1f}"
+        f" ms a step)")
+    if not cmp["ok"]:
+        errs.append(f"(a) the sharded step on the 1 × 1 mesh is not the plain one bit for bit: "
+                    f"{cmp}")
+    del plain, sharded
+
+    # ---- (b) the collectives on gloo worlds sharing the card
+    rec["b"] = {}
+    for R in COLL_WORLDS:
+        rng = np.random.default_rng(3 + R)
+        inp = {"X": rng.standard_normal((16, 64)).astype(np.float32),
+               "W": rng.standard_normal((64, 32)).astype(np.float32),
+               "Q": rng.standard_normal((R, 64)).astype(np.float32),
+               "GA": rng.standard_normal((R, 5, 30)).astype(np.float32),
+               "GB": (rng.standard_normal((R, 40)) * 1e-3).astype(np.float32),
+               "LW": (rng.standard_normal((8, 16, 16)) * 0.1).astype(np.float32),
+               "XM": rng.standard_normal((4, 2, 4, 16)).astype(np.float32)}
+        t0 = time.perf_counter()
+        ranks = run_world(phase14_collectives_rank, R, backend="gloo", devices=[dev] * R,
+                          args=(inp,), timeout_s=300)
+        secs = time.perf_counter() - t0
+        exp = _collectives_expected(inp, R, dev)
+        rows = exp["ring"].shape[0] // R
+        res = {"ring_max_err": 0.0, "rs_max_err": 0.0, "psum_q_same": True,
+               "compress_same": True, "pipeline_max_err": 0.0, "seconds": secs}
+        for r, got in enumerate(ranks):
+            res["ring_max_err"] = max(res["ring_max_err"],
+                                      float(np.abs(got["ring"] - exp["ring"]).max()))
+            res["rs_max_err"] = max(res["rs_max_err"], float(np.abs(
+                got["rs"] - exp["ring"][r * rows:(r + 1) * rows]).max()))
+            res["psum_q_same"] &= bool(np.array_equal(got["psum_q"], exp["psum_q"]))
+            for gr, er in zip(got["compress"], exp["compress"]):
+                for key in ("a", "b"):
+                    res["compress_same"] &= bool(np.array_equal(gr[key][0], er[key][0])
+                                                 and np.array_equal(gr[key][1], er[key][1][r]))
+            res["pipeline_max_err"] = max(res["pipeline_max_err"],
+                                          float(np.abs(got["pipeline"] - exp["pipeline"]).max()))
+        rec["b"][R] = res
+        log(f"phase 14 (b) gloo world {R} on {ranks[0]['device']}: ring matmul max err "
+            f"{res['ring_max_err']:.3g}, reduce-scatter {res['rs_max_err']:.3g}, int8 all-reduce "
+            f"same bits {res['psum_q_same']}, compress_and_average same bits "
+            f"{res['compress_same']}, pipeline max err {res['pipeline_max_err']:.3g} "
+            f"({secs:.1f}s)")
+        scale = float(np.abs(exp["ring"]).max())
+        if not (res["ring_max_err"] <= 1e-3 + 1e-4 * scale and res["rs_max_err"] <= 1e-3 + 1e-4 * scale
+                and res["psum_q_same"] and res["compress_same"] and res["pipeline_max_err"] <= 1e-5):
+            errs.append(f"(b) world {R}: {res}")
+
+    # ---- (c) the sharded step over gloo with CUDA tensors
+    t0 = time.perf_counter()
+    try:
+        ranks = run_world(phase14_sharded_rank, 2, backend="gloo", devices=[dev] * 2,
+                          args=(SHARD_ARCH,), timeout_s=300)
+        from repro_torch.configs import get_reduced_config
+
+        one = _shard_run(get_reduced_config(SHARD_ARCH).replace(dtype="float32"), dev, steps=3,
+                         batch=8, seq=16)
+        cmp_c = _shard_compare(ranks[0], one, 3)
+        rec["c"] = {"ran": True, "losses": ranks[0]["losses"], "plain_losses": one["losses"],
+                    **cmp_c, "seconds": time.perf_counter() - t0}
+        log(f"phase 14 (c) sharded step on a gloo world of 2 sharing the card: ran, losses "
+            f"{[round(x, 6) for x in ranks[0]['losses']]} vs one process "
+            f"{[round(x, 6) for x in one['losses']]}: {cmp_c}")
+        if not cmp_c["ok"] or any(r["losses"] != ranks[0]["losses"] for r in ranks):
+            errs.append(f"(c) the sharded step on (1, 2) disagrees with one process: {cmp_c}")
+    except RuntimeError as exc:  # the known failure is reported: the CPU tests carry this mesh
+        if not _gloo_cuda_failure(exc):
+            raise
+        msg = str(exc).strip().splitlines()
+        rec["c"] = {"ran": False, "error": "\n".join(msg[:3])[:600],
+                    "seconds": time.perf_counter() - t0}
+        log("phase 14 (c) the sharded step on a gloo world of 2 sharing the card did not run: "
+            + " | ".join(msg[:3])[:600])
+
+    # ---- (d) the LM dry run on the CPU
+    rec["d"] = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.lower_cell(arch, shape, multi_pod=multi_pod)
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+        ma = r["memory_analysis"]
+        rec["d"][f"{arch} {shape} {mesh_name}"] = {
+            k: r[k] for k in ("hlo_flops", "hlo_bytes", "collective_bytes", "peak_memory_bytes",
+                              "fits", "dominant", "compute_s", "memory_s", "collective_s",
+                              "redistributions", "collective_by_op")}
+        rec["d"][f"{arch} {shape} {mesh_name}"]["argument_bytes"] = ma["argument_bytes"]
+        log(f"phase 14 (d) dry run {arch} {shape} {mesh_name}: per rank args "
+            f"{ma['argument_size_in_bytes'] / 1e9:.3f} GB {ma['argument_bytes']}, peak "
+            f"{r['peak_memory_bytes'] / 1e9:.3f} GB (fits 80 GB: {r['fits']}), "
+            f"{r['hlo_flops']:.6g} FLOP, collectives {r['collective_bytes'] / 1e9:.4f} GB, "
+            f"dominant {r['dominant']} (compute {r['compute_s']:.4g} s, memory "
+            f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s), redistributions "
+            f"{ {k: v['bytes'] for k, v in r['redistributions'].items()} } "
+            f"({time.perf_counter() - t0:.1f}s to trace)")
+        if r.get("skipped") or not r["hlo_flops"] > 0:
+            errs.append(f"(d) {arch} {shape} {mesh_name}: {r}")
+    if errs:
+        fail("phase 14: " + "; ".join(errs))
+    return rec
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -4551,6 +4901,12 @@ def main() -> None:
     t0 = time.perf_counter()
     p13_census, p13_rec = phase_audit(dev)
     log(f"phase 13 took {time.perf_counter() - t0:.1f}s ({card})")
+    t0 = time.perf_counter()
+    shard_scratch = os.path.join(ROOT, "build", "chip_smoke_shard")
+    shutil.rmtree(shard_scratch, ignore_errors=True)
+    p14_rec = phase_sharding(dev, shard_scratch)
+    shutil.rmtree(shard_scratch, ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f}s ({card})")
     launches["gram_large"] = p9_census["select D=2048 two-pass"]["gram_large"]
     launches["sweep_wide"] = p9_census["select D=2048 one-pass"]["sweep_wide"]
     for row in kernels:
@@ -4576,7 +4932,7 @@ def main() -> None:
                    "pipeline_census": p9_census, "serving": p10_rec,
                    "serving_census": p10_census, "mesh": p11_rec, "mesh_census": p11_census,
                    "lm_training": p12_rec, "lm_training_census": p12_census,
-                   "audit": p13_rec, "audit_census": p13_census},
+                   "audit": p13_rec, "audit_census": p13_census, "sharding": p14_rec},
                   f, indent=1, default=float)
     log(f"the script took {time.perf_counter() - t_script:.1f}s ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)

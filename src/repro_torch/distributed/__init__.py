@@ -1,12 +1,16 @@
-"""Data-parallel execution of the port over ``torch.distributed`` — the
-port's counterpart of the meshes ``repro.distributed`` and
-``repro.core.distributed_coreset`` run on (``mesh.py``: ``DataMesh``, the
-fixed-order fold, the host exchange, spawned worlds).
+"""Distributed execution of the port over ``torch.distributed`` — the
+port's counterpart of ``repro.distributed`` and of the meshes
+``repro.core.distributed_coreset`` runs on:
 
-The reference's LM parts of ``distributed/`` (sharding rules,
-``ring_allgather_matmul``, ``reduce_scatter_matmul``, ``psum_quantized``,
-``grad_compress``, ``pipeline_parallel``) go with the LM zoo, ROADMAP
-Queue A 11.
+  * ``mesh.py``: ``DataMesh``, the fixed-order fold, the host exchange,
+    spawned worlds (the coreset path);
+  * ``sharding.py``: the logical-axis sharding rules resolved to specs and
+    DTensor placements on a ``DeviceMesh`` (the LM's sharded step and dry
+    run);
+  * ``collectives.py``, ``grad_compress.py``, ``pipeline_parallel.py``:
+    the hand-written ring matmuls, the int8 all-reduce, gradient
+    compression with error feedback, and the GPipe forward, over the
+    process group of a mesh axis.
 """
 from repro_torch.distributed.mesh import (
     BACKENDS,
@@ -20,6 +24,14 @@ from repro_torch.distributed.mesh import (
     kv_allreduce,
     run_world,
 )
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    batch_specs,
+    default_rules,
+    replicated,
+    resolve_spec,
+    resolve_tree,
+)
 
 __all__ = [
     "BACKENDS",
@@ -32,4 +44,10 @@ __all__ = [
     "init_mesh",
     "kv_allreduce",
     "run_world",
+    "ShardingRules",
+    "batch_specs",
+    "default_rules",
+    "replicated",
+    "resolve_spec",
+    "resolve_tree",
 ]

@@ -8,7 +8,7 @@ its rank, the process group, its device and the names of its data axes (one
 name or a tuple, as ``launch.mesh.data_axes`` gives them). Every rank holds
 one row shard, so the shard count is the world size; the data axes are kept
 for the reference's ``axis=`` arguments, which ``check_axis`` holds to them
-(model-parallel axes belong to the LM zoo, ROADMAP Queue A 11).
+(the LM's model-parallel axes live on a ``DeviceMesh``: ``sharding.py``).
 
 A world of 1 needs no initialised process group: every collective is then
 the identity and returns its input, with no copy and no count.

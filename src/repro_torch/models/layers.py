@@ -66,7 +66,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.distributed.sharding import (WHOLE, attention_blocks, constrain, embed_lookup,
+                                              fsdp_gather, grad_splittable, heads_whole,
+                                              local_blocks, split_first, split_last, take_last)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 
@@ -91,7 +95,8 @@ def dense_init(generator: torch.Generator, in_dim: int, out_shape) -> torch.Tens
     """Truncated-normal (±2σ) fan-in init, on the generator's device."""
     shape = (in_dim,) + tuple(np.atleast_1d(out_shape))
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if not (t.is_meta or is_fake(t)):  # a fake tensor (the dry run's) has no values to draw
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t * float(1.0 / np.sqrt(in_dim))
 
 
@@ -165,6 +170,22 @@ def _sdpa(q, k, v, mask, logits_softcap: float = 0.0):
     q: (B, S, H, hd), k/v: (B, T, KV, hd) — H % KV == 0 (GQA broadcast).
     mask: (B, 1, S, T) or (S, T) boolean, True = attend.
     """
+    # on DTensors, each rank's (rows, heads) block (``sharding.attention_blocks``)
+    return attention_blocks(_sdpa_core, q, k, v, mask, logits_softcap,
+                            rest_dims=(None if mask.ndim == 4 else WHOLE, None))
+
+
+def _flash_core(q, k, v, causal: bool):
+    return flash_attention(q, k, v, causal=causal)
+
+
+def _flash(q, k, v, causal: bool):
+    """The flash-attention kernel (its plain version off the card); on
+    DTensors, each rank's (rows, heads) block (``sharding.attention_blocks``)."""
+    return attention_blocks(_flash_core, q, k, v, causal, rest_dims=(None,))
+
+
+def _sdpa_core(q, k, v, mask, logits_softcap: float = 0.0):
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
@@ -339,9 +360,17 @@ def attention_apply(
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     softcap = cfg.logits_softcap
-    q = (x @ params["wq"].to(x.dtype).reshape(d, H * hd)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].to(x.dtype).reshape(d, KV * hd)).reshape(B, S, KV, hd)
+    # redistribution point "head_split": a projection (or, in the backward,
+    # a flattened weight's gradient) split over more ranks than it has
+    # heads is gathered before its heads are unflattened
+    def proj(w, heads):
+        w = grad_splittable("head_split", w.to(x.dtype).reshape(d, heads * hd), 1, heads)
+        return split_last("head_split", x @ w, (heads, hd))
+
+    q, k, v = proj(params["wq"], H), proj(params["wk"], KV), proj(params["wv"], KV)
+    # heads that do not split evenly over the model axes stay whole there
+    q = heads_whole("head_split", q, H)
+    k, v = heads_whole("head_split", k, KV), heads_whole("head_split", v, KV)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -356,7 +385,7 @@ def attention_apply(
                 out = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device),
                             softcap)
             else:
-                out = flash_attention(q, k, v, causal=False)
+                out = _flash(q, k, v, False)
         elif cfg.prefill_flash_block and window == 0 and S > cfg.prefill_flash_block:
             out = blocked_causal_attention(q, k, v, cfg.prefill_flash_block, softcap)
         else:
@@ -392,7 +421,7 @@ def attention_apply(
             K[:, slots] = k.to(K.dtype)
             V[:, slots] = v.to(V.dtype)
             if kernel:
-                out = flash_attention(q, k, v, causal=True)
+                out = _flash(q, k, v, True)
             else:
                 abs_pos = _ring_slot_positions(pos.to(K.device) + S, window)[None, :]
                 qpos = p + torch.arange(S, device=K.device)[:, None]
@@ -403,8 +432,13 @@ def attention_apply(
                 raise ValueError(f"cache of {T} positions cannot take {S} more at {p}")
             K[:, p:p + S] = k.to(K.dtype)
             V[:, p:p + S] = v.to(V.dtype)
+            if cfg.decode_seq_shard:
+                # flash-decode: the cache stays sharded over the model axis
+                # along its sequence dim (the reference's constraint)
+                K = constrain(K, "batch", "model", None, None)
+                V = constrain(V, "batch", "model", None, None)
             if kernel:
-                out = flash_attention(q, k, v, causal=True)
+                out = _flash(q, k, v, True)
             elif cfg.prefill_flash_block and window == 0 and S > cfg.prefill_flash_block \
                     and p == 0:
                 # a soft-capped long prefill from empty: the reference's
@@ -417,7 +451,8 @@ def attention_apply(
                 mask = causal_mask(S, T, p, window, device=K.device)
                 out = _sdpa(q, K.to(x.dtype), V.to(x.dtype), mask, softcap)
         new_cache = {"k": K, "v": V, "pos": pos + S}
-    return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype).reshape(H * hd, d), new_cache
+    wo = grad_splittable("head_split", params["wo"].to(x.dtype).reshape(H * hd, d), 0, H)
+    return grad_splittable("head_split", out.reshape(B, S, H * hd), 2, H) @ wo, new_cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -474,7 +509,7 @@ def mla_apply(
     B, S, _ = x.shape
     H, nope, rdim, vdim = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     cq = _rms(x @ params["wdq"].to(x.dtype), params["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, params["wuq"].to(x.dtype))
+    q = heads_whole("head_split", torch.einsum("bsr,rhk->bshk", cq, params["wuq"].to(x.dtype)), H)
     q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
     ckv = _rms(x @ params["wdkv"].to(x.dtype), params["kv_norm"])  # (B, S, dc)
     krope = rope((x @ params["wkr"].to(x.dtype))[:, :, None, :], positions, cfg.rope_theta)
@@ -509,20 +544,34 @@ def mla_apply(
             raise ValueError(f"cache of {CKV.shape[1]} positions cannot take {S} more at {p}")
         CKV[:, p:p + S] = ckv.to(CKV.dtype)
         KR[:, p:p + S] = krope.to(KR.dtype)
+        if cfg.decode_seq_shard:
+            CKV = constrain(CKV, "batch", "model", None)
+            KR = constrain(KR, "batch", "model", None, None)
         new_cache = {"ckv": CKV, "krope": KR, "pos": pos + S}
         ckv_all, krope_all = CKV[:, :p + S].to(x.dtype), KR[:, :p + S].to(x.dtype)
         mask = causal_mask(S, p + S, p, device=CKV.device)
 
-    k_nope = torch.einsum("btc,chk->bthk", ckv_all, params["wuk"].to(x.dtype))
-    vmat = torch.einsum("btc,chk->bthk", ckv_all, params["wuv"].to(x.dtype))
+    k_nope = heads_whole("head_split",
+                         torch.einsum("btc,chk->bthk", ckv_all, params["wuk"].to(x.dtype)), H)
+    vmat = heads_whole("head_split",
+                       torch.einsum("btc,chk->bthk", ckv_all, params["wuv"].to(x.dtype)), H)
+    # redistribution point "attention_blocks" (``_sdpa``'s; MLA's keys have
+    # no KV heads to repeat)
+    out = local_blocks("attention_blocks", _mla_core, q_nope,
+                       (q_rope, k_nope, krope_all[:, :, 0], vmat, mask, float(np.sqrt(nope + rdim))),
+                       (2, 2, 2, None, 2, None if mask.ndim == 4 else WHOLE, None))
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), new_cache
+
+
+def _mla_core(q_nope, q_rope, k_nope, krope, vmat, mask, scale: float):
+    """MLA's attention over the latent keys: (B, S, H, v)."""
     # the two score products added in the activation dtype, then in f32
     scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
-              + torch.einsum("bshk,btk->bhst", q_rope, krope_all[:, :, 0])).float()
-    scores = scores / float(np.sqrt(nope + rdim))
+              + torch.einsum("bshk,btk->bhst", q_rope, krope)).float()
+    scores = scores / scale
     scores = scores.masked_fill(~mask, -1e30)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthk->bshk", w, vmat)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), new_cache
+    w = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhst,bthk->bshk", w, vmat)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -660,7 +709,9 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, act: str,
 
     frac_tokens = F.one_hot(top_e[:, 0], E).float().mean(0)
     aux = E_real * torch.sum(frac_tokens * probs.mean(0))
-    return y.reshape(B, S, D), aux
+    # redistribution point "token_rows": T tokens split over more ranks than
+    # the batch has rows (a microbatch of fewer rows than the data axis)
+    return split_first("token_rows", y, (B, S)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -676,7 +727,11 @@ def init_embeddings(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
-    x = params["embed"].to(dtype)[tokens]
+    # a sharded run looks up each rank's token rows in the whole table
+    # (redistribution point "embed_table"); pinned to plain batch sharding
+    # when a launcher enables the constraints
+    x = embed_lookup("embed_table", params["embed"].to(dtype), tokens)
+    x = constrain(x, "batch", None, None)
     if cfg.scale_embeddings:
         x = x * float(np.sqrt(cfg.d_model))
     return x
@@ -707,13 +762,19 @@ def chunked_xent_weighted(x: torch.Tensor, table: torch.Tensor, labels: torch.Te
     while S % n_chunks != 0:
         n_chunks += 1
     c = S // n_chunks
-    table = table.to(x.dtype)
+    # the table gathered over the rows' mesh dims (FSDP, "fsdp_gather"): else
+    # DTensor meets its data-split embed dim with the rows' split by
+    # gathering the activations
+    table = fsdp_gather("fsdp_gather", {"t": table.to(x.dtype)}, x)["t"]
     w = weights[:, None].float()
     labels = labels.long()
     total = x.new_zeros((), dtype=torch.float32)
     for i in range(n_chunks):
         logits = (x[:, i * c:(i + 1) * c] @ table.T).float()
         lse = torch.logsumexp(logits, -1)
-        gold = torch.gather(logits, -1, labels[:, i * c:(i + 1) * c, None])[..., 0]
+        # redistribution point "xent_gold": DTensor's gather of the gold
+        # logit from vocab-sharded logits builds a masked partial that fails
+        # to reduce; a sharded run takes it by a one-hot sum
+        gold = take_last("xent_gold", logits, labels[:, i * c:(i + 1) * c, None])
         total = total + torch.sum((lse - gold) * w)
     return total / (torch.sum(weights).float() * S)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_blocks
 from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models.config import ModelConfig
@@ -68,6 +69,13 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tail: torc
     return F.silu(out + b.to(xBC.dtype)), new_tail
 
 
+def _decode_step(xh, Bm, Cm, dt, a, state0):
+    """One recurrent step: (y (B, H, P) f32, state (B, H, P, N))."""
+    upd = torch.einsum("bgn,bhp,bh->bhpn", Bm.float(), xh.float(), dt)
+    state = state0 * a[:, :, None, None] + upd
+    return torch.einsum("bgn,bhpn->bhp", Cm.float(), state), state
+
+
 def ssd_apply(
     params: Params,
     x: torch.Tensor,
@@ -94,11 +102,13 @@ def ssd_apply(
     state0 = cache["state"].float() if cache is not None else None
 
     if T == 1 and cache is not None:
-        # decode: one recurrent step, no chunking
+        # decode: one recurrent step, no chunking; on DTensors each rank's
+        # (rows, heads) block (redistribution point "ssd_blocks")
         a = torch.exp(dt[:, 0] * A)  # (B, H)
-        upd = torch.einsum("bgn,bhp,bh->bhpn", Bm[:, 0].float(), xh[:, 0].float(), dt[:, 0])
-        state = state0 * a[:, :, None, None] + upd
-        y = torch.einsum("bgn,bhpn->bhp", Cm[:, 0].float(), state).to(x.dtype)[:, None]
+        y, state = local_blocks("ssd_blocks", _decode_step, xh[:, 0],
+                                (Bm[:, 0], Cm[:, 0], dt[:, 0], a, state0), (1, None, None, 1, 1, 1),
+                                out_head_dim=(1, 1))
+        y = y.to(x.dtype)[:, None]
     else:
         chunk = min(cfg.ssm_chunk, T)
         if T % chunk:

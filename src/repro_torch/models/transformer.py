@@ -51,6 +51,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.distributed.sharding import fsdp_gather, reduce_partial
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
@@ -81,6 +82,12 @@ def _stacked_masters(layers: list) -> nn.ModuleDict:
         part: _masters({k: torch.stack([lp[part][k] for lp in layers]) for k in leaves})
         for part, leaves in layers[0].items()
     })
+
+
+def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """x + a block's output, its pending sums reduced first on a sharded
+    run (redistribution point "residual", ``sharding.reduce_partial``)."""
+    return x + reduce_partial("residual", out)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -357,15 +364,16 @@ class Model(_LM):
                       cache=None):
         """One hybrid block (the reference's ``_block_apply``): (x, new_cache)."""
         cfg = self.cfg
+        lp = fsdp_gather("fsdp_gather", lp, x)
         h = L.apply_norm(lp["ln_mix"], x, cfg.norm_type)
         if kind == "rec":
             out, new_cache = RG.rglru_block_apply(lp["mix"], h, cfg, cache=cache)
         else:
             out, new_cache = L.attention_apply(lp["mix"], h, cfg, positions=positions,
                                                cache=cache, window=cfg.attn_window)
-        x = x + out
+        x = _residual(x, out)
         h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache
+        return _residual(x, L.mlp_apply(lp["mlp"], h, cfg.mlp_act)), new_cache
 
     def _hybrid_blocks(self, x: torch.Tensor, lps: list, positions: torch.Tensor):
         """Blocks 0, 1, ... of the pattern without a cache (a group, or the tail)."""
@@ -377,9 +385,10 @@ class Model(_LM):
         """One layer without a cache (the training forward): (x, aux), aux
         the MoE router loss or None."""
         cfg = self.cfg
+        lp = fsdp_gather("fsdp_gather", lp, x)
         if cfg.family == "ssm":
             out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg)
-            return x + out, None
+            return _residual(x, out), None
         x, _, aux = self._lm_layer(lp, x, positions)
         return x, aux
 
@@ -393,16 +402,16 @@ class Model(_LM):
         else:
             attn, new_cache = L.attention_apply(lp["attn"], h, cfg, positions=positions,
                                                 cache=cache)
-        x = x + attn
+        x = _residual(x, attn)
         h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
         if cfg.family != "moe":
-            return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache, None
+            return _residual(x, L.mlp_apply(lp["mlp"], h, cfg.mlp_act)), new_cache, None
         mo, aux = L.moe_apply(lp["moe"], h, cfg, cfg.mlp_act, self.drop_counter)
         if cfg.n_shared_experts > 0:
             mo = mo + L.mlp_apply(lp["shared"], h, cfg.mlp_act)
         if cfg.moe_dense_residual:
             mo = mo + L.mlp_apply(lp["dense"], h, cfg.mlp_act)
-        return x + mo, new_cache, aux
+        return _residual(x, mo), new_cache, aux
 
     def _run_with_cache(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
         cfg, pos, S = self.cfg, cache["pos"], x.shape[1]
@@ -424,7 +433,7 @@ class Model(_LM):
                 lc = {"conv": cache["conv"][i], "state": cache["state"][i], "pos": pos}
                 out, _ = SSM.ssd_apply(lp["ssd"], L.apply_norm(lp["ln"], x, cfg.norm_type), cfg,
                                        cache=lc)
-                x = x + out
+                x = _residual(x, out)
         else:
             for i, lp in enumerate(self._layer_params()):
                 lc = {k: v[i] for k, v in cache.items() if k != "pos"}
@@ -593,29 +602,32 @@ class EncDecModel(_LM):
 
     def _enc_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        lp = fsdp_gather("fsdp_gather", lp, x)
         h = L.apply_norm(lp["ln_attn"], x, cfg.norm_type)
         a, _ = L.attention_apply(lp["attn"], h, cfg, positions=positions, bidirectional=True,
                                  use_rope=False)
-        x = x + a
+        x = _residual(x, a)
         h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act)
+        return _residual(x, L.mlp_apply(lp["mlp"], h, cfg.mlp_act))
 
     def _dec_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor, self_cache,
                    ck: torch.Tensor, cv: torch.Tensor):
         """One decoder layer (the reference's ``_dec_layer``): (x, new_cache)."""
         cfg = self.cfg
+        lp = fsdp_gather("fsdp_gather", lp, x)
         h = L.apply_norm(lp["ln_self"], x, cfg.norm_type)
         a, new_cache = L.attention_apply(lp["self"], h, cfg, positions=positions,
                                          cache=self_cache, use_rope=False)
-        x = x + a
+        x = _residual(x, a)
         h = L.apply_norm(lp["ln_cross"], x, cfg.norm_type)
-        x = x + ED.cross_attention_apply(lp["cross"], h, ck, cv, cfg)
+        x = _residual(x, ED.cross_attention_apply(lp["cross"], h, ck, cv, cfg))
         h = L.apply_norm(lp["ln_mlp"], x, cfg.norm_type)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_act), new_cache
+        return _residual(x, L.mlp_apply(lp["mlp"], h, cfg.mlp_act)), new_cache
 
     def _dec_layer_full(self, x: torch.Tensor, lp: dict, positions: torch.Tensor,
                         memory: torch.Tensor) -> torch.Tensor:
         """A decoder layer without a cache, its cross K/V from ``memory``."""
+        lp = fsdp_gather("fsdp_gather", lp, x)
         ck, cv = ED.cross_kv(lp["cross"], memory)
         return self._dec_layer(lp, x, positions, None, ck, cv)[0]
 
@@ -691,3 +703,92 @@ def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
     cls = EncDecModel if cfg.family == "encdec" else Model
     return cls(cfg, _init_tree(cfg, generator, cast=not train), train=train, remat=remat,
                xent_chunk=xent_chunk)
+
+
+def shapes_and_specs(model_or_cfg, *, serving: bool = False):
+    """(tree of meta tensors, logical specs) of a model's parameters, with
+    nothing allocated: the reference's ``shapes_and_specs``. Given a config
+    (or a model, for its config): the training layout (float32, stacked
+    over "layer", as ``param_tree()``), or with ``serving`` the serving
+    layout (per-layer lists, the dtypes a serving model stores, specs
+    without "layer"). The tree is drawn under ``FakeTensorMode`` and
+    handed back on the meta device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.specs import param_specs
+
+    cfg = model_or_cfg.cfg if isinstance(model_or_cfg, _LM) else model_or_cfg
+    check_supported(cfg)
+    with FakeTensorMode():
+        tree = _init_tree(cfg, torch.Generator(), cast=serving)
+        if not serving:
+            tree = _stacked_tree(cfg, tree)
+    shapes = _meta(tree)
+    return shapes, param_specs(shapes)
+
+
+def _meta(tree):
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta(v) for v in tree]
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def _stacked_tree(cfg: ModelConfig, tree: dict) -> dict:
+    """``_init_tree``'s per-layer tree in the training layout of
+    ``param_tree()`` (float32, stacked over layers)."""
+
+    def stack(layers: list) -> dict:
+        return {part: {k: torch.stack([lp[part][k] for lp in layers]).float() for k in leaves}
+                for part, leaves in layers[0].items()}
+
+    def f32(part: dict) -> dict:
+        return {k: v.float() for k, v in part.items()}
+
+    if cfg.family == "encdec":
+        return {"emb": f32(tree["emb"]),
+                "enc": stack(tree["enc"]) if tree["enc"] else {},
+                "dec": stack(tree["dec"]) if tree["dec"] else {},
+                "ln_enc": f32(tree["ln_enc"]), "ln_dec": f32(tree["ln_dec"])}
+    out = {"emb": f32(tree["emb"])}
+    if cfg.family == "hybrid":
+        plen, n_groups, n_tail = hybrid_layout(cfg)
+        layers = tree["layers"]
+        if n_groups:
+            out["groups"] = {f"b{b}": stack(layers[b:n_groups * plen:plen]) for b in range(plen)}
+        if n_tail:
+            out["tail"] = {f"b{b}": {part: f32(leaves) for part, leaves
+                                     in layers[n_groups * plen + b].items()}
+                           for b in range(n_tail)}
+    else:
+        out["layers"] = stack(tree["layers"])
+    out["ln_f"] = f32(tree["ln_f"])
+    return out
+
+
+def cache_shapes_and_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """(tree of meta tensors, logical specs) of ``init_cache(batch,
+    max_len)``'s cache for ``cfg`` (the reference's ``init_cache`` pair),
+    with nothing allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.specs import cache_specs
+
+    with FakeTensorMode():
+        model = _CacheShapes(cfg)
+        cache = (EncDecModel.init_cache(model, batch, max_len) if cfg.family == "encdec"
+                 else Model.init_cache(model, batch, max_len))
+    return _meta(cache), cache_specs(cfg)
+
+
+class _CacheShapes:
+    """What ``init_cache`` reads of a model: its config, dtype and device."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        self.device = torch.device("cpu")
+
+    def _hybrid_cache(self, batch: int, max_len: int) -> dict:
+        return Model._hybrid_cache(self, batch, max_len)

@@ -12,8 +12,13 @@ tuple of its transforms' states; a moment is a list where the reference
 has a tree of the parameters' structure). The schedule takes the integer
 step and returns a float32 scalar; scalar algebra runs in float32 as the
 reference traces it and reaches torch as Python floats (exact for float32
-values). The reference's ``state_specs`` (sharding) waits for ROADMAP.md
-Queue A 14.9.
+values).
+
+``state_specs(pspecs, pshapes)`` gives the logical sharding specs of the
+state (``distributed/sharding.py``) from the parameters' spec and shape
+trees, in the state's layout: a moment's list holds its leaves' specs in
+flatten order. Moments inherit their parameter's axes; Adafactor's factored
+``vr`` / ``vc`` drop the last and the second-to-last names.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.utils.tree import is_spec_leaf, tree_leaves
+
 __all__ = ["Optimizer", "adamw", "adafactor", "lion", "sgd", "chain", "clip_by_global_norm",
            "apply_updates", "scale_updates"]
 
@@ -29,6 +36,13 @@ __all__ = ["Optimizer", "adamw", "adafactor", "lion", "sgd", "chain", "clip_by_g
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable  # update(grads, state, params, step) -> (updates, new_state)
+    state_specs: Callable | None = None
+    # state_specs(param_logical_specs, param_shapes) -> logical specs of the state
+
+
+def _spec_list(pspecs) -> list:
+    """The parameters' specs as a list in flatten order (a moment's layout)."""
+    return [tuple(s) for s in tree_leaves(pspecs, is_leaf=is_spec_leaf)]
 
 
 def _as_schedule(lr) -> Callable[[int], np.float32]:
@@ -74,7 +88,10 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
 
         return [upd(m_, v_, p) for m_, v_, p in zip(m, v, params)], {"m": m, "v": v}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        return {"m": _spec_list(pspecs), "v": _spec_list(pspecs)}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +144,15 @@ def adafactor(lr, decay=0.8, eps=1e-30, clip_threshold=1.0, weight_decay=0.0) ->
         out = [one(g, s, p) for g, s, p in zip(grads, state, params)]
         return [u for u, _ in out], [s for _, s in out]
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        def one(s, p):
+            if _factored(tuple(p.shape)):
+                return {"vr": s[:-1], "vc": s[:-2] + s[-1:]}
+            return {"v": s}
+
+        return [one(s, p) for s, p in zip(_spec_list(pspecs), tree_leaves(pshapes))]
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +172,10 @@ def lion(lr, b1=0.9, b2=0.99, weight_decay=0.0) -> Optimizer:
         m = [b2 * m_ + (1 - b2) * g for m_, g in zip(state["m"], gf)]
         return updates, {"m": m}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        return {"m": _spec_list(pspecs)}
+
+    return Optimizer(init, update, state_specs)
 
 
 def sgd(lr, momentum=0.0) -> Optimizer:
@@ -166,7 +194,10 @@ def sgd(lr, momentum=0.0) -> Optimizer:
         m = [momentum * m_ + g for m_, g in zip(state["m"], gf)]
         return [-lr_t * m_ for m_ in m], {"m": m}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        return {} if momentum == 0.0 else {"m": _spec_list(pspecs)}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +231,7 @@ def scale_updates(optimizer: Optimizer, scale: float) -> Optimizer:
         updates, new_state = optimizer.update(grads, state, params, step)
         return [u * s for u in updates], new_state
 
-    return Optimizer(optimizer.init, update)
+    return Optimizer(optimizer.init, update, optimizer.state_specs)
 
 
 def chain(*transforms: Optimizer) -> Optimizer:
@@ -219,4 +250,8 @@ def chain(*transforms: Optimizer) -> Optimizer:
             new_states.append(ns)
         return cur, tuple(new_states)
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        return tuple(t.state_specs(pspecs, pshapes) if t.state_specs is not None else {}
+                     for t in transforms)
+
+    return Optimizer(init, update, state_specs)

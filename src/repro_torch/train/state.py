@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from repro_torch.checkpoint.manager import flatten_with_names
+from repro_torch.utils.tree import tree_leaves  # noqa: F401  (the flatten order, re-exported)
 
 
 class TrainState(NamedTuple):
@@ -16,12 +16,6 @@ class TrainState(NamedTuple):
 
     def replace(self, **kw) -> "TrainState":
         return self._replace(**kw)
-
-
-def tree_leaves(tree) -> list:
-    """A tree's leaves in the reference's flatten order (sorted dict keys,
-    field and list order)."""
-    return [x for _, x in flatten_with_names(tree)]
 
 
 def init_train_state(params, optimizer) -> TrainState:

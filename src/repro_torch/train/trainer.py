@@ -8,8 +8,17 @@ params are a training model's ``param_tree()``:
     order, then scaled by 1/microbatches (the reference's ``lax.scan``);
   * the optimizer's update, applied to the masters in place.
 
-``make_serve_steps`` returns the prefill and decode functions. The sharded
-step (``shard_train_step``) waits for ROADMAP.md Queue A 14.9.
+``shard_train_step`` runs that step on DTensors over a ``DeviceMesh`` whose
+dimension names are the reference's mesh axes: the parameters and the
+optimizer state are distributed by their resolved logical specs
+(``distributed/sharding.py``: FSDP "embed → data", the model axis for heads,
+mlp, vocab, experts), the batch is sharded on its leading dim, and
+DTensor's sharding propagation places every op between (the reference's
+GSPMD). Where DTensor has no sharding rule for an op of the model, the
+model redistributes the operand explicitly at a named point
+(``distributed/sharding.py``), which acts only inside the step's
+``sharding.dtensor_run()``. ``make_serve_steps`` returns the prefill and decode
+functions.
 """
 from __future__ import annotations
 
@@ -17,8 +26,10 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import dtensor_run, is_dtensor, split_microbatches
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.train.state import TrainState, tree_leaves
+from repro_torch.train.state import TrainState
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["microbatch_split", "tree_acc", "loss_and_grads", "make_train_step",
            "make_serve_steps", "shard_train_step"]
@@ -32,7 +43,7 @@ def microbatch_split(batch: dict, microbatches: int) -> dict:
         b = x.shape[0]
         if b % microbatches:
             raise ValueError(f"a batch of {b} does not split into {microbatches} microbatches")
-        return x.reshape(microbatches, b // microbatches, *x.shape[1:])
+        return split_microbatches("microbatch_split", x, microbatches)
 
     return {k: reshape(v) for k, v in batch.items()}
 
@@ -70,7 +81,7 @@ def make_train_step(
         mb = microbatch_split(batch, microbatches)
         leaves = tree_leaves(params)
         loss_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        grads_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        grads_acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in range(microbatches):
             loss, _, grads = loss_and_grads(model, params, {k: v[i] for k, v in mb.items()})
             loss_acc, grads_acc = tree_acc(loss_acc, loss), tree_acc(grads_acc, grads)
@@ -90,9 +101,117 @@ def make_train_step(
     return train_step
 
 
-def shard_train_step(*args, **kwargs):
-    """The step under the sharding rules: not ported yet."""
-    raise NotImplementedError("shard_train_step (the sharding rules): ROADMAP.md Queue A 14.9")
+def shard_train_step(
+    train_step,
+    model,
+    optimizer: Optimizer,
+    mesh,
+    rules=None,
+    *,
+    params_shapes=None,
+    specs=None,
+    batch_shapes: dict | None = None,
+    donate: bool = True,
+):
+    """The step with the parameters, the optimizer state and the batch
+    distributed by their resolved logical specs over the ``DeviceMesh``
+    ``mesh``. Returns ``(step, state_shardings, batch_shardings)``:
+    ``TrainState``-shaped and dict trees of ``sharding.NamedSharding``
+    (``batch_shardings`` None without ``batch_shapes``: the batch's own
+    leaves are then sharded on their leading dim).
+
+    ``step(state, batch)`` takes ``init_train_state(model.param_tree(),
+    optimizer)`` with the same values on every rank (a rank keeps its
+    shards; nothing is sent) or a state it returned, and a global batch,
+    the same on every rank; it returns the sharded state and the metrics
+    as plain tensors, the same on every rank. The first call distributes
+    the model's masters in place (its ``param_tree()`` then holds
+    DTensors), as the reference's jit moves its arguments to their
+    shardings. Collective: every rank calls it. ``donate`` is the
+    reference's argument: the state's tensors are always reused."""
+    from repro_torch.distributed.sharding import (batch_specs, default_rules, replicated,
+                                                  resolve_tree)
+
+    del donate  # the step updates the masters in place, as a donated jit would
+    rules = rules or default_rules(mesh)
+    if params_shapes is None or specs is None:
+        from repro_torch.models.transformer import shapes_and_specs
+
+        params_shapes, specs = shapes_and_specs(model)
+    param_sh = resolve_tree(specs, params_shapes, mesh, rules)
+    opt_shapes = optimizer.init(tree_leaves(_on_meta(params_shapes)))
+    if optimizer.state_specs is not None:
+        opt_sh = resolve_tree(optimizer.state_specs(specs, params_shapes), opt_shapes, mesh, rules)
+    else:
+        opt_sh = tree_map(lambda _: replicated(mesh), opt_shapes)
+    state_sh = TrainState(step=replicated(mesh), params=param_sh, opt_state=opt_sh)
+    batch_sh = batch_specs(batch_shapes, mesh, rules) if batch_shapes is not None else None
+
+    def shard_state(state: TrainState) -> TrainState:
+        """``state`` with the model's masters distributed in place and the
+        optimizer state sharded (a state already sharded as it is)."""
+        if is_dtensor(tree_leaves(state.params)[0]):
+            return state
+        _distribute_masters(model, state.params, param_sh)
+        return state.replace(params=model.param_tree(),
+                             opt_state=_shard_tree(state.opt_state, opt_sh))
+
+    def step(state: TrainState, batch: dict):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        state = shard_state(state)
+        sh = batch_sh if batch_sh is not None else batch_specs(batch, mesh, rules)
+        dev = tree_leaves(state.params)[0].device
+        batch = {k: _distribute(torch.as_tensor(v).to(dev), sh[k]) for k, v in batch.items()}
+        with implicit_replication(), dtensor_run():
+            state, metrics = train_step(state, batch)
+        state = state.replace(opt_state=_shard_tree(state.opt_state, opt_sh))
+        return state, {k: _plain(v) for k, v in metrics.items()}
+
+    step.shard_state = shard_state
+    return step, state_sh, batch_sh
+
+
+def _on_meta(tree):
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
+
+
+def _distribute(x: torch.Tensor, sharding):
+    """``x`` (the same full tensor on every rank) as a DTensor of
+    ``sharding``, or redistributed to it if it is one: a rank keeps its own
+    block and sends nothing (``src_data_rank=None``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if is_dtensor(x):
+        return x.redistribute(sharding.mesh, sharding.placements)
+    return distribute_tensor(x, sharding.mesh, sharding.placements, src_data_rank=None)
+
+
+def _shard_tree(tree, shardings):
+    return tree_map(lambda sh, x: _distribute(x, sh), shardings, tree,
+                    is_leaf=lambda n: hasattr(n, "placements"))
+
+
+def _plain(x):
+    """A metric as a plain tensor (collective for a DTensor)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _distribute_masters(model, params, shardings) -> None:
+    """Replace each of the model's master parameters (the leaves of
+    ``params``, its ``param_tree()``) with a DTensor parameter of its
+    sharding, in the ``ParameterDict`` that holds it."""
+    from torch import nn
+
+    owner = {}
+    for mod in model.modules():
+        if isinstance(mod, nn.ParameterDict):
+            for k, p in mod.items():
+                owner[id(p)] = (mod, k)
+    for p, sh in zip(tree_leaves(params),
+                     tree_leaves(shardings, is_leaf=lambda n: hasattr(n, "placements"))):
+        mod, k = owner[id(p)]
+        mod[k] = nn.Parameter(_distribute(p.detach(), sh), requires_grad=p.requires_grad)
 
 
 def make_serve_steps(model):

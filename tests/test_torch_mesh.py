@@ -67,9 +67,16 @@ def test_mesh_shapes_and_refusals(monkeypatch):
         pod.check_axis("data")
     mesh = stages.data_mesh(device="cpu")
     assert mesh.world == 1 and mesh.group is None and LM.data_axes(mesh) == ("data",)
-    assert LM.make_host_mesh(device="cpu").world == 1
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
+    # the LM's mesh: a DeviceMesh at any model, over a world of 1 here
+    with pytest.raises(ValueError, match="divisible"):
         LM.make_host_mesh(model=2, device="cpu")
+    import torch.distributed as dist
+    host = LM.make_host_mesh(device="cpu")
+    try:
+        assert host.mesh_dim_names == ("data", "model") and tuple(host.shape) == (1, 1)
+        assert LM.data_axes(host) == ("data",)
+    finally:
+        dist.destroy_process_group()
     # the production meshes are fake worlds (rank 0 of 16 or 32 data shards)
     for multi_pod, shards, chips, axes in ((False, 16, 256, ("data",)),
                                            (True, 32, 512, ("pod", "data"))):

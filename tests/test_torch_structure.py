@@ -31,11 +31,12 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     """Without device=, the entry points ask for CUDA and raise where there
-    is none; they never carry on on the CPU. The pod dry run
-    (``launch/dryrun_coreset.py``, ``launch.mesh.make_production_mesh``) is
-    not among them: it traces rank 0's program under fake tensors on a fake
-    world, CPU-only by nature, as the reference's is on placeholder
-    devices."""
+    is none; they never carry on on the CPU. The pod dry runs
+    (``launch/dryrun_coreset.py``, the LM's ``launch/dryrun.py``,
+    ``launch.mesh.make_production_mesh`` and ``make_production_device_mesh``)
+    are not among them: they trace
+    rank 0's program on fake or meta tensors in a fake world, CPU-only by
+    nature, as the reference's do on placeholder devices."""
     from repro_torch.core import bernstein as TB
     from repro_torch.core import coreset as TC
     from repro_torch.core import mctm as TM
@@ -49,6 +50,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch.launch import serve_mctm
     from repro_torch.distributed import DataMesh, run_world
     from repro_torch.launch.stages import data_mesh
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import DensityServeEngine, ServeEngine
     from repro_torch.analysis import audit_program, get_program
     import importlib.util
@@ -106,6 +108,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1"]),
         lambda: DataMesh(),
         lambda: data_mesh(),
+        lambda: make_host_mesh(),
+        lambda: make_host_mesh(model=2),
         lambda: run_world(print, 2, backend="gloo"),
         lambda: train_mctm.main(["--n", "100", "--ks", "10", "--steps", "1",
                                  "--inject-failures"]),
@@ -430,18 +434,17 @@ def test_cuda_constants_match_the_sources():
 
 # Names of the reference's public API that the port does not carry, each
 # with its reason. jax only (ROADMAP Queue A, "not ported by design"): the
-# factories of jitted shard_map bodies and the backend selectors and block
-# sizes of the Pallas wrappers. The LM zoo's (Queue A 14) until it is ported:
-# the sharding rules and the sharded train step (A14.9).
+# factories of jitted shard_map bodies, the backend selectors and block
+# sizes of the Pallas wrappers, and the JAX PRNG-key helpers of
+# ``utils/prng.py`` (the port draws from ``torch.Generator``s, which have no
+# keys to split or fold).
 _EXPORT_WAIVERS = {
     "core.distributed_coreset": {"make_sharded_pass_fns", "make_sharded_onepass_fn",
                                  "make_segmented_pass_fns", "make_segmented_onepass_fn"},
     "core.streaming": {"make_sharded_drift_nll_fn"},
     "kernels.extremes": {"default_extremes_backend"},
     "kernels.sweep.ops": {"DEFAULT_BLOCK_ROWS", "default_sweep_backend"},
-    "distributed": {"ShardingRules", "batch_specs", "default_rules", "replicated",
-                    "resolve_spec", "resolve_tree"},
-    "train": {"shard_train_step"},
+    "utils": {"key_iter", "fold_in_str"},
 }
 
 
